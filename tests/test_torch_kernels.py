@@ -1,0 +1,125 @@
+"""The Hopper kernel wrappers: device rules here, kernel vs plain on the card.
+
+This file imports no jax, so it also runs on a GPU machine without it:
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -q
+
+On a machine without a CUDA GPU the ``cuda`` tests skip.
+"""
+
+import pytest
+import torch
+
+from tiny_audio_tpu_torch import kernels
+from tiny_audio_tpu_torch.ops import attention as tattn
+from tiny_audio_tpu_torch.ops.encoder_attention import (
+    encoder_attention,
+    encoder_attention_plain,
+)
+from tiny_audio_tpu_torch.ops.prefill_attention import (
+    prefill_attention,
+    prefill_attention_plain,
+)
+
+torch.set_num_threads(1)
+# bf16 kernel vs plain version on the same inputs: both round P and the
+# output to bf16 (chip_smoke.py states the derivation)
+KERNEL_ATOL, KERNEL_RTOL = 1e-2, 2.0**-6
+
+
+def test_cpu_calls_launch_no_kernel():
+    encoder_attention.launches = prefill_attention.launches = 0
+    x = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    tattn.encoder_self_attention(x, x, x, torch.ones((1, 8), dtype=torch.int32))
+    tattn.causal_self_attention(x, x, x, torch.ones((1, 8), dtype=torch.int32))
+    assert encoder_attention.launches == 0 and prefill_attention.launches == 0
+
+
+@pytest.fixture
+def pretend_cuda(monkeypatch, tmp_path):
+    """CPU tensors that report ``is_cuda`` and no CUDA toolkit: a wrapper
+    must then take the kernel route and raise, never run the plain version."""
+    if torch.cuda.is_available():
+        pytest.skip("a real GPU is present; the kernel tests below cover it")
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(kernels, "BUILD_ROOT", tmp_path / "build")
+    kernels.build.cache_clear()
+    kernels.library.cache_clear()
+    yield
+    kernels.build.cache_clear()
+    kernels.library.cache_clear()
+
+
+def test_cuda_tensor_never_falls_back(pretend_cuda):
+    encoder_attention.launches = prefill_attention.launches = 0
+    x = torch.zeros((1, 8, 2 * 64), dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        encoder_attention(x, x, x, None, 2)
+    y = torch.zeros((1, 8, 2, 128), dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        prefill_attention(y, y, y, None)
+    with pytest.raises(TypeError):
+        encoder_attention(x.float(), x.float(), x.float(), None, 2)
+    with pytest.raises(ValueError, match="head_dim"):
+        z = y[..., :16].contiguous()
+        prefill_attention(z, z, z, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        prefill_attention(y.transpose(1, 2), y.transpose(1, 2), y.transpose(1, 2), None)
+    assert encoder_attention.launches == 0 and prefill_attention.launches == 0
+
+
+# ---------------------------------------------------------------- on the card
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels are built with nvcc for sm_90a)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, valid):
+    torch.testing.assert_close(
+        got[valid].float(), want[valid].float(), atol=KERNEL_ATOL, rtol=KERNEL_RTOL
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,d", [(2, 1500, 20, 64), (4, 1500, 20, 64), (1, 77, 2, 64), (3, 64, 4, 64)])
+def test_encoder_kernel_matches_plain(cuda_device, b, t, h, d):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn((b, t, h * d), generator=g, device=cuda_device)
+               .to(torch.bfloat16) for _ in range(3))
+    mask = torch.ones((b, t), dtype=torch.int32, device=cuda_device)
+    mask[-1, t // 2:] = 0
+    before = encoder_attention.launches
+    got = encoder_attention(q, k, v, mask, h)
+    assert encoder_attention.launches == before + 1
+    _close(got, encoder_attention_plain(q, k, v, mask, h), mask.bool())
+    # no mask, and a fully masked row: the plain version's uniform average
+    _close(encoder_attention(q, k, v, None, h), encoder_attention_plain(q, k, v, None, h),
+           torch.ones_like(mask, dtype=torch.bool))
+    mask[0] = 0
+    got = encoder_attention(q, k, v, mask, h)
+    assert torch.isfinite(got).all()
+    _close(got, encoder_attention_plain(q, k, v, mask, h), torch.ones_like(mask, dtype=torch.bool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,hq,hkv,d", [(2, 468, 16, 8, 128), (4, 468, 16, 8, 128), (1, 130, 4, 4, 128), (2, 64, 8, 2, 128)])
+def test_prefill_kernel_matches_plain(cuda_device, b, t, hq, hkv, d):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn((b, t, hq, d), generator=g, device=cuda_device).to(torch.bfloat16)
+    k, v = (torch.randn((b, t, hkv, d), generator=g, device=cuda_device)
+            .to(torch.bfloat16) for _ in range(2))
+    mask = torch.ones((b, t), dtype=torch.int32, device=cuda_device)
+    mask[-1, t - 30:] = 0
+    before = prefill_attention.launches
+    got = prefill_attention(q, k, v, mask)
+    assert prefill_attention.launches == before + 1
+    _close(got, prefill_attention_plain(q, k, v, mask), mask.bool())
+    _close(prefill_attention(q, k, v, None), prefill_attention_plain(q, k, v, None),
+           torch.ones_like(mask, dtype=torch.bool))

@@ -1,0 +1,20 @@
+"""tiny-audio-tpu on PyTorch + CUDA: the serving path for one NVIDIA H100.
+
+A port of :mod:`tiny_audio_tpu` (the JAX reference, which stays beside it):
+mel -> audio encoder -> MLP projector -> ``<audio>`` splice -> Qwen3 prefill
+-> KV-cached greedy decode -> text.  Plain tensor code is PyTorch; the two
+attention kernels the JAX package ran in Pallas on the TPU (encoder attention
+and causal prefill attention) are CUDA C++ written for Hopper
+(``csrc/attention.cu``), each with a plain PyTorch version that serves CPU
+tensors and the tests.
+
+The configuration classes, the tokenizer and the pipeline's post-processing
+are shared with the JAX package (those modules import no jax).
+"""
+
+from tiny_audio_tpu.config import (  # noqa: F401
+    ASRConfig,
+    DecoderConfig,
+    EncoderConfig,
+    compute_encoder_output_length,
+)

@@ -1,0 +1,235 @@
+"""ASRModel: audio encoder + MLP projector + Qwen3 decoder, serving path.
+
+Port of the inference half of :class:`tiny_audio_tpu.models.asr.ASRModel`:
+mel mask -> encoder -> projector -> row-aligned ``<audio>`` splice ->
+KV-cached greedy decode.  Not ported yet (ROADMAP.md): streaming generation,
+loading a JAX checkpoint, training, LoRA and the quantized decode modes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from tiny_audio_tpu.config import ASRConfig, compute_encoder_output_length
+from tiny_audio_tpu.tokenization import AUDIO_TOKEN, ByteTokenizer
+from tiny_audio_tpu_torch.generation import GenerationConfig, check_supported, generate_tokens
+from tiny_audio_tpu_torch.models.decoder import Qwen3Decoder
+from tiny_audio_tpu_torch.models.encoder import AudioEncoder
+from tiny_audio_tpu_torch.models.layers import sinusoidal_positions
+from tiny_audio_tpu_torch.models.projectors import create_projector
+
+TRANSCRIBE_PROMPT = "Transcribe the speech to text"
+
+#: generate-time prompts are right-padded to a multiple of this (same
+#: bucketing as the JAX package, so both decode the same padded prompt)
+PROMPT_BUCKET = 64
+
+# stddev of a standard normal truncated to (-2, 2): flax's lecun_normal
+# divides by it so the truncated draw keeps variance 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def splice_audio(
+    text_embeds: torch.Tensor,
+    audio_token_mask: torch.Tensor,
+    audio_embeds: torch.Tensor,
+) -> torch.Tensor:
+    """Row-aligned splice: j-th True position of row b <- audio_embeds[b, j]."""
+    idx_in_row = torch.cumsum(audio_token_mask.to(torch.int64), dim=1) - 1
+    idx_in_row = torch.clamp(idx_in_row, 0, audio_embeds.shape[1] - 1)
+    gathered = torch.take_along_dim(audio_embeds, idx_in_row[:, :, None], dim=1)
+    return torch.where(
+        audio_token_mask[:, :, None].to(torch.bool),
+        gathered.to(text_embeds.dtype),
+        text_embeds,
+    )
+
+
+class ASRModel(nn.Module):
+    """Encoder + projector + decoder on one device.
+
+    ``ASRModel(config, tokenizer=None, seed=0, device=...)`` builds the
+    towers at the config's widths with random weights drawn from a seeded
+    ``torch.Generator`` on ``device``, following the JAX package's flax
+    defaults (lecun-normal Dense/Conv kernels, zero biases, unit norms,
+    flax's Embed init, sinusoidal encoder positions).  Load real weights
+    with :func:`tiny_audio_tpu_torch.bridge.load_jax_params`.
+    """
+
+    TRANSCRIBE_PROMPT = TRANSCRIBE_PROMPT
+
+    def __init__(
+        self,
+        config: ASRConfig,
+        tokenizer=None,
+        seed: int = 0,
+        device="cpu",
+    ):
+        super().__init__()
+        if config.use_lora:
+            raise NotImplementedError("LoRA is not ported to PyTorch yet (ROADMAP.md)")
+        self.config = config
+        self.device = torch.device(device)
+        dtype = torch.bfloat16 if config.model_dtype == "bfloat16" else torch.float32
+        self.dtype = dtype
+        dec_cfg = config.decoder
+        if config.kv_cache_dtype != dec_cfg.kv_cache_dtype:
+            # non-default side wins; conflicting customizations are an error
+            if dec_cfg.kv_cache_dtype == "bfloat16":
+                dec_cfg = dataclasses.replace(dec_cfg, kv_cache_dtype=config.kv_cache_dtype)
+            elif config.kv_cache_dtype != "bfloat16":
+                raise ValueError(
+                    "kv_cache_dtype disagrees between ASRConfig "
+                    f"({config.kv_cache_dtype!r}) and DecoderConfig "
+                    f"({dec_cfg.kv_cache_dtype!r})"
+                )
+        self.encoder = AudioEncoder(config.encoder, dtype=dtype, device=self.device)
+        self.projector = create_projector(config, dtype=dtype, device=self.device)
+        self.decoder = Qwen3Decoder(dec_cfg, dtype=dtype, device=self.device)
+        self.tokenizer = tokenizer or ByteTokenizer(config.decoder.vocab_size)
+        self.system_prompt = config.system_prompt
+        self.gen_config = GenerationConfig.from_asr_config(
+            config, self.tokenizer.eos_token_ids, self.tokenizer.pad_token_id
+        )
+        self.requires_grad_(False)
+        self.init_weights(seed)
+
+    # ------------------------------------------------------------------ init
+
+    @torch.no_grad()
+    def init_weights(self, seed: int = 0) -> None:
+        """Random weights from ``seed`` (flax's default initializers)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+
+        def trunc_normal(w: torch.Tensor, fan_in: int) -> None:
+            tmp = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+            nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=gen)
+            w.copy_(tmp * (math.sqrt(1.0 / fan_in) / _TRUNC_STD))
+
+        for module in self.modules():
+            if isinstance(module, nn.Linear):
+                trunc_normal(module.weight, module.in_features)
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, nn.Conv1d):
+                trunc_normal(module.weight, module.in_channels * module.kernel_size[0])
+                module.bias.zero_()
+            elif isinstance(module, nn.Embedding):
+                tmp = torch.empty(module.weight.shape, dtype=torch.float32, device=self.device)
+                tmp.normal_(0.0, math.sqrt(1.0 / module.embedding_dim), generator=gen)
+                module.weight.copy_(tmp)
+        enc = self.config.encoder
+        self.encoder.embed_positions.copy_(
+            sinusoidal_positions(enc.max_source_positions, enc.d_model, device=self.device)
+        )
+
+    # ------------------------------------------------------------- audio path
+
+    def _encode_audio(
+        self, input_features: torch.Tensor, audio_attention_mask: torch.Tensor
+    ) -> torch.Tensor:
+        """Mel -> encoder -> projector: [B, T_proj, llm_dim] audio embeds."""
+        hidden = self.encoder(input_features, frame_mask=audio_attention_mask)
+        return self.projector(hidden)
+
+    def _num_audio_tokens(self, mel_length: int) -> int:
+        enc_len = compute_encoder_output_length(
+            int(mel_length), self.config.encoder_conv_layers
+        )
+        return int(self.projector.get_output_length(enc_len))
+
+    def mel_window_frames(self) -> int:
+        """Max mel frames one encoder pass accepts (3000 for the 30 s window)."""
+        stride = 1
+        for _, _, s in self.config.encoder_conv_layers:
+            stride *= s
+        return self.config.encoder.max_source_positions * stride
+
+    def _bucket_prompt_len(self, t_real: int, n_audio: int) -> int:
+        """Padded prompt length: next PROMPT_BUCKET multiple, clamped to the
+        full-encoder-window prompt length (so a 30 s clip pads zero rows)."""
+        t_max = t_real - n_audio + self._num_audio_tokens(self.mel_window_frames())
+        bucketed = -(-t_real // PROMPT_BUCKET) * PROMPT_BUCKET
+        return max(min(bucketed, t_max), t_real)
+
+    def build_prompt_ids(
+        self,
+        num_audio_tokens: int,
+        user_prompt: Optional[str] = None,
+        system_prompt: Optional[str] = None,
+    ) -> list[int]:
+        """Chat-templated prompt with N audio placeholders."""
+        prompt = self.TRANSCRIBE_PROMPT if user_prompt is None else user_prompt
+        user_content = AUDIO_TOKEN * num_audio_tokens
+        if prompt:
+            user_content += " " + prompt
+        messages = []
+        sp = self.system_prompt if system_prompt is None else system_prompt
+        if sp:
+            messages.append({"role": "system", "content": sp})
+        messages.append({"role": "user", "content": user_content})
+        ids = self.tokenizer.apply_chat_template(
+            messages, tokenize=True, add_generation_prompt=True, enable_thinking=False
+        )
+        return list(map(int, ids))
+
+    # -------------------------------------------------------------- inference
+
+    @torch.inference_mode()
+    def generate(
+        self,
+        input_features,
+        audio_attention_mask,
+        user_prompt: Optional[str] = None,
+        system_prompt: Optional[str] = None,
+        mel_length: Optional[int] = None,
+        **overrides,
+    ):
+        """Transcribe a batch.  Returns generated token ids [B, max_new] as
+        numpy (pad after EOS), prompt stripped; with ``return_scores=True``
+        (a GenerationConfig override) returns ``(tokens, scores)``.
+
+        ``mel_length``: batch-max real mel frames when the caller knows it
+        (the processor does), which saves a device->host sync."""
+        input_features = torch.as_tensor(input_features, device=self.device)
+        audio_attention_mask = torch.as_tensor(audio_attention_mask, device=self.device)
+        b = input_features.shape[0]
+        real_mel = (
+            int(mel_length) if mel_length is not None
+            else int(audio_attention_mask.sum(dim=-1).max())
+        )
+        n_audio = self._num_audio_tokens(real_mel)
+        ids = self.build_prompt_ids(n_audio, user_prompt, system_prompt)
+
+        gen = dataclasses.replace(self.gen_config, **overrides) if overrides else self.gen_config
+        check_supported(gen)
+
+        # Right-pad the prompt to a PROMPT_BUCKET multiple, as the JAX
+        # package does; pad rows are causally invisible to the real rows.
+        t_real = len(ids)
+        t_pad = self._bucket_prompt_len(t_real, n_audio)
+        ids_np = np.full((b, t_pad), gen.pad_token_id, np.int64)
+        ids_np[:, :t_real] = ids
+        input_ids = torch.from_numpy(ids_np).to(self.device)
+        prompt_mask = torch.arange(t_pad, device=self.device)[None, :] < t_real
+
+        audio_embeds = self._encode_audio(input_features, audio_attention_mask)
+        text_embeds = self.decoder.embed(input_ids)
+        audio_mask = (input_ids == self.tokenizer.audio_token_id) & prompt_mask
+        inputs_embeds = splice_audio(text_embeds, audio_mask, audio_embeds)
+        out = generate_tokens(self.decoder, inputs_embeds, input_ids, gen, prompt_len=t_real)
+        if gen.return_scores:
+            tokens, _, scores = out
+            return tokens.cpu().numpy(), scores.cpu().numpy()
+        return out[0].cpu().numpy()
+
+    def generate_streaming(self, *args, **kwargs):
+        raise NotImplementedError(
+            "streaming generation is not ported to PyTorch yet (ROADMAP.md)"
+        )

@@ -1,0 +1,199 @@
+"""Qwen3-style causal language model in PyTorch.
+
+Port of :mod:`tiny_audio_tpu.models.decoder`: GQA + per-head QK RMSNorm +
+RoPE (NeoX layout) + SwiGLU + pre-LN RMSNorm, tied embeddings by default,
+plus the Llama (``qk_norm=False``) and Gemma-v1 (``rms_norm_offset``, GeGLU,
+``embedding_normalizer``) knobs.  One module per layer.
+
+KV cache: a dict of tensors ``[L, B, S, Hkv, D]`` (bf16, or int8 with fp32
+per-entry scales ``[L, B, S, Hkv]``), updated IN PLACE: prefill writes its
+post-rope K/V at ``cache_index``; a decode step attends over the stale cache
+plus the fresh row and then writes that row, once per layer per step.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tiny_audio_tpu.config import DecoderConfig
+from tiny_audio_tpu_torch.models.layers import RMSNorm, apply_rotary, rms_norm, rotary_embed
+from tiny_audio_tpu_torch.ops.attention import causal_self_attention, decode_step_attention
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-entry symmetric int8 quantization over the head dim.
+
+    x: [..., D] -> (int8 [..., D], fp32 scale [...]).  Rounds half to even,
+    as ``jnp.round`` does.
+    """
+    x = x.to(torch.float32)
+    amax = x.abs().amax(dim=-1)
+    scale = torch.clamp(amax / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+class Qwen3Block(nn.Module):
+    def __init__(self, cfg: DecoderConfig, dtype: torch.dtype, device=None):
+        super().__init__()
+        if cfg.lora_rank > 0:
+            raise NotImplementedError("LoRA is not ported to PyTorch yet (ROADMAP.md)")
+        self.cfg = cfg
+        self.dtype = dtype
+        hd = cfg.head_dim
+        kw = dict(bias=False, dtype=dtype, device=device)
+        offset = 1.0 if cfg.rms_norm_offset else 0.0
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, offset, device)
+        self.q_proj = nn.Linear(cfg.hidden_size, cfg.num_heads * hd, **kw)
+        self.k_proj = nn.Linear(cfg.hidden_size, cfg.num_kv_heads * hd, **kw)
+        self.v_proj = nn.Linear(cfg.hidden_size, cfg.num_kv_heads * hd, **kw)
+        self.o_proj = nn.Linear(cfg.num_heads * hd, cfg.hidden_size, **kw)
+        if cfg.qk_norm:
+            self.q_norm = nn.Parameter(torch.ones(hd, dtype=torch.float32, device=device))
+            self.k_norm = nn.Parameter(torch.ones(hd, dtype=torch.float32, device=device))
+        self.post_attention_layernorm = RMSNorm(
+            cfg.hidden_size, cfg.rms_norm_eps, offset, device
+        )
+        self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
+        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
+        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        cos: torch.Tensor,
+        sin: torch.Tensor,
+        padding_mask: Optional[torch.Tensor],
+        layer_cache: Optional[dict],
+        cache_index: int,
+        step_kv_valid: Optional[torch.Tensor],
+    ) -> torch.Tensor:
+        """One block.  ``layer_cache``: None (causal forward over x) or this
+        layer's cache views; T > 1 is a prefill, T == 1 a decode step."""
+        cfg = self.cfg
+        b, t, _ = x.shape
+        hd = cfg.head_dim
+
+        residual = x
+        x = self.input_layernorm(x)
+        q = self.q_proj(x).reshape(b, t, cfg.num_heads, hd)
+        k = self.k_proj(x).reshape(b, t, cfg.num_kv_heads, hd)
+        v = self.v_proj(x).reshape(b, t, cfg.num_kv_heads, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, self.q_norm, cfg.rms_norm_eps)
+            k = rms_norm(k, self.k_norm, cfg.rms_norm_eps)
+        q = apply_rotary(q, cos, sin)
+        k = apply_rotary(k, cos, sin)
+
+        if layer_cache is not None and t == 1:
+            out = decode_step_attention(
+                q, layer_cache["k"], layer_cache["v"], step_kv_valid,
+                fresh_k=k, fresh_v=v,
+                k_scale=layer_cache.get("k_scale"), v_scale=layer_cache.get("v_scale"),
+            )
+        else:
+            out = causal_self_attention(q, k, v, padding_mask)
+        if layer_cache is not None:
+            _write_cache(layer_cache, k, v, cache_index)
+        x = residual + self.o_proj(out.reshape(b, t, -1))
+
+        residual = x
+        x = self.post_attention_layernorm(x)
+        gate, up = self.gate_proj(x), self.up_proj(x)
+        act = F.silu(gate) if cfg.hidden_activation == "silu" else F.gelu(gate, approximate="tanh")
+        return residual + self.down_proj(act * up)
+
+
+def _write_cache(layer_cache: dict, k: torch.Tensor, v: torch.Tensor, index: int) -> None:
+    """IN-PLACE write of fresh K/V [B, T, Hkv, D] at rows index..index+T-1
+    of one layer's cache (quantized when the cache is int8)."""
+    rows = slice(index, index + k.shape[1])
+    if "k_scale" in layer_cache:
+        for name, x in (("k", k), ("v", v)):
+            x_q, x_s = quantize_kv(x)
+            layer_cache[name][:, rows] = x_q
+            layer_cache[f"{name}_scale"][:, rows] = x_s
+    else:
+        layer_cache["k"][:, rows] = k
+        layer_cache["v"][:, rows] = v
+
+
+class Qwen3Decoder(nn.Module):
+    """Causal LM.  Call modes:
+
+    - prefill: pass a cache from :meth:`init_cache` and ``cache_index=0``;
+      the cache is filled in place;
+    - decode: T == 1, ``cache_index`` = current length, ``step_kv_valid``
+      marking the cache rows before it;
+    - no cache: causal forward over the inputs.
+    """
+
+    def __init__(self, cfg: DecoderConfig, dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        self.embed_tokens = nn.Embedding(
+            cfg.vocab_size, cfg.hidden_size, dtype=dtype, device=device
+        )
+        self.layers = nn.ModuleList(
+            Qwen3Block(cfg, dtype, device) for _ in range(cfg.num_layers)
+        )
+        self.norm = RMSNorm(
+            cfg.hidden_size, cfg.rms_norm_eps, 1.0 if cfg.rms_norm_offset else 0.0, device
+        )
+        if not cfg.tie_word_embeddings:
+            self.lm_head = nn.Linear(
+                cfg.hidden_size, cfg.vocab_size, bias=False, dtype=dtype, device=device
+            )
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.embed_tokens(input_ids)
+
+    def forward(
+        self,
+        inputs_embeds: torch.Tensor,
+        positions: torch.Tensor,
+        padding_mask: Optional[torch.Tensor] = None,
+        step_kv_valid: Optional[torch.Tensor] = None,
+        cache: Optional[dict] = None,
+        cache_index: int = 0,
+        last_logit_index: Optional[int] = None,
+    ) -> torch.Tensor:
+        """Returns logits [B, T', V] (T' = 1 with ``last_logit_index``)."""
+        cfg = self.cfg
+        cos, sin = rotary_embed(positions, cfg.head_dim, cfg.rope_theta)
+        x = inputs_embeds.to(self.dtype)
+        if cfg.embedding_normalizer:
+            # scalar cast to the compute dtype first, as HF GemmaModel does
+            x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=self.dtype)
+        for i, layer in enumerate(self.layers):
+            layer_cache = None
+            if cache is not None:
+                layer_cache = {name: buf[i] for name, buf in cache.items()}
+            x = layer(x, cos, sin, padding_mask, layer_cache, cache_index, step_kv_valid)
+        x = self.norm(x)
+        if last_logit_index is not None:
+            x = x[:, last_logit_index : last_logit_index + 1]
+        if cfg.tie_word_embeddings:
+            return F.linear(x, self.embed_tokens.weight)
+        return self.lm_head(x)
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        cfg = self.cfg
+        device = self.embed_tokens.weight.device
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        if cfg.kv_cache_dtype == "int8":
+            return {
+                "k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            }
+        return {
+            "k": torch.zeros(shape, dtype=self.dtype, device=device),
+            "v": torch.zeros(shape, dtype=self.dtype, device=device),
+        }
