@@ -3,22 +3,32 @@
 
     python3 chip_smoke.py
 
-Builds the Hopper kernels from ``tiny_audio_tpu_torch/csrc``, holds each
-against its plain PyTorch version on random inputs, then drives the port's
-serving path at the flagship width (random weights from seed 0):
-``ASRModel.generate`` on 4 x 30 s of audio with the int8 KV cache, and
-``ASRPipeline`` on three requests.  The inputs the serving path gave each
-kernel in its first layer are kept, and each kernel is held against its plain
-version once more on exactly those tensors.  Each phase prints one line; the line
-before the last is a JSON object with every kernel's launches on the
-serving path, error against its plain version and both times; the last line
-is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and so
-does a machine without a CUDA device: nothing falls back to the CPU.
+Builds the Hopper kernels from ``tiny_audio_tpu_torch/csrc`` (one ``nvcc`` per
+source, started together), holds each against its plain PyTorch version on
+random inputs, then drives the port at the flagship width (random weights
+from seed 0, int8 KV cache):
+
+- ``ASRModel.generate`` on 4 x 30 s of audio, 128 tokens, on the fused
+  decode path (kernel #4 per layer and step, the default on the card) and on
+  the module path (``fused_decode=False``: kernel #3 plus the cache write);
+- ``ASRPipeline`` on three requests;
+- ``ASRPipeline.transcribe_streaming`` on one 30 s clip, 32 tokens.
+
+Every kernel's launch count is set to 0 just before each path and read just
+after; the inputs the path gave each kernel in its first layer are kept,
+and each kernel is held against its plain version once more on exactly
+those tensors, where its time, its plain version's, its bound and (where
+one PyTorch call computes the same function) the library call's are taken.
+Each phase prints one line; the line before the card's name and power limit
+is a JSON object with every kernel's numbers; the last line is
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and so does a
+machine without a CUDA device: nothing falls back to the CPU.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -32,6 +42,13 @@ BATCH = 4
 CLIP_S = 30.0
 MAX_NEW = 128
 REQUEST_SECONDS = (5, 12, 30)
+STREAM_TOKENS = 32
+DECODE_KV_LENS = (1, 255, 256, 468, 595)
+
+# H100 SXM peaks at its 700 W limit (NVIDIA's data sheet; dense rates)
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 # bf16 tolerance of a kernel against its plain version on the same bf16
 # inputs, |got - want| <= KERNEL_ATOL + KERNEL_RTOL * |want|: both round the
@@ -93,10 +110,8 @@ def record_first_call(module, name: str, store: dict):
 
     def recorder(*args, **kwargs):
         if name not in store:
-            store[name] = (
-                tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args),
-                dict(kwargs),
-            )
+            copy = lambda a: a.clone() if isinstance(a, torch.Tensor) else a  # noqa: E731
+            store[name] = (tuple(map(copy, args)), {k: copy(v) for k, v in kwargs.items()})
         return original(*args, **kwargs)
 
     setattr(module, name, recorder)
@@ -127,6 +142,34 @@ def compare_on_path_inputs(name: str, kernel, plain, call: tuple) -> dict:
     if not within:
         fail(f"{name} kernel disagrees with its plain version on the serving path's inputs: {err}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def attention_extras(name: str, call: tuple) -> dict:
+    """Bound and library time of kernel #1 or #2 on the path's inputs.  The
+    library call is scaled_dot_product_attention on the same tensors, laid
+    out [B, H, T, D] outside the timed call; the port never calls it."""
+    import torch.nn.functional as F
+
+    args, kwargs = call
+    q, k, v = args[:3]
+    if name == "encoder_attention":
+        h = args[4] if len(args) > 4 else kwargs["num_heads"]
+        mask = args[3] if len(args) > 3 else kwargs.get("padding_mask")
+        b, t, hd = q.shape
+        d = hd // h
+        heads = lambda x: x.reshape(b, t, h, d).transpose(1, 2).contiguous()  # noqa: E731
+        key_mask = None if mask is None else mask.bool()[:, None, None, :]
+        qq, kk, vv = heads(q), heads(k), heads(v)
+        call_lib = lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=key_mask)  # noqa: E731
+        flops = 4.0 * b * h * t * t * d
+    else:
+        b, t, hq, d = q.shape
+        qq, kk, vv = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        call_lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qq, kk, vv, is_causal=True, enable_gqa=True)
+        flops = 4.0 * b * hq * d * t * (t + 1) / 2  # causal: keys 1..t for query row t
+    moved = 2 * nbytes(q) + nbytes(k, v)  # q and the output, k and v
+    return {**bound(moved, flops, BF16_TENSOR_FLOPS), "library_ms": cuda_ms(call_lib, 20)}
 
 
 def compare_encoder_kernel(gen: torch.Generator) -> dict:
@@ -186,6 +229,155 @@ def compare_prefill_kernel(gen: torch.Generator) -> dict:
     if not within:
         fail(f"prefill attention kernel disagrees with its plain version: {err}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def bound(nbytes: float, flops: float, peak_flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate for their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def same_bytes(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Bitwise equality (NaN planted in both compares equal)."""
+    return torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def decode_bound(q, cache_k, kv_len: int, k_scale, update: bool) -> dict:
+    """Bytes the decode step must move: q, fresh K/V and the output once, the
+    valid prefix of K, V (and their scales) once, and for the append the new
+    row; the operations are fp32 (scores and P.V, 2 x 2 x Hq x kv_len x D per
+    batch row), on the CUDA cores."""
+    b, hq, d = q.shape
+    hkv = cache_k.shape[2]
+    row = hkv * d * cache_k.element_size() + (hkv * 4 if k_scale is not None else 0)
+    moved = 2 * nbytes(q) + 2 * b * hkv * d * q.element_size() + 2 * b * kv_len * row
+    if update:
+        moved += 2 * b * row
+    return bound(moved, 4.0 * b * hq * (kv_len + 1) * d, FP32_FLOPS)
+
+
+def sdpa_decode_ms(q, cache_k, cache_v, fresh_k, fresh_v, kv_len: int) -> tuple[float, torch.Tensor]:
+    """The one PyTorch call computing kernel #3's function on a bf16 cache:
+    scaled_dot_product_attention over the prefix plus the fresh row, the
+    concatenation made outside the timed call.  Never called by the port."""
+    import torch.nn.functional as F
+
+    k = torch.cat([cache_k[:, :kv_len], fresh_k[:, None]], dim=1).transpose(1, 2).contiguous()
+    v = torch.cat([cache_v[:, :kv_len], fresh_v[:, None]], dim=1).transpose(1, 2).contiguous()
+    qq = q[:, :, None]
+    call = lambda: F.scaled_dot_product_attention(qq, k, v, enable_gqa=True)  # noqa: E731
+    return cuda_ms(call, 20), call()[:, :, 0]
+
+
+def compare_decode_kernels(gen: torch.Generator) -> dict:
+    """Kernels #3 and #4 against their plain versions at the path's shapes,
+    int8 and bf16 caches, NaN planted in every cache row at and past kv_len."""
+    from tiny_audio_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+        decode_attention_update,
+        decode_attention_update_plain,
+    )
+
+    b, s, hq, hkv, d = BATCH, 608, 16, 8, 128
+    errs = {"decode_attention": 0.0, "decode_attention_update": 0.0}
+    for quantized in (True, False):
+        for kv_len in DECODE_KV_LENS:
+            randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+            q = (randn(b, hq, d) * 2).to(torch.bfloat16)
+            fk, fv = (randn(b, hkv, d).to(torch.bfloat16) for _ in range(2))
+            if quantized:
+                ck, cv = (torch.randint(-127, 128, (b, s, hkv, d), generator=gen, device="cuda")
+                          .to(torch.int8) for _ in range(2))
+                ks, vs = (randn(b, s, hkv).abs() * 0.02 + 1e-3 for _ in range(2))
+                ks[:, kv_len:] = float("nan")  # the int8 rows past kv_len: NaN scales
+                vs[:, kv_len:] = float("nan")
+            else:
+                ck, cv = (randn(b, s, hkv, d).to(torch.bfloat16) for _ in range(2))
+                ck[:, kv_len:] = float("nan")
+                cv[:, kv_len:] = float("nan")
+                ks = vs = None
+            got = decode_attention(q, ck, cv, fk, fv, kv_len, ks, vs)
+            want = decode_attention_plain(q, ck, cv, fk, fv, kv_len, ks, vs)
+            err3, ok3 = kernel_error(got, want)
+            finite = bool(torch.isfinite(got).all())
+            # #4: the same attention, and the written row equal to the plain one's
+            bufs = [x.clone() if x is not None else None for x in (ck, cv, ks, vs)]
+            ref = [x.clone() if x is not None else None for x in (ck, cv, ks, vs)]
+            got4 = decode_attention_update(q, bufs[0], bufs[1], fk, fv, kv_len, bufs[2], bufs[3])
+            want4 = decode_attention_update_plain(q, ref[0], ref[1], fk, fv, kv_len, ref[2], ref[3])
+            err4, ok4 = kernel_error(got4, want4)
+            rows_equal = all(same_bytes(x, y) for x, y in zip(bufs, ref) if x is not None)
+            finite = finite and bool(torch.isfinite(got4).all())
+            line = (f"decode kernels B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
+                    f"cache={'int8' if quantized else 'bf16'} kv_len={kv_len} nan_tail=true "
+                    f"decode_attention_max_abs_err={err3!r} decode_attention_update_max_abs_err={err4!r} "
+                    f"written_rows_equal={str(rows_equal).lower()} atol={KERNEL_ATOL} rtol={KERNEL_RTOL}")
+            if kv_len == 468:  # the first decode step's prefix at the flagship prompt
+                ms3 = cuda_ms(lambda: decode_attention(q, ck, cv, fk, fv, kv_len, ks, vs), 50)
+                ms4 = cuda_ms(lambda: decode_attention_update(
+                    q, bufs[0], bufs[1], fk, fv, kv_len, bufs[2], bufs[3]), 50)
+                line += f" decode_attention_ms={ms3!r} decode_attention_update_ms={ms4!r}"
+                if not quantized:
+                    lib_ms, lib_out = sdpa_decode_ms(q, ck, cv, fk, fv, kv_len)
+                    lib_err, _ = kernel_error(got, lib_out)
+                    line += f" sdpa_ms={lib_ms!r} kernel_vs_sdpa_max_abs_err={lib_err!r}"
+            print(line)
+            if not finite:
+                fail(f"decode kernels gave non-finite values (kv_len={kv_len}, quantized={quantized})")
+            if not (ok3 and ok4):
+                fail(f"decode kernels disagree with their plain versions: {err3} {err4}")
+            if not rows_equal:
+                fail(f"decode_attention_update wrote other bytes than its plain version "
+                     f"(kv_len={kv_len}, quantized={quantized})")
+            errs["decode_attention"] = max(errs["decode_attention"], err3)
+            errs["decode_attention_update"] = max(errs["decode_attention_update"], err4)
+    return errs
+
+
+def compare_decode_on_path_inputs(name: str, kernel, plain, call: tuple) -> dict:
+    """Kernel vs plain version on the tensors the path gave the kernel in its
+    first layer and first step; the append mutates the cache views, so each
+    call gets its own copy of them."""
+    args, kwargs = call
+    q, ck, cv, fk, fv, kv_len = args[:6]
+    ks, vs = kwargs.get("k_scale"), kwargs.get("v_scale")
+    n = int(kv_len)
+    update = name == "decode_attention_update"
+    copies = lambda: [x.clone() if x is not None else None for x in (ck, cv, ks, vs)]  # noqa: E731
+    mine, ref = copies(), copies()
+    got = kernel(q, mine[0], mine[1], fk, fv, kv_len, k_scale=mine[2], v_scale=mine[3])
+    want = plain(q, ref[0], ref[1], fk, fv, n, k_scale=ref[2], v_scale=ref[3])
+    err, within = kernel_error(got, want)
+    rows_equal = all(same_bytes(x, y) for x, y in zip(mine, ref) if x is not None)
+    ms = cuda_ms(lambda: kernel(q, mine[0], mine[1], fk, fv, kv_len,
+                                k_scale=mine[2], v_scale=mine[3]), 50)
+    plain_ms = cuda_ms(lambda: plain(q, ref[0], ref[1], fk, fv, n,
+                                     k_scale=ref[2], v_scale=ref[3]), 10)
+    library_ms = None
+    if ks is None:
+        library_ms, _ = sdpa_decode_ms(q, ck, cv, fk, fv, n)
+    stats = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             **decode_bound(q, ck, n, ks, update), "library_ms": library_ms}
+    print(f"{name} on the path's layer-0 inputs q={list(q.shape)} cache={list(ck.shape)} "
+          f"{ck.dtype} kv_len={n} max_abs_err={err!r} written_rows_equal={str(rows_equal).lower()} "
+          f"kernel_ms={ms!r} plain_ms={plain_ms!r} bound_ms={stats['bound_ms']!r} "
+          f"library_ms={library_ms!r}"
+          + (" (no PyTorch call attends over an int8 cache with per-entry scales)"
+             if ks is not None else ""))
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name} kernel produced non-finite values on the path's inputs")
+    if not within:
+        fail(f"{name} kernel disagrees with its plain version on the path's inputs: {err}")
+    if not rows_equal:
+        fail(f"{name} wrote other cache bytes than its plain version on the path's inputs")
+    return stats
 
 
 def small_model_reference() -> None:
@@ -250,13 +442,23 @@ def main() -> None:
     phase_done()
     pre = compare_prefill_kernel(gen)
     phase_done()
+    dec = compare_decode_kernels(gen)
+    phase_done()
     small_model_reference()
     phase_done()
 
-    # ---- 5. the serving path at the flagship width ----
+    # ---- 5. generate at the flagship width, on both decode paths ----
     from tiny_audio_tpu_torch import ASRConfig
+    from tiny_audio_tpu_torch.models import asr as asr_module
     from tiny_audio_tpu_torch.models.asr import ASRModel
     from tiny_audio_tpu_torch.ops import attention as attention_dispatch
+    from tiny_audio_tpu_torch.ops import fused_decode as fused_module
+    from tiny_audio_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+        decode_attention_update,
+        decode_attention_update_plain,
+    )
     from tiny_audio_tpu_torch.ops.encoder_attention import (
         encoder_attention,
         encoder_attention_plain,
@@ -267,92 +469,178 @@ def main() -> None:
     )
     from tiny_audio_tpu_torch.pipeline import ASRPipeline
 
+    wrappers = {"encoder_attention": encoder_attention, "prefill_attention": prefill_attention,
+                "decode_attention": decode_attention,
+                "decode_attention_update": decode_attention_update}
+
+    def reset_counts() -> None:
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read_counts() -> dict:
+        return {name: fn.launches for name, fn in wrappers.items()}
+
     t0 = time.perf_counter()
     cfg = ASRConfig(kv_cache_dtype="int8")
-    model = ASRModel(cfg, seed=SEED, device="cuda")
+    model = ASRModel(cfg, seed=SEED)  # the default device: the card
     phase_done()
     init_s = time.perf_counter() - t0
+    if model.device.type != "cuda":
+        fail(f"ASRModel built on {model.device}, not on the card")
     pipe = ASRPipeline(model)
     n = int(CLIP_S * 16000)
     rng = np.random.default_rng(SEED)
     pcm = (np.clip(rng.standard_normal((BATCH, n)) * 0.1, -1, 1) * 32767).astype(np.int16)
     audio = [row.astype(np.float32) / 32768.0 for row in pcm]
-    # min_new_tokens = the budget masks EOS: every row decodes all 128 tokens
-    gen_kwargs = dict(min_new_tokens=MAX_NEW, max_new_tokens=MAX_NEW)
-
-    encoder_attention.launches = 0
-    prefill_attention.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    feats = pipe.processor.extract_features(audio)
-    tokens = model.generate(feats["input_features"], feats["audio_attention_mask"],
-                            mel_length=int(feats["mel_lengths"].max()), **gen_kwargs)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = {"encoder_attention": encoder_attention.launches,
-                "prefill_attention": prefill_attention.launches}
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-
     n_enc, n_dec = cfg.encoder.num_layers, cfg.decoder.num_layers
-    if launches != {"encoder_attention": n_enc, "prefill_attention": n_dec}:
-        fail(f"serving path launches {launches}, expected {n_enc} encoder and "
-             f"{n_dec} prefill launches (one per layer)")
-    if tokens.shape != (BATCH, MAX_NEW):
-        fail(f"tokens have shape {tokens.shape}, expected {(BATCH, MAX_NEW)}")
-    if tokens.min() < 0 or tokens.max() >= cfg.decoder.vocab_size:
-        fail("tokens outside the vocabulary")
+    steps = MAX_NEW - 1
 
-    # The second call, timed, also keeps the first layer's kernel inputs (the
-    # counted call above ran with nothing patched).
-    path_inputs: dict = {}
-    with record_first_call(attention_dispatch, "encoder_attention", path_inputs), \
-            record_first_call(attention_dispatch, "prefill_attention", path_inputs):
+    def run_generate(max_new: int, **kwargs):
+        # min_new_tokens = the budget masks EOS: every row decodes all tokens
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         feats = pipe.processor.extract_features(audio)
-        tokens2 = model.generate(feats["input_features"], feats["audio_attention_mask"],
-                                 mel_length=int(feats["mel_lengths"].max()), **gen_kwargs)
+        tokens = model.generate(feats["input_features"], feats["audio_attention_mask"],
+                                mel_length=int(feats["mel_lengths"].max()),
+                                min_new_tokens=max_new, max_new_tokens=max_new, **kwargs)
         torch.cuda.synchronize()
-        batch_s = time.perf_counter() - t0
-    if set(path_inputs) != {"encoder_attention", "prefill_attention"}:
-        fail(f"the serving path did not reach both kernels' wrappers: {sorted(path_inputs)}")
-    if not np.array_equal(tokens, tokens2):
-        fail("two generate calls on the same batch gave different tokens")
+        return tokens, time.perf_counter() - t0, feats
+
+    path_inputs: dict = {}
+    results = {}
+    for label, kwargs, kernel_name in (("fused", {}, "decode_attention_update"),
+                                       ("module", {"fused_decode": False}, "decode_attention")):
+        # the counted call also keeps the first layer's inputs of each kernel
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with record_first_call(attention_dispatch, "encoder_attention", path_inputs), \
+                record_first_call(attention_dispatch, "prefill_attention", path_inputs), \
+                record_first_call(attention_dispatch, "decode_attention", path_inputs), \
+                record_first_call(fused_module, "decode_attention_update", path_inputs):
+            tokens, first_s, feats = run_generate(MAX_NEW, **kwargs)
+        counts = read_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        want = {"encoder_attention": n_enc, "prefill_attention": n_dec,
+                "decode_attention": 0, "decode_attention_update": 0}
+        want[kernel_name] = n_dec * steps
+        if counts != want:
+            fail(f"{label} decode path launches {counts}, expected {want}")
+        reset_counts()
+        tokens2, batch_s, _ = run_generate(MAX_NEW, **kwargs)
+        if read_counts() != want:
+            fail(f"{label} decode path's second call launches {read_counts()}, expected {want}")
+        if tokens.shape != (BATCH, MAX_NEW):
+            fail(f"tokens have shape {tokens.shape}, expected {(BATCH, MAX_NEW)}")
+        if tokens.min() < 0 or tokens.max() >= cfg.decoder.vocab_size:
+            fail("tokens outside the vocabulary")
+        if not np.array_equal(tokens, tokens2):
+            fail(f"two {label} generate calls on the same batch gave different tokens")
+        results[label] = {"tokens": tokens, "first_s": first_s, "batch_s": batch_s,
+                          "counts": counts, "peak_gib": peak_gib}
+        phase_done()
+    # the part of a call that is not the decode loop: 1 token, no decode step
+    _, fixed_s, _ = run_generate(1)
+    if not np.array_equal(results["fused"]["tokens"], results["module"]["tokens"]):
+        diff = int((results["fused"]["tokens"] != results["module"]["tokens"]).sum())
+        fail(f"the fused and the module decode paths gave different tokens ({diff} differ)")
     with torch.inference_mode():
         hidden = model.encoder(feats["input_features"], feats["audio_attention_mask"])
     if not torch.isfinite(hidden).all():
         fail("encoder output is not finite")
-    if "jax" in sys.modules:
-        fail("the port imported jax")
-    print(f"generate batch={BATCH} clip_s={CLIP_S} new_tokens={MAX_NEW} kv=int8 bf16 "
-          f"init_s={init_s!r} first_call_s={first_s!r} batch_wall_s={batch_s!r} "
-          f"peak_mem_gib={peak_gib!r} launches={json.dumps(launches)} "
-          f"deterministic=true encoder_finite=true")
+    for label, r in results.items():
+        step_ms = (r["batch_s"] - fixed_s) / steps * 1e3
+        r["step_ms"] = step_ms
+        print(f"generate path={label} batch={BATCH} clip_s={CLIP_S} new_tokens={MAX_NEW} kv=int8 "
+              f"bf16 init_s={init_s!r} first_call_s={r['first_s']!r} batch_wall_s={r['batch_s']!r} "
+              f"one_token_call_s={fixed_s!r} decode_step_ms={step_ms!r} "
+              f"peak_mem_gib={r['peak_gib']!r} launches={json.dumps(r['counts'])} "
+              f"deterministic=true encoder_finite=true")
+    print("generate fused_vs_module_tokens_identical=true")
     phase_done()
 
-    # ---- 5b. kernels vs plain versions on the serving path's own inputs ----
+    # ---- 5b. kernels vs plain versions on the path's own inputs ----
+    if set(path_inputs) != set(wrappers):
+        fail(f"the paths did not reach every kernel's wrapper: {sorted(path_inputs)}")
     enc_path = compare_on_path_inputs("encoder_attention", encoder_attention,
                                       encoder_attention_plain, path_inputs["encoder_attention"])
+    enc_path.update(attention_extras("encoder_attention", path_inputs["encoder_attention"]))
     pre_path = compare_on_path_inputs("prefill_attention", prefill_attention,
                                       prefill_attention_plain, path_inputs["prefill_attention"])
+    pre_path.update(attention_extras("prefill_attention", path_inputs["prefill_attention"]))
+    dec_path = compare_decode_on_path_inputs("decode_attention", decode_attention,
+                                             decode_attention_plain,
+                                             path_inputs["decode_attention"])
+    upd_path = compare_decode_on_path_inputs("decode_attention_update", decode_attention_update,
+                                             decode_attention_update_plain,
+                                             path_inputs["decode_attention_update"])
     del path_inputs
     phase_done()
 
     # ---- 6. the pipeline answers three requests ----
     texts = []
+    reset_counts()
     t0 = time.perf_counter()
     for seconds in REQUEST_SECONDS:
         clip = rng.standard_normal(int(seconds * 16000)).astype(np.float32) * 0.1
-        result = pipe(clip)
+        result = pipe(clip, min_new_tokens=16)  # EOS masked: the decode loop runs
         if not isinstance(result, dict) or not isinstance(result.get("text"), str):
             fail(f"pipeline gave {result!r} for a {seconds} s request")
         texts.append(len(result["text"]))
     phase_done()
-    print(f"pipeline requests={len(REQUEST_SECONDS)} seconds={list(REQUEST_SECONDS)} wall_s={time.perf_counter() - t0!r} "
-          f"text_chars={texts}")
+    counts = read_counts()
+    if min(counts["encoder_attention"], counts["prefill_attention"],
+           counts["decode_attention_update"]) == 0 or counts["decode_attention"]:
+        fail(f"the pipeline missed a kernel of its path: {counts}")
+    print(f"pipeline requests={len(REQUEST_SECONDS)} seconds={list(REQUEST_SECONDS)} "
+          f"wall_s={time.perf_counter() - t0!r} text_chars={texts} launches={json.dumps(counts)}")
 
-    # Times are at the serving path's inputs; the error is the larger of the
-    # random-input and the serving-path comparisons.
+    # ---- 7. streaming: one 30 s clip, token by token ----
+    first_token_at: list = []
+    original_stream = asr_module.stream_generate
+
+    def timed_stream(*args, **kwargs):
+        for tok in original_stream(*args, **kwargs):
+            if not first_token_at:
+                first_token_at.append(time.perf_counter())
+            yield tok
+
+    model.gen_config = dataclasses.replace(model.gen_config, min_new_tokens=STREAM_TOKENS,
+                                           max_new_tokens=STREAM_TOKENS)
+    clip = rng.standard_normal(int(CLIP_S * 16000)).astype(np.float32) * 0.1
+    asr_module.stream_generate = timed_stream
+    reset_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fragments = list(pipe.transcribe_streaming(clip))
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+    finally:
+        asr_module.stream_generate = original_stream
+    counts = read_counts()
+    want = {"encoder_attention": n_enc, "prefill_attention": n_dec,
+            "decode_attention": n_dec * (STREAM_TOKENS - 1), "decode_attention_update": 0}
+    if counts != want:
+        fail(f"streaming launches {counts}, expected {want}")
+    if not first_token_at or not all(isinstance(f, str) for f in fragments):
+        fail(f"streaming gave no tokens or non-text fragments: {fragments!r}")
+    print(f"streaming clip_s={CLIP_S} tokens={STREAM_TOKENS} "
+          f"time_to_first_token_s={first_token_at[0] - t0!r} total_s={stream_s!r} "
+          f"fragments={len(fragments)} text_chars={sum(map(len, fragments))} "
+          f"launches={json.dumps(counts)}")
+    phase_done()
+
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                                                   "tiny_audio_tpu"))
+    if loaded:
+        fail(f"the port imported the JAX side: {loaded[:5]}")
+
+    # Times are at the paths' inputs; the error is the larger of the
+    # random-input and the path-input comparisons.
     source = "tiny_audio_tpu_torch/csrc/attention.cu"
+    decode_source = "tiny_audio_tpu_torch/csrc/decode_attention.cu"
+    launches = {**results["fused"]["counts"],
+                "decode_attention": results["module"]["counts"]["decode_attention"]}
     print(json.dumps({"kernels": [
         {"name": "encoder_attention", "route": "cuda", "source": source,
          "replaces": "tiny_audio_tpu/ops/encoder_attention.py:159",
@@ -362,6 +650,14 @@ def main() -> None:
          "replaces": "tiny_audio_tpu/ops/attention.py:65",
          "launches": launches["prefill_attention"], **pre_path,
          "max_abs_err": max(pre["max_abs_err"], pre_path["max_abs_err"])},
+        {"name": "decode_attention", "route": "cuda", "source": decode_source,
+         "replaces": "tiny_audio_tpu/ops/decode_attention.py:152",
+         "launches": launches["decode_attention"], **dec_path,
+         "max_abs_err": max(dec["decode_attention"], dec_path["max_abs_err"])},
+        {"name": "decode_attention_update", "route": "cuda", "source": decode_source,
+         "replaces": "tiny_audio_tpu/ops/decode_attention.py:428",
+         "launches": launches["decode_attention_update"], **upd_path,
+         "max_abs_err": max(dec["decode_attention_update"], upd_path["max_abs_err"])},
     ]}))
     print(power_line)
     print(json.dumps({"ok": True, "device": {

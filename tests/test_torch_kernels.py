@@ -12,6 +12,12 @@ import torch
 
 from tiny_audio_tpu_torch import kernels
 from tiny_audio_tpu_torch.ops import attention as tattn
+from tiny_audio_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attention_plain,
+    decode_attention_update,
+    decode_attention_update_plain,
+)
 from tiny_audio_tpu_torch.ops.encoder_attention import (
     encoder_attention,
     encoder_attention_plain,
@@ -69,6 +75,24 @@ def test_cuda_tensor_never_falls_back(pretend_cuda):
         prefill_attention(y.transpose(1, 2), y.transpose(1, 2), y.transpose(1, 2), None)
     assert encoder_attention.launches == 0 and prefill_attention.launches == 0
 
+    decode_attention.launches = decode_attention_update.launches = 0
+    q = torch.zeros((2, 4, 128), dtype=torch.bfloat16)
+    fresh = torch.zeros((2, 2, 128), dtype=torch.bfloat16)
+    cache = torch.zeros((2, 32, 2, 128), dtype=torch.int8)
+    scale = torch.ones((2, 32, 2), dtype=torch.float32)
+    for fn in (decode_attention, decode_attention_update):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            fn(q, cache, cache, fresh, fresh, 5, scale, scale)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            fn(q, cache.to(torch.bfloat16), cache.to(torch.bfloat16), fresh, fresh, 5)
+        with pytest.raises(TypeError):
+            fn(q.float(), cache, cache, fresh.float(), fresh.float(), 5, scale, scale)
+        with pytest.raises(ValueError, match="head_dim"):
+            fn(q[..., :64].contiguous(), cache[..., :64].contiguous(),
+               cache[..., :64].contiguous(), fresh[..., :64].contiguous(),
+               fresh[..., :64].contiguous(), 5, scale, scale)
+    assert decode_attention.launches == 0 and decode_attention_update.launches == 0
+
 
 # ---------------------------------------------------------------- on the card
 
@@ -123,3 +147,62 @@ def test_prefill_kernel_matches_plain(cuda_device, b, t, hq, hkv, d):
     _close(got, prefill_attention_plain(q, k, v, mask), mask.bool())
     _close(prefill_attention(q, k, v, None), prefill_attention_plain(q, k, v, None),
            torch.ones_like(mask, dtype=torch.bool))
+
+
+def _decode_inputs(device, b, s, hkv, quantized, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    randn = lambda *shape: torch.randn(shape, generator=g, device=device)  # noqa: E731
+    q = (randn(b, 2 * hkv, 128) * 2).to(torch.bfloat16)
+    fresh_k, fresh_v = (randn(b, hkv, 128).to(torch.bfloat16) for _ in range(2))
+    if quantized:
+        ck, cv = (torch.randint(-127, 128, (b, s, hkv, 128), generator=g, device=device)
+                  .to(torch.int8) for _ in range(2))
+        ks, vs = ((randn(b, s, hkv).abs() * 0.02 + 1e-3) for _ in range(2))
+    else:
+        ck, cv = (randn(b, s, hkv, 128).to(torch.bfloat16) for _ in range(2))
+        ks = vs = None
+    return q, ck, cv, fresh_k, fresh_v, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("kv_len", [1, 255, 256, 468, 595])
+def test_decode_kernel_matches_plain(cuda_device, quantized, kv_len):
+    b, s, hkv = 4, 608, 8
+    q, ck, cv, fk, fv, ks, vs = _decode_inputs(cuda_device, b, s, hkv, quantized, kv_len)
+    if not quantized:  # rows past kv_len are never read
+        ck[:, kv_len:] = float("nan")
+        cv[:, kv_len:] = float("nan")
+    else:
+        ks[:, kv_len:] = float("nan")
+        vs[:, kv_len:] = float("nan")
+    before = decode_attention.launches
+    got = decode_attention(q, ck, cv, fk, fv, kv_len, ks, vs)
+    # the same launch with kv_len as a device scalar
+    got_t = decode_attention(q, ck, cv, fk, fv,
+                             torch.tensor(kv_len, dtype=torch.int32, device=cuda_device), ks, vs)
+    assert decode_attention.launches == before + 2
+    want = decode_attention_plain(q, ck, cv, fk, fv, kv_len, ks, vs)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    assert torch.equal(got, got_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("kv_len", [1, 256, 595])
+def test_decode_update_kernel_matches_plain(cuda_device, quantized, kv_len):
+    b, s, hkv = 4, 608, 8
+    q, ck, cv, fk, fv, ks, vs = _decode_inputs(cuda_device, b, s, hkv, quantized, 7 + kv_len)
+    clone = lambda x: None if x is None else x.clone()  # noqa: E731
+    mine = [clone(x) for x in (ck, cv, ks, vs)]
+    ref = [clone(x) for x in (ck, cv, ks, vs)]
+    before = decode_attention_update.launches
+    got = decode_attention_update(q, mine[0], mine[1], fk, fv, kv_len, mine[2], mine[3])
+    assert decode_attention_update.launches == before + 1
+    want = decode_attention_update_plain(q, ref[0], ref[1], fk, fv, kv_len, ref[2], ref[3])
+    torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    # the written row: the same bytes and scales as quantize_kv's; the rest untouched
+    for got_buf, want_buf in zip(mine, ref):
+        if got_buf is not None:
+            assert torch.equal(got_buf, want_buf)

@@ -1,7 +1,8 @@
 """PyTorch encoder, projector and decoder vs the JAX modules, on the CPU.
 
-Both models come from ``tiny_test_config`` with the JAX model's random
-params carried into the port by :func:`tiny_audio_tpu_torch.bridge.load_jax_params`.
+Both models come from ``tiny_test_config`` (the port's config built from the
+JAX one's dict) with the JAX model's random params carried into the port by
+:func:`tiny_audio_tpu_torch.bridge.load_jax_params`.
 """
 
 import dataclasses
@@ -16,17 +17,23 @@ from tiny_audio_tpu.config import tiny_test_config
 from tiny_audio_tpu.models.asr import ASRModel as JaxASRModel
 from tiny_audio_tpu.models.decoder import quantize_kv as jax_quantize_kv
 from tiny_audio_tpu_torch.bridge import jax_to_state_dict, load_jax_params
+from tiny_audio_tpu_torch.config import ASRConfig as PortASRConfig
 from tiny_audio_tpu_torch.models.asr import ASRModel
-from tiny_audio_tpu_torch.models.decoder import quantize_kv
+from tiny_audio_tpu_torch.ops.decode_attention import quantize_kv
 from tiny_audio_tpu_torch.models.projectors import create_projector, frame_stack
 
 torch.set_num_threads(1)
 
 
+def _port(cfg):
+    """The port's own config with the fields of a JAX config."""
+    return PortASRConfig.from_dict(cfg.to_dict())
+
+
 def _pair(model_dtype="float32", kv_cache_dtype="bfloat16"):
     cfg = tiny_test_config(model_dtype=model_dtype, kv_cache_dtype=kv_cache_dtype)
     jm = JaxASRModel(cfg, seed=0)
-    tm = ASRModel(cfg, seed=1)
+    tm = ASRModel(_port(cfg), seed=1, device="cpu")
     load_jax_params(tm, jax.tree.map(np.asarray, jm.params))
     return jm, tm
 
@@ -127,7 +134,7 @@ def test_projector_bf16(bf16_pair):
 def test_unported_projectors_raise(kind):
     cfg = dataclasses.replace(tiny_test_config(), projector_type=kind)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_projector(cfg)
+        create_projector(_port(cfg))
 
 
 def test_quantize_kv_matches_jax():
@@ -209,8 +216,8 @@ def test_decoder_prefill_and_step(pair, request):
 
 def test_random_init_follows_flax_defaults():
     cfg = tiny_test_config(model_dtype="float32")
-    m = ASRModel(cfg, seed=0)
-    again = ASRModel(cfg, seed=0)
+    m = ASRModel(_port(cfg), seed=0, device="cpu")
+    again = ASRModel(_port(cfg), seed=0, device="cpu")
     for (name, p), (_, q) in zip(m.named_parameters(), again.named_parameters()):
         assert torch.equal(p, q), name  # seeded: the same weights every time
     w = m.encoder.layers[0].fc1.weight.float()
@@ -231,7 +238,7 @@ def test_decoder_family_knobs(variant):
     cfg = tiny_test_config(model_dtype="float32")
     cfg.decoder = dataclasses.replace(cfg.decoder, **variant)
     jm = JaxASRModel(cfg, seed=0)
-    tm = ASRModel(cfg, seed=1)
+    tm = ASRModel(_port(cfg), seed=1, device="cpu")
     load_jax_params(tm, jax.tree.map(np.asarray, jm.params))
     rng = np.random.default_rng(5)
     b, t = 2, 10

@@ -8,11 +8,12 @@ and causal prefill attention) are CUDA C++ written for Hopper
 (``csrc/attention.cu``), each with a plain PyTorch version that serves CPU
 tensors and the tests.
 
-The configuration classes, the tokenizer and the pipeline's post-processing
-are shared with the JAX package (those modules import no jax).
+The package imports nothing of the JAX package: the configuration classes,
+the tokenizer and the pipeline are its own copies.  Entry points run on the
+CUDA device unless the caller passes ``device="cpu"``.
 """
 
-from tiny_audio_tpu.config import (  # noqa: F401
+from tiny_audio_tpu_torch.config import (  # noqa: F401
     ASRConfig,
     DecoderConfig,
     EncoderConfig,

@@ -1,8 +1,9 @@
 """Build and load the Hopper kernels in ``csrc/``.
 
-The CUDA C++ sources are compiled with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers, so the build takes seconds).  The build happens at first use, into
+Each CUDA C++ source is compiled by its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the build
+takes seconds).  The build happens at first use, into
 ``build/kernels/<hash>/`` beside the package, keyed on a hash of the sources
 and flags: a changed source builds anew, an unchanged one loads the library
 already built.  Nothing here runs when the module is imported, so the CPU
@@ -25,18 +26,22 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libta_kernels.so"
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-# name -> argtypes of the C entry points in csrc/attention.cu
+_DECODE_ARGS = (_PTR,) * 9 + (_INT,) * 6 + (ctypes.c_float, _PTR)
+# name -> argtypes of the C entry points in csrc/attention.cu and
+# csrc/decode_attention.cu
 _SIGNATURES = {
     "ta_encoder_attention": (_PTR, _PTR, _PTR, _PTR, _PTR,
                              _INT, _INT, _INT, _INT, ctypes.c_float, _PTR),
     "ta_prefill_attention": (_PTR, _PTR, _PTR, _PTR, _PTR,
                              _INT, _INT, _INT, _INT, _INT, ctypes.c_float, _PTR),
+    "ta_decode_attention": _DECODE_ARGS,
+    "ta_decode_attention_update": _DECODE_ARGS,
 }
 
 
@@ -74,19 +79,34 @@ def build() -> tuple[Path, float, str]:
         return lib, 0.0, log_path.read_text() if log_path.exists() else ""
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
+    work = Path(tempfile.mkdtemp(dir=out_dir))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []  # (command, process): one nvcc per source, all running at once
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(work / f"{src.stem}.o"), str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    tmp = work / LIB_NAME
+    link = [nvcc, "-shared", "-o", str(tmp), *(str(work / f"{Path(c[-1]).stem}.o")
+                                              for c, _ in jobs)]
+    log = ""
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0:
+            for _, other in jobs:
+                other.wait()
+            shutil.rmtree(work)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    proc = subprocess.run(link, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
+    log += proc.stdout + proc.stderr
     if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        shutil.rmtree(work)
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    shutil.rmtree(work)
     return lib, seconds, log
 
 

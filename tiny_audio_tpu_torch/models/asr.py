@@ -2,7 +2,8 @@
 
 Port of the inference half of :class:`tiny_audio_tpu.models.asr.ASRModel`:
 mel mask -> encoder -> projector -> row-aligned ``<audio>`` splice ->
-KV-cached greedy decode.  Not ported yet (ROADMAP.md): streaming generation,
+KV-cached greedy decode, batched (:meth:`ASRModel.generate`) or streamed token
+by token (:meth:`ASRModel.generate_streaming`).  Not ported yet (ROADMAP.md):
 loading a JAX checkpoint, training, LoRA and the quantized decode modes.
 """
 
@@ -16,9 +17,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from tiny_audio_tpu.config import ASRConfig, compute_encoder_output_length
-from tiny_audio_tpu.tokenization import AUDIO_TOKEN, ByteTokenizer
-from tiny_audio_tpu_torch.generation import GenerationConfig, check_supported, generate_tokens
+from tiny_audio_tpu_torch.config import ASRConfig, compute_encoder_output_length
+from tiny_audio_tpu_torch.device import require_device
+from tiny_audio_tpu_torch.tokenization import AUDIO_TOKEN, ByteTokenizer
+from tiny_audio_tpu_torch.generation import (
+    GenerationConfig,
+    check_supported,
+    generate_tokens,
+    stream_generate,
+)
 from tiny_audio_tpu_torch.models.decoder import Qwen3Decoder
 from tiny_audio_tpu_torch.models.encoder import AudioEncoder
 from tiny_audio_tpu_torch.models.layers import sinusoidal_positions
@@ -51,12 +58,54 @@ def splice_audio(
     )
 
 
+def filter_think_stream(chunks):
+    """Incrementally strip ``<think>...</think>`` spans from a stream of text
+    chunks.
+
+    Tags are consumed in positional order, alternating with state: one chunk
+    can contain ``</think>hi <think>``, and handling ``<think>`` first
+    regardless of state would leak the buffered think content (plus a
+    literal ``</think>``) to the client.
+    """
+    in_think = False
+    buffer = ""
+    for text in chunks:
+        buffer += text
+        while True:
+            if in_think:
+                if "</think>" not in buffer:
+                    break
+                in_think = False
+                buffer = buffer.split("</think>", 1)[1]
+            else:
+                if "<think>" not in buffer:
+                    break
+                before, buffer = buffer.split("<think>", 1)
+                if before:
+                    yield before
+                in_think = True
+        if not in_think and buffer:
+            # hold back a trailing partial '<think' prefix: the tag can be
+            # split across decode chunks
+            hold = 0
+            for k in range(min(len("<think>") - 1, len(buffer)), 0, -1):
+                if buffer.endswith("<think>"[:k]):
+                    hold = k
+                    break
+            out, buffer = buffer[: len(buffer) - hold], buffer[len(buffer) - hold:]
+            if out:
+                yield out
+    if buffer and not in_think:
+        yield buffer  # a partial tag at stream end is real text
+
+
 class ASRModel(nn.Module):
     """Encoder + projector + decoder on one device.
 
     ``ASRModel(config, tokenizer=None, seed=0, device=...)`` builds the
     towers at the config's widths with random weights drawn from a seeded
-    ``torch.Generator`` on ``device``, following the JAX package's flax
+    ``torch.Generator`` on ``device`` (the CUDA device unless the caller
+    asks for ``"cpu"``), following the JAX package's flax
     defaults (lecun-normal Dense/Conv kernels, zero biases, unit norms,
     flax's Embed init, sinusoidal encoder positions).  Load real weights
     with :func:`tiny_audio_tpu_torch.bridge.load_jax_params`.
@@ -69,13 +118,13 @@ class ASRModel(nn.Module):
         config: ASRConfig,
         tokenizer=None,
         seed: int = 0,
-        device="cpu",
+        device="cuda",
     ):
         super().__init__()
         if config.use_lora:
             raise NotImplementedError("LoRA is not ported to PyTorch yet (ROADMAP.md)")
         self.config = config
-        self.device = torch.device(device)
+        self.device = require_device(device)
         dtype = torch.bfloat16 if config.model_dtype == "bfloat16" else torch.float32
         self.dtype = dtype
         dec_cfg = config.decoder
@@ -189,6 +238,7 @@ class ASRModel(nn.Module):
         user_prompt: Optional[str] = None,
         system_prompt: Optional[str] = None,
         mel_length: Optional[int] = None,
+        fused_decode: Optional[bool] = None,
         **overrides,
     ):
         """Transcribe a batch.  Returns generated token ids [B, max_new] as
@@ -196,7 +246,9 @@ class ASRModel(nn.Module):
         (a GenerationConfig override) returns ``(tokens, scores)``.
 
         ``mel_length``: batch-max real mel frames when the caller knows it
-        (the processor does), which saves a device->host sync."""
+        (the processor does), which saves a device->host sync.
+        ``fused_decode``: the decode step's path (``generate_tokens``); None
+        takes the fused step on the card and the module step elsewhere."""
         input_features = torch.as_tensor(input_features, device=self.device)
         audio_attention_mask = torch.as_tensor(audio_attention_mask, device=self.device)
         b = input_features.shape[0]
@@ -223,13 +275,78 @@ class ASRModel(nn.Module):
         text_embeds = self.decoder.embed(input_ids)
         audio_mask = (input_ids == self.tokenizer.audio_token_id) & prompt_mask
         inputs_embeds = splice_audio(text_embeds, audio_mask, audio_embeds)
-        out = generate_tokens(self.decoder, inputs_embeds, input_ids, gen, prompt_len=t_real)
+        out = generate_tokens(self.decoder, inputs_embeds, input_ids, gen, prompt_len=t_real,
+                              fused_decode=fused_decode)
         if gen.return_scores:
             tokens, _, scores = out
             return tokens.cpu().numpy(), scores.cpu().numpy()
         return out[0].cpu().numpy()
 
-    def generate_streaming(self, *args, **kwargs):
-        raise NotImplementedError(
-            "streaming generation is not ported to PyTorch yet (ROADMAP.md)"
-        )
+    @torch.inference_mode()
+    def generate_streaming(
+        self,
+        input_features,
+        audio_attention_mask,
+        user_prompt: Optional[str] = None,
+        system_prompt: Optional[str] = None,
+    ):
+        """Yield decoded text fragments token by token (batch 1), with
+        ``<think>`` blocks filtered out.
+
+        Features longer than the encoder window are streamed window by
+        window: each 30 s window is re-primed with a fresh prompt, and a
+        window's first fragment gets a leading space after earlier text.
+        """
+        input_features = torch.as_tensor(input_features, device=self.device)
+        audio_attention_mask = torch.as_tensor(audio_attention_mask, device=self.device)
+        if input_features.shape[0] != 1:
+            raise ValueError("streaming is defined for batch 1")
+
+        window = self.mel_window_frames()
+        n_frames_total = int(input_features.shape[-1])
+        if n_frames_total > window:
+            real = audio_attention_mask.sum(dim=0).cpu().numpy()  # [T] frames
+            yielded_before = False
+            for s in range(0, n_frames_total, window):
+                if int(real[s:s + window].sum()) == 0:
+                    continue  # fully padded tail window
+                first_of_chunk = True
+                for frag in self.generate_streaming(
+                    input_features[:, :, s:s + window],
+                    audio_attention_mask[:, s:s + window],
+                    user_prompt, system_prompt,
+                ):
+                    if first_of_chunk and yielded_before and frag and not frag[0].isspace():
+                        frag = " " + frag
+                    first_of_chunk = False
+                    yielded_before = yielded_before or bool(frag)
+                    yield frag
+            return
+
+        real_mel = int(audio_attention_mask.sum(dim=-1).max())
+        n_audio = self._num_audio_tokens(real_mel)
+        ids = self.build_prompt_ids(n_audio, user_prompt, system_prompt)
+        gen = self.gen_config
+        check_supported(gen)
+        t_real = len(ids)
+        t_pad = self._bucket_prompt_len(t_real, n_audio)
+        ids_np = np.full((1, t_pad), gen.pad_token_id, np.int64)
+        ids_np[0, :t_real] = ids
+        input_ids = torch.from_numpy(ids_np).to(self.device)
+
+        audio_embeds = self._encode_audio(input_features, audio_attention_mask)
+        text_embeds = self.decoder.embed(input_ids)
+        audio_mask = input_ids == self.tokenizer.audio_token_id
+        inputs_embeds = splice_audio(text_embeds, audio_mask, audio_embeds)
+
+        def decoded_chunks():
+            pending: list[int] = []
+            for tok in stream_generate(self.decoder, inputs_embeds, input_ids, gen,
+                                       prompt_len=t_real):
+                pending.append(tok)
+                text = self.tokenizer.decode(pending, skip_special_tokens=True)
+                if text:
+                    pending = []
+                    yield text
+
+        yield from filter_think_stream(decoded_chunks())

@@ -8,7 +8,8 @@ plus the Llama (``qk_norm=False``) and Gemma-v1 (``rms_norm_offset``, GeGLU,
 KV cache: a dict of tensors ``[L, B, S, Hkv, D]`` (bf16, or int8 with fp32
 per-entry scales ``[L, B, S, Hkv]``), updated IN PLACE: prefill writes its
 post-rope K/V at ``cache_index``; a decode step attends over the stale cache
-plus the fresh row and then writes that row, once per layer per step.
+plus the fresh row (the decode attention kernel reads only the valid
+prefix) and then writes that row, once per layer per step.
 """
 
 from __future__ import annotations
@@ -19,22 +20,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tiny_audio_tpu.config import DecoderConfig
+from tiny_audio_tpu_torch.config import DecoderConfig
 from tiny_audio_tpu_torch.models.layers import RMSNorm, apply_rotary, rms_norm, rotary_embed
 from tiny_audio_tpu_torch.ops.attention import causal_self_attention, decode_step_attention
-
-
-def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-entry symmetric int8 quantization over the head dim.
-
-    x: [..., D] -> (int8 [..., D], fp32 scale [...]).  Rounds half to even,
-    as ``jnp.round`` does.
-    """
-    x = x.to(torch.float32)
-    amax = x.abs().amax(dim=-1)
-    scale = torch.clamp(amax / 127.0, min=1e-8)
-    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127).to(torch.int8)
-    return q, scale
+from tiny_audio_tpu_torch.ops.decode_attention import write_cache_rows
 
 
 class Qwen3Block(nn.Module):
@@ -71,55 +60,51 @@ class Qwen3Block(nn.Module):
         layer_cache: Optional[dict],
         cache_index: int,
         step_kv_valid: Optional[torch.Tensor],
+        kv_len=None,
     ) -> torch.Tensor:
         """One block.  ``layer_cache``: None (causal forward over x) or this
-        layer's cache views; T > 1 is a prefill, T == 1 a decode step."""
-        cfg = self.cfg
-        b, t, _ = x.shape
-        hd = cfg.head_dim
-
-        residual = x
-        x = self.input_layernorm(x)
-        q = self.q_proj(x).reshape(b, t, cfg.num_heads, hd)
-        k = self.k_proj(x).reshape(b, t, cfg.num_kv_heads, hd)
-        v = self.v_proj(x).reshape(b, t, cfg.num_kv_heads, hd)
-        if cfg.qk_norm:
-            q = rms_norm(q, self.q_norm, cfg.rms_norm_eps)
-            k = rms_norm(k, self.k_norm, cfg.rms_norm_eps)
-        q = apply_rotary(q, cos, sin)
-        k = apply_rotary(k, cos, sin)
-
-        if layer_cache is not None and t == 1:
+        layer's cache views; T > 1 is a prefill, T == 1 a decode step, whose
+        attention reads the first ``kv_len`` cache rows (``cache_index`` as
+        an int, or the same as a 0-d int32 tensor on the device)."""
+        q, k, v = self.project_qkv(x, cos, sin)
+        if layer_cache is not None and x.shape[1] == 1:
             out = decode_step_attention(
                 q, layer_cache["k"], layer_cache["v"], step_kv_valid,
                 fresh_k=k, fresh_v=v,
                 k_scale=layer_cache.get("k_scale"), v_scale=layer_cache.get("v_scale"),
+                kv_len=cache_index if kv_len is None else kv_len,
             )
         else:
             out = causal_self_attention(q, k, v, padding_mask)
         if layer_cache is not None:
-            _write_cache(layer_cache, k, v, cache_index)
-        x = residual + self.o_proj(out.reshape(b, t, -1))
+            write_cache_rows(layer_cache, k, v, cache_index)
+        return self.finish(x, out)
 
-        residual = x
-        x = self.post_attention_layernorm(x)
-        gate, up = self.gate_proj(x), self.up_proj(x)
-        act = F.silu(gate) if cfg.hidden_activation == "silu" else F.gelu(gate, approximate="tanh")
-        return residual + self.down_proj(act * up)
+    def project_qkv(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+        """Pre-LN RMSNorm, the Q/K/V projections, QK-norm and NeoX rope:
+        q [B, T, Hq, D], k/v [B, T, Hkv, D]."""
+        cfg = self.cfg
+        b, t, _ = x.shape
+        hd = cfg.head_dim
+        h = self.input_layernorm(x)
+        q = self.q_proj(h).reshape(b, t, cfg.num_heads, hd)
+        k = self.k_proj(h).reshape(b, t, cfg.num_kv_heads, hd)
+        v = self.v_proj(h).reshape(b, t, cfg.num_kv_heads, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, self.q_norm, cfg.rms_norm_eps)
+            k = rms_norm(k, self.k_norm, cfg.rms_norm_eps)
+        return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
 
-
-def _write_cache(layer_cache: dict, k: torch.Tensor, v: torch.Tensor, index: int) -> None:
-    """IN-PLACE write of fresh K/V [B, T, Hkv, D] at rows index..index+T-1
-    of one layer's cache (quantized when the cache is int8)."""
-    rows = slice(index, index + k.shape[1])
-    if "k_scale" in layer_cache:
-        for name, x in (("k", k), ("v", v)):
-            x_q, x_s = quantize_kv(x)
-            layer_cache[name][:, rows] = x_q
-            layer_cache[f"{name}_scale"][:, rows] = x_s
-    else:
-        layer_cache["k"][:, rows] = k
-        layer_cache["v"][:, rows] = v
+    def finish(self, x: torch.Tensor, attn_out: torch.Tensor) -> torch.Tensor:
+        """The rest of the block after attention: output projection and
+        residual, then the SwiGLU / GeGLU MLP with its pre-LN and residual."""
+        b, t, _ = x.shape
+        x = x + self.o_proj(attn_out.reshape(b, t, -1))
+        h = self.post_attention_layernorm(x)
+        gate, up = self.gate_proj(h), self.up_proj(h)
+        silu = self.cfg.hidden_activation == "silu"
+        act = F.silu(gate) if silu else F.gelu(gate, approximate="tanh")
+        return x + self.down_proj(act * up)
 
 
 class Qwen3Decoder(nn.Module):
@@ -153,6 +138,21 @@ class Qwen3Decoder(nn.Module):
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens(input_ids)
 
+    def scale_inputs(self, inputs_embeds: torch.Tensor) -> torch.Tensor:
+        """Embeddings in the compute dtype, times sqrt(hidden) for Gemma."""
+        x = inputs_embeds.to(self.dtype)
+        if self.cfg.embedding_normalizer:
+            # scalar cast to the compute dtype first, as HF GemmaModel does
+            x = x * torch.tensor(self.cfg.hidden_size ** 0.5, dtype=self.dtype)
+        return x
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and the (tied) LM head."""
+        x = self.norm(x)
+        if self.cfg.tie_word_embeddings:
+            return F.linear(x, self.embed_tokens.weight)
+        return self.lm_head(x)
+
     def forward(
         self,
         inputs_embeds: torch.Tensor,
@@ -166,21 +166,21 @@ class Qwen3Decoder(nn.Module):
         """Returns logits [B, T', V] (T' = 1 with ``last_logit_index``)."""
         cfg = self.cfg
         cos, sin = rotary_embed(positions, cfg.head_dim, cfg.rope_theta)
-        x = inputs_embeds.to(self.dtype)
-        if cfg.embedding_normalizer:
-            # scalar cast to the compute dtype first, as HF GemmaModel does
-            x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=self.dtype)
+        x = self.scale_inputs(inputs_embeds)
+        kv_len = None
+        if cache is not None and x.shape[1] == 1 and x.is_cuda:
+            # the decode kernel reads the prefix length from device memory:
+            # one scalar per step, shared by every layer
+            kv_len = torch.full((), cache_index, dtype=torch.int32, device=x.device)
         for i, layer in enumerate(self.layers):
             layer_cache = None
             if cache is not None:
                 layer_cache = {name: buf[i] for name, buf in cache.items()}
-            x = layer(x, cos, sin, padding_mask, layer_cache, cache_index, step_kv_valid)
-        x = self.norm(x)
+            x = layer(x, cos, sin, padding_mask, layer_cache, cache_index, step_kv_valid,
+                      kv_len)
         if last_logit_index is not None:
             x = x[:, last_logit_index : last_logit_index + 1]
-        if cfg.tie_word_embeddings:
-            return F.linear(x, self.embed_tokens.weight)
-        return self.lm_head(x)
+        return self.logits(x)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         cfg = self.cfg

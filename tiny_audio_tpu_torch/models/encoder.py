@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tiny_audio_tpu.config import EncoderConfig, compute_encoder_output_length
+from tiny_audio_tpu_torch.config import EncoderConfig, compute_encoder_output_length
 from tiny_audio_tpu_torch.models.layers import sinusoidal_positions
 from tiny_audio_tpu_torch.ops.attention import encoder_self_attention
 

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tiny_audio_tpu.config import ASRConfig
+from tiny_audio_tpu_torch.config import ASRConfig
 from tiny_audio_tpu_torch.models.layers import RMSNorm
 
 

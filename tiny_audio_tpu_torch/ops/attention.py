@@ -8,8 +8,10 @@ Port of :mod:`tiny_audio_tpu.ops.attention`; public functions take the
   tensors;
 - decoder prefill ([B, ~470, 16/8 GQA, 128]) -> the causal prefill kernel
   (:mod:`.prefill_attention`) likewise;
-- the decode step (q_len == 1 over the KV cache) -> plain PyTorch on both
-  devices, as it is plain XLA in the JAX package's default path.
+- the decode step (q_len == 1 over the KV cache) with a scalar ``kv_len``
+  -> the decode kernel (:mod:`.decode_attention`) for CUDA tensors, its plain
+  version for CPU tensors; without ``kv_len`` (a per-row cache index, which
+  only the continuous engine uses) -> plain masked PyTorch on both devices.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from tiny_audio_tpu_torch.models.layers import MASK_VALUE
 from tiny_audio_tpu_torch.models.layers import attention as _attention
+from tiny_audio_tpu_torch.ops.decode_attention import KvLen, decode_attention
 from tiny_audio_tpu_torch.ops.encoder_attention import encoder_attention
 from tiny_audio_tpu_torch.ops.prefill_attention import prefill_attention
 
@@ -59,6 +62,7 @@ def decode_step_attention(
     fresh_v: Optional[torch.Tensor] = None,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    kv_len: Optional[KvLen] = None,
 ) -> torch.Tensor:
     """q_len == 1 attention over the KV cache.  kv_valid: [B, S] or [S].
 
@@ -70,7 +74,20 @@ def decode_step_attention(
     ``k_scale``/``v_scale`` ([B, S, Hkv]): the cache holds per-entry-scaled
     int8; the scales fold into the scores and the probabilities, so no
     dequantized copy of the cache is made.
+
+    ``kv_len`` (the number of valid cache rows, the same for every batch row:
+    the decode loops' ``cache_index``, an int or a 0-d int32 tensor on the
+    device) routes a step with fresh K/V to :func:`decode_attention`, which
+    reads only those rows; ``kv_valid`` must then mark exactly them.
     """
+    if kv_len is not None and fresh_k is not None:
+        b, _, hq, d = q.shape
+        out = decode_attention(
+            q.reshape(b, hq, d), cache_k, cache_v,
+            fresh_k.reshape(b, -1, d), fresh_v.reshape(b, -1, d), kv_len,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+        return out.reshape(b, 1, hq, d)
     if kv_valid.ndim == 1:
         kv_valid = kv_valid[None, :]
     if fresh_k is None:

@@ -1,0 +1,250 @@
+"""Decode-step attention over the KV cache: CUDA kernels for Hopper and their
+plain versions.
+
+Replaces the JAX package's two Pallas decode kernels
+(``tiny_audio_tpu/ops/decode_attention.py``):
+
+- :func:`decode_attention` for ``decode_attention_tpu``: one query row per
+  head attends over the valid cache prefix ``[0, kv_len)`` plus the fresh
+  (not yet cached) row; the caller writes the cache afterwards;
+- :func:`decode_attention_update` for ``decode_attention_update_tpu``: the
+  same attention over one layer's cache views, plus the in-place write of
+  the fresh row at ``kv_len`` (int8-quantized with ``quantize_kv``'s
+  arithmetic when the cache is int8).
+
+The kernels (``csrc/decode_attention.cu``) read only the first ``kv_len``
+cache rows, int8 dequantized in registers with the per-entry scales; the
+source's header states the bound.  The JAX package left both kernels off by
+default because XLA copies a loop-carried cache that a custom call reads; a
+torch cache written in place has no such copy.
+
+``kv_len`` is a Python int or a 0-d int32 tensor on the kernel's device: the
+kernel reads it from device memory, so a step can be launched without the
+host knowing it.  On a CPU tensor each wrapper runs its plain version; on a
+CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from tiny_audio_tpu_torch import kernels
+
+KERNEL_HEAD_DIM = 128  # the serving path's; the library builds only this one
+KERNEL_GROUP = 2       # query heads per KV head, likewise
+
+KvLen = Union[int, torch.Tensor]
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-entry symmetric int8 quantization over the head dim.
+
+    x: [..., D] -> (int8 [..., D], fp32 scale [...]).  Rounds half to even,
+    as ``jnp.round`` does.  Both divisions are IEEE divisions on every device
+    (PyTorch on CUDA turns a division by a Python scalar into a multiply by
+    its reciprocal, so 127 is a tensor here), and the append kernel stores
+    the same bytes and scales.
+    """
+    x = x.to(torch.float32)
+    amax = x.abs().amax(dim=-1)
+    scale = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8)
+    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def decode_attention_plain(
+    q: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    fresh_k: torch.Tensor,
+    fresh_v: torch.Tensor,
+    kv_len: KvLen,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Reference: q [B, Hq, D], cache_k/v [B, S, Hkv, D] (bf16/fp32, or int8
+    with k/v_scale [B, S, Hkv] fp32), fresh_k/v [B, Hkv, D].  Returns
+    [B, Hq, D] in q's dtype.
+
+    The math of ``ops.attention.decode_step_attention`` with the cache sliced
+    to ``[:, :kv_len]`` instead of masked, so rows past ``kv_len`` are never
+    read, as in the kernel."""
+    n = int(kv_len)
+    b, hq, d = q.shape
+    hkv = cache_k.shape[2]
+    group = hq // hkv
+    scale = d ** -0.5
+    f32 = torch.float32
+    compute_dtype = q.dtype
+    qg = q.reshape(b, hkv, group, d).to(f32)
+    ck, cv = cache_k[:, :n], cache_v[:, :n]
+    # cache -> compute dtype -> fp32 is exact (the JAX einsum's operands)
+    scores = torch.einsum("bhgd,bkhd->bhgk", qg, ck.to(compute_dtype).to(f32)) * scale
+    if k_scale is not None:
+        scores = scores * k_scale[:, :n].transpose(1, 2)[:, :, None, :]
+    self_score = torch.einsum(
+        "bhgd,bhd->bhg", qg, fresh_k.reshape(b, hkv, d).to(f32)
+    )[..., None] * scale
+    probs = torch.softmax(torch.cat([scores, self_score], dim=-1), dim=-1)
+    cache_probs = probs[..., :-1]
+    if v_scale is not None:  # fold the dequantization scale into the probabilities
+        cache_probs = cache_probs * v_scale[:, :n].transpose(1, 2)[:, :, None, :]
+    out = torch.einsum(
+        "bhgk,bkhd->bhgd",
+        cache_probs.to(compute_dtype).to(f32),
+        cv.to(compute_dtype).to(f32),
+    )
+    out = out + probs[..., -1:].to(compute_dtype) * fresh_v.reshape(b, hkv, 1, d).to(
+        compute_dtype
+    )
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def write_cache_rows(layer_cache: dict, k: torch.Tensor, v: torch.Tensor, index: int) -> None:
+    """IN-PLACE write of fresh K/V [B, T, Hkv, D] at rows index..index+T-1
+    of one layer's cache views ``{"k", "v"[, "k_scale", "v_scale"]}``,
+    quantized when the cache is int8."""
+    rows = slice(index, index + k.shape[1])
+    if "k_scale" in layer_cache:
+        for name, x in (("k", k), ("v", v)):
+            x_q, x_s = quantize_kv(x)
+            layer_cache[name][:, rows] = x_q
+            layer_cache[f"{name}_scale"][:, rows] = x_s
+    else:
+        layer_cache["k"][:, rows] = k
+        layer_cache["v"][:, rows] = v
+
+
+def decode_attention_update_plain(
+    q: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    fresh_k: torch.Tensor,
+    fresh_v: torch.Tensor,
+    kv_len: KvLen,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Reference for the kernel with the append: writes row ``kv_len`` of the
+    cache views (and scales) in place, then attends over the stale prefix
+    ``[0, kv_len)`` plus the fresh row."""
+    views = {"k": cache_k, "v": cache_v}
+    if k_scale is not None:
+        views.update(k_scale=k_scale, v_scale=v_scale)
+    write_cache_rows(views, fresh_k[:, None], fresh_v[:, None], int(kv_len))
+    return decode_attention_plain(q, cache_k, cache_v, fresh_k, fresh_v, kv_len,
+                                  k_scale, v_scale)
+
+
+def _check_cuda_inputs(q, cache_k, cache_v, fresh_k, fresh_v, k_scale, v_scale) -> None:
+    if q.dtype != torch.bfloat16 or fresh_k.dtype != torch.bfloat16 or fresh_v.dtype != torch.bfloat16:
+        raise TypeError(
+            f"decode attention kernel takes bfloat16 q and fresh K/V, got "
+            f"{q.dtype}, {fresh_k.dtype}, {fresh_v.dtype}"
+        )
+    if q.ndim != 3 or cache_k.ndim != 4 or cache_k.shape != cache_v.shape:
+        raise ValueError(f"need q [B,Hq,D], cache [B,S,Hkv,D]: {q.shape} {cache_k.shape} "
+                         f"{cache_v.shape}")
+    b, hq, d = q.shape
+    _, s, hkv, _ = cache_k.shape
+    if d != KERNEL_HEAD_DIM:
+        raise ValueError(f"decode attention kernel takes head_dim {KERNEL_HEAD_DIM}, got {d}")
+    if cache_k.shape[0] != b or cache_k.shape[3] != d or hq != KERNEL_GROUP * hkv:
+        raise ValueError(f"cache {tuple(cache_k.shape)} does not match q {tuple(q.shape)} "
+                         f"with {KERNEL_GROUP} query heads per KV head")
+    if fresh_k.shape != (b, hkv, d) or fresh_v.shape != (b, hkv, d):
+        raise ValueError(f"fresh K/V must be [B, Hkv, D] = {(b, hkv, d)}")
+    quantized = k_scale is not None
+    if quantized != (v_scale is not None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    want_cache = torch.int8 if quantized else torch.bfloat16
+    if cache_k.dtype != want_cache or cache_v.dtype != want_cache:
+        raise TypeError(f"{'an int8' if quantized else 'a bf16'} cache is needed, got {cache_k.dtype}")
+    tensors = [("q", q), ("cache_k", cache_k), ("cache_v", cache_v),
+               ("fresh_k", fresh_k), ("fresh_v", fresh_v)]
+    if quantized:
+        for name, x in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if x.dtype != torch.float32 or x.shape != (b, s, hkv):
+                raise ValueError(f"{name} must be float32 [B, S, Hkv] = {(b, s, hkv)}")
+        tensors += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for name, x in tensors:
+        if x.device != q.device:
+            raise ValueError(f"{name} must be on {q.device}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _device_kv_len(kv_len: KvLen, s: int, device: torch.device) -> torch.Tensor:
+    if isinstance(kv_len, torch.Tensor):
+        if kv_len.dtype != torch.int32 or kv_len.ndim != 0 or kv_len.device != device:
+            raise ValueError(f"kv_len must be a 0-d int32 tensor on {device}")
+        return kv_len
+    if not 0 <= kv_len < s:
+        raise ValueError(f"kv_len {kv_len} outside the cache rows [0, {s})")
+    return torch.full((), kv_len, dtype=torch.int32, device=device)
+
+
+def _launch(name: str, q, cache_k, cache_v, fresh_k, fresh_v, kv_len, k_scale, v_scale):
+    _check_cuda_inputs(q, cache_k, cache_v, fresh_k, fresh_v, k_scale, v_scale)
+    b, hq, d = q.shape
+    _, s, hkv, _ = cache_k.shape
+    kv_len_t = _device_kv_len(kv_len, s, q.device)
+    out = torch.empty_like(q)
+    quantized = k_scale is not None
+    kernels.launch(
+        name, q.device,
+        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+        k_scale.data_ptr() if quantized else 0, v_scale.data_ptr() if quantized else 0,
+        fresh_k.data_ptr(), fresh_v.data_ptr(), kv_len_t.data_ptr(), out.data_ptr(),
+        b, s, hq, hkv, d, int(quantized), d ** -0.5,
+    )
+    return out
+
+
+def decode_attention(
+    q: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    fresh_k: torch.Tensor,
+    fresh_v: torch.Tensor,
+    kv_len: KvLen,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One decode step's attention over the stale cache prefix plus the
+    fresh row.  Shapes as :func:`decode_attention_plain`; returns [B, Hq, D]."""
+    if not q.is_cuda:
+        return decode_attention_plain(q, cache_k, cache_v, fresh_k, fresh_v, kv_len,
+                                      k_scale, v_scale)
+    out = _launch("ta_decode_attention", q, cache_k, cache_v, fresh_k, fresh_v, kv_len,
+                  k_scale, v_scale)
+    decode_attention.launches += 1
+    return out
+
+
+def decode_attention_update(
+    q: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    fresh_k: torch.Tensor,
+    fresh_v: torch.Tensor,
+    kv_len: KvLen,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Append the fresh row at ``kv_len`` to one layer's cache views (in
+    place) and attend over the prefix plus that row.  Returns [B, Hq, D]."""
+    if not q.is_cuda:
+        return decode_attention_update_plain(q, cache_k, cache_v, fresh_k, fresh_v, kv_len,
+                                             k_scale, v_scale)
+    out = _launch("ta_decode_attention_update", q, cache_k, cache_v, fresh_k, fresh_v,
+                  kv_len, k_scale, v_scale)
+    decode_attention_update.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (CPU calls never count)
+decode_attention.launches = 0
+decode_attention_update.launches = 0

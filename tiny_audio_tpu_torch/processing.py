@@ -1,8 +1,7 @@
 """ASRProcessor: batched mel extraction on the model's device.
 
 Port of the audio half of :class:`tiny_audio_tpu.processing.ASRProcessor`
-(that module imports jax through its mel front-end, so the bucket table is
-copied here).  Mel lengths are padded to a few buckets, as in the JAX
+(the bucket table is the port's own copy).  Mel lengths are padded to a few buckets, as in the JAX
 package, so both packages see the same shapes.
 """
 
@@ -14,7 +13,8 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from tiny_audio_tpu.config import DEFAULT_ENCODER_CONV_LAYERS, compute_encoder_output_length
+from tiny_audio_tpu_torch.config import DEFAULT_ENCODER_CONV_LAYERS, compute_encoder_output_length
+from tiny_audio_tpu_torch.device import require_device
 from tiny_audio_tpu_torch.ops import mel
 
 # Default mel-frame buckets: 5 s steps up to the 30 s encoder window.
@@ -32,7 +32,8 @@ def bucket_frames(n_frames: int, buckets: Sequence[int] = DEFAULT_MEL_BUCKETS) -
 
 class ASRProcessor:
     """Feature extractor for :class:`tiny_audio_tpu_torch.models.asr.ASRModel`:
-    variable-length audio padded to the next mel bucket."""
+    variable-length audio padded to the next mel bucket, on ``device`` (the
+    CUDA device unless the caller asks for ``"cpu"``)."""
 
     def __init__(
         self,
@@ -40,13 +41,13 @@ class ASRProcessor:
         num_mel_bins: int = 128,
         encoder_conv_layers: Optional[list] = None,
         mel_buckets: Sequence[int] = DEFAULT_MEL_BUCKETS,
-        device="cpu",
+        device="cuda",
     ):
         self.projector = projector
         self.num_mel_bins = num_mel_bins
         self.encoder_conv_layers = encoder_conv_layers or DEFAULT_ENCODER_CONV_LAYERS
         self.mel_buckets = tuple(mel_buckets)
-        self.device = torch.device(device)
+        self.device = require_device(device)
 
     def extract_features(self, audio: Union[np.ndarray, Sequence[np.ndarray]]) -> dict:
         """Batch mel extraction with bucketed padding.
