@@ -5,17 +5,24 @@
 
 Builds the Hopper kernels from ``tiny_audio_tpu_torch/csrc`` (one ``nvcc`` per
 source, started together), holds each against its plain PyTorch version on
-random inputs, then drives the port at the flagship width (random weights
-from seed 0, int8 KV cache):
+random inputs (the decode kernels at every GQA group and head_dim they take,
+the int8 products at the flagship's layer and head shapes), then drives the
+port at the flagship width (random weights from seed 0, int8 KV cache):
 
 - ``ASRModel.generate`` on 4 x 30 s of audio, 128 tokens, on the fused
   decode path (kernel #4 per layer and step, the default on the card) and on
   the module path (``fused_decode=False``: kernel #3 plus the cache write);
 - ``ASRPipeline`` on three requests;
-- ``ASRPipeline.transcribe_streaming`` on one 30 s clip, 32 tokens.
+- ``ASRPipeline.transcribe_streaming`` on one 30 s clip, 32 tokens;
+- ``generate`` again under each int8 decode mode (``enable_wq_decode``:
+  kernel #6; ``enable_w8a8_head`` and ``enable_w8a8_decode``: kernel #5);
+- the HTTP server: ``save_pretrained`` of the flagship model,
+  ``EndpointHandler(path, w8a8_decode=True)`` over it, ``make_server`` with a
+  ``DynamicBatcher``, three concurrent ``POST /transcribe`` and the
+  ``/healthz`` and ``/metrics`` routes.
 
 Every kernel's launch count is set to 0 just before each path and read just
-after; the inputs the path gave each kernel in its first layer are kept,
+after; the inputs the path gave each kernel in its first call are kept,
 and each kernel is held against its plain version once more on exactly
 those tensors, where its time, its plain version's, its bound and (where
 one PyTorch call computes the same function) the library call's are taken.
@@ -32,7 +39,11 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -48,7 +59,19 @@ DECODE_KV_LENS = (1, 255, 256, 468, 595)
 # H100 SXM peaks at its 700 W limit (NVIDIA's data sheet; dense rates)
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
+INT8_TENSOR_OPS = 1979e12
 FP32_FLOPS = 67e12
+
+# (GQA group, head_dim) pairs the decode kernels take
+DECODE_SHAPES = [(g, d) for g in (1, 2, 3, 4, 8) for d in (64, 128, 256)]
+# the decode step's int8 products at the flagship width: (K, N) of the layer
+# projections and of the LM head, and the batches they are checked at
+INT8_SHAPES = {"q_proj": (1024, 2048), "k_proj|v_proj": (1024, 1024), "o_proj": (2048, 1024),
+               "gate_proj|up_proj": (1024, 3072), "down_proj": (3072, 1024),
+               "head": (1024, 151936)}
+INT8_BATCHES = (4, 16)
+INT8_MODES = {"enable_wq_decode": "wq_matmul", "enable_w8a8_head": "w8a8_matmul",
+              "enable_w8a8_decode": "w8a8_matmul"}
 
 # bf16 tolerance of a kernel against its plain version on the same bf16
 # inputs, |got - want| <= KERNEL_ATOL + KERNEL_RTOL * |want|: both round the
@@ -83,6 +106,27 @@ def cuda_ms(fn, iters: int) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device milliseconds of ``fn`` replayed from a CUDA graph of
+    ``iters`` calls: the launches leave the host out, so a kernel shorter
+    than its Python call is timed itself, not the host's call rate."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -380,6 +424,244 @@ def compare_decode_on_path_inputs(name: str, kernel, plain, call: tuple) -> dict
     return stats
 
 
+def compare_decode_every_shape(gen: torch.Generator) -> dict:
+    """Kernels #3 and #4 at every (GQA group, head_dim) pair they take, small
+    B and S, int8 and bf16 caches, NaN planted at and past kv_len; the rows
+    #4 writes must be bitwise those of the plain version."""
+    from tiny_audio_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+        decode_attention_update,
+        decode_attention_update_plain,
+    )
+
+    b, s, hkv, kv_len = 2, 96, 2, 77
+    errs = {"decode_attention": 0.0, "decode_attention_update": 0.0}
+    for group, d in DECODE_SHAPES:
+        line = []
+        for quantized in (True, False):
+            randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+            q = (randn(b, group * hkv, d) * 2).to(torch.bfloat16)
+            fk, fv = (randn(b, hkv, d).to(torch.bfloat16) for _ in range(2))
+            if quantized:
+                ck, cv = (torch.randint(-127, 128, (b, s, hkv, d), generator=gen, device="cuda")
+                          .to(torch.int8) for _ in range(2))
+                ks, vs = (randn(b, s, hkv).abs() * 0.02 + 1e-3 for _ in range(2))
+                ks[:, kv_len:] = float("nan")
+                vs[:, kv_len:] = float("nan")
+            else:
+                ck, cv = (randn(b, s, hkv, d).to(torch.bfloat16) for _ in range(2))
+                ck[:, kv_len:] = float("nan")
+                cv[:, kv_len:] = float("nan")
+                ks = vs = None
+            got = decode_attention(q, ck, cv, fk, fv, kv_len, ks, vs)
+            err3, ok3 = kernel_error(got, decode_attention_plain(q, ck, cv, fk, fv, kv_len, ks, vs))
+            mine = [x.clone() if x is not None else None for x in (ck, cv, ks, vs)]
+            ref = [x.clone() if x is not None else None for x in (ck, cv, ks, vs)]
+            got4 = decode_attention_update(q, mine[0], mine[1], fk, fv, kv_len, mine[2], mine[3])
+            err4, ok4 = kernel_error(got4, decode_attention_update_plain(
+                q, ref[0], ref[1], fk, fv, kv_len, ref[2], ref[3]))
+            rows_equal = all(same_bytes(x, y) for x, y in zip(mine, ref) if x is not None)
+            finite = bool(torch.isfinite(got).all()) and bool(torch.isfinite(got4).all())
+            cache = "int8" if quantized else "bf16"
+            if not (finite and ok3 and ok4 and rows_equal):
+                fail(f"decode kernels wrong at group={group} head_dim={d} cache={cache}: "
+                     f"errors {err3} {err4}, finite={finite}, written_rows_equal={rows_equal}")
+            errs["decode_attention"] = max(errs["decode_attention"], err3)
+            errs["decode_attention_update"] = max(errs["decode_attention_update"], err4)
+            line.append(f"{cache}_max_abs_err={max(err3, err4)!r}")
+        print(f"decode kernels group={group} head_dim={d} B={b} S={s} Hkv={hkv} kv_len={kv_len} "
+              f"nan_tail=true written_rows_equal=true {' '.join(line)}")
+    return errs
+
+
+def int8_bound(name: str, x, w_i8, scale) -> dict:
+    """Bytes and operations of one int8 product: x, the int8 weight and its
+    scales read once, the bf16 output written once; 2 B K N operations at
+    the int8 (#5) or bf16 (#6) tensor rate."""
+    b, k = x.shape
+    n = scale.shape[0]
+    peak = INT8_TENSOR_OPS if name == "w8a8_matmul" else BF16_TENSOR_FLOPS
+    return bound(nbytes(x, w_i8, scale) + b * n * 2, 2.0 * b * k * n, peak)
+
+
+def compare_int8_matmuls(gen: torch.Generator) -> dict:
+    """Kernels #5 (bitwise) and #6 (within WQ_ATOL + WQ_RTOL) against their
+    plain versions at the flagship's layer and head shapes, B = 4 and 16,
+    on a random bf16 weight quantized as the decode modes do; beside them
+    the time of F.linear on that bf16 weight, what the modes stand in for
+    (a yardstick, never called by the port).  Each is timed from the host's
+    back-to-back calls and from a CUDA graph of the same calls (device time
+    only: a layer product is shorter than its Python call)."""
+    import torch.nn.functional as F
+
+    from tiny_audio_tpu_torch.ops.wq_head import (
+        quantize_head_w8a8,
+        quantize_weight_w8a8,
+        w8a8_matmul,
+        w8a8_matmul_plain,
+    )
+    from tiny_audio_tpu_torch.ops.wq_matmul import (
+        NT,
+        WQ_ATOL,
+        WQ_RTOL,
+        quantize_weight,
+        wq_matmul,
+        wq_matmul_plain,
+    )
+
+    errs = {"w8a8_matmul": 0.0, "wq_matmul": 0.0}
+    for name, (k, n) in INT8_SHAPES.items():
+        w = (torch.randn((k, n), generator=gen, device="cuda") * 0.03).to(torch.bfloat16)
+        wi, si = quantize_weight(w)
+        if name == "head":  # padded as the collections pad it
+            wt, st = quantize_head_w8a8(w)
+            pad = -n % NT
+            wi, si = F.pad(wi, (0, pad)), F.pad(si, (0, pad))
+        else:
+            wt, st = quantize_weight_w8a8(w)
+        w_linear = w.T.contiguous()  # nn.Linear's [N, K]
+        for b in INT8_BATCHES:
+            x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
+            got5, want5 = w8a8_matmul(x, wt, st), w8a8_matmul_plain(x, wt, st)
+            bitwise = same_bytes(got5, want5)
+            err5 = (got5.float() - want5.float()).abs().max().item()
+            got6, want6 = wq_matmul(x, wi, si), wq_matmul_plain(x, wi, si)
+            diff = (got6.float() - want6.float()).abs()
+            err6 = diff.max().item()
+            ok6 = bool((diff <= WQ_ATOL + WQ_RTOL * want6.float().abs()).all())
+            finite = bool(torch.isfinite(got5).all()) and bool(torch.isfinite(got6).all())
+            ms5 = cuda_ms(lambda: w8a8_matmul(x, wt, st), 20)
+            ms6 = cuda_ms(lambda: wq_matmul(x, wi, si), 20)
+            plain5 = cuda_ms(lambda: w8a8_matmul_plain(x, wt, st), 5)
+            plain6 = cuda_ms(lambda: wq_matmul_plain(x, wi, si), 5)
+            linear_ms = cuda_ms(lambda: F.linear(x, w_linear), 20)
+            graph5 = graph_ms(lambda: w8a8_matmul(x, wt, st), 20)
+            graph6 = graph_ms(lambda: wq_matmul(x, wi, si), 20)
+            graph_linear = graph_ms(lambda: F.linear(x, w_linear), 20)
+            b5, b6 = int8_bound("w8a8_matmul", x, wt, st), int8_bound("wq_matmul", x, wi, si)
+            print(f"int8 matmul {name} K={k} N={n} B={b} w8a8_bitwise={str(bitwise).lower()} "
+                  f"w8a8_ms={ms5!r} w8a8_graph_ms={graph5!r} w8a8_plain_ms={plain5!r} "
+                  f"w8a8_bound_ms={b5['bound_ms']!r} wq_max_abs_err={err6!r} wq_atol={WQ_ATOL} "
+                  f"wq_rtol={WQ_RTOL} wq_ms={ms6!r} wq_graph_ms={graph6!r} "
+                  f"wq_plain_ms={plain6!r} wq_bound_ms={b6['bound_ms']!r} "
+                  f"bf16_linear_ms={linear_ms!r} bf16_linear_graph_ms={graph_linear!r}")
+            if not finite:
+                fail(f"int8 matmul kernels gave non-finite values at {name} B={b}")
+            if not bitwise:
+                fail(f"w8a8 matmul kernel is not bitwise its plain version at {name} B={b}: {err5}")
+            if not ok6:
+                fail(f"wq matmul kernel disagrees with its plain version at {name} B={b}: {err6}")
+            errs["w8a8_matmul"] = max(errs["w8a8_matmul"], err5)
+            errs["wq_matmul"] = max(errs["wq_matmul"], err6)
+    return errs
+
+
+def compare_int8_on_path_inputs(name: str, kernel, plain, call: tuple, bf16_weight) -> dict:
+    """#5 or #6 against its plain version on the tensors the generate path
+    gave it first (the prefill's one-row head), with its bound and the time
+    of F.linear on the bf16 head weight of the same product."""
+    import torch.nn.functional as F
+
+    from tiny_audio_tpu_torch.ops.wq_matmul import WQ_ATOL, WQ_RTOL
+
+    args, _ = call
+    x, w_i8, scale = args
+    got, want = kernel(*args), plain(*args)
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    if name == "w8a8_matmul":
+        within = same_bytes(got, want)
+    else:
+        within = bool((diff <= WQ_ATOL + WQ_RTOL * want.float().abs()).all())
+    ms = cuda_ms(lambda: kernel(*args), 20)
+    plain_ms = cuda_ms(lambda: plain(*args), 5)
+    library_ms = cuda_ms(lambda: F.linear(x, bf16_weight), 20)
+    stats = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             **int8_bound(name, x, w_i8, scale), "library_ms": None}
+    print(f"{name} on the path's first inputs x={list(x.shape)} weight={list(w_i8.shape)} "
+          f"max_abs_err={err!r} kernel_ms={ms!r} plain_ms={plain_ms!r} "
+          f"bound_ms={stats['bound_ms']!r} bf16_linear_ms={library_ms!r} (F.linear on the "
+          f"unquantized head, a yardstick: no PyTorch call computes the int8 function)")
+    if not bool(torch.isfinite(got).all()) or not within:
+        fail(f"{name} kernel disagrees with its plain version on the path's inputs: {err}")
+    return stats
+
+
+def serve_requests(model, rng, reset_counts, read_counts) -> str:
+    """Save ``model`` in the JAX package's checkpoint layout, serve it with
+    ``EndpointHandler(path, w8a8_decode=True)`` behind ``make_server`` and a
+    ``DynamicBatcher``, send three concurrent ``POST /transcribe`` (pcm-f32)
+    and read ``/healthz`` and ``/metrics``.  Returns the phase's numbers."""
+    from tiny_audio_tpu_torch.batching import DynamicBatcher
+    from tiny_audio_tpu_torch.handler import EndpointHandler
+    from tiny_audio_tpu_torch.serving import make_server
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        model.save_pretrained(ckpt)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in Path(ckpt).iterdir())
+        t0 = time.perf_counter()
+        handler = EndpointHandler(ckpt, w8a8_decode=True)
+        phase_done()
+        load_s = time.perf_counter() - t0
+    served = handler.pipe.model
+    if served.device.type != "cuda" or served.wq is None or "head_t_i8" not in served.wq:
+        fail("the handler did not build a W8A8 model on the card")
+    for (name, a), (_, b) in zip(model.named_parameters(), served.named_parameters()):
+        if not torch.equal(a, b):
+            fail(f"the checkpoint read back another {name}")
+    batcher = DynamicBatcher(handler.pipe, max_batch=4, max_wait_ms=200)
+    server = make_server(handler, host="127.0.0.1", port=0, batcher=batcher)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    answers: list = [None] * len(REQUEST_SECONDS)
+
+    def post(i: int, seconds: float) -> None:
+        clip = (rng.standard_normal(int(seconds * 16000)) * 0.1).astype(np.float32)
+        req = urllib.request.Request(f"{url}/transcribe", data=clip.tobytes(),
+                                     headers={"Content-Type": "application/pcm-f32"})
+        t = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                answers[i] = (r.status, json.loads(r.read()), time.perf_counter() - t)
+        except Exception as e:  # reported below, after the threads join
+            answers[i] = (None, repr(e), time.perf_counter() - t)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    posts = [threading.Thread(target=post, args=(i, sec)) for i, sec in enumerate(REQUEST_SECONDS)]
+    for t in posts:
+        t.start()
+    for t in posts:
+        t.join()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+        health = json.loads(r.read())
+    with urllib.request.urlopen(f"{url}/metrics", timeout=60) as r:
+        metrics = r.read().decode()
+    batcher.close()
+    server.shutdown()
+    thread.join(timeout=60)
+    for seconds, (status, body, _) in zip(REQUEST_SECONDS, answers):
+        if status != 200 or not isinstance(body, dict) or not isinstance(body.get("text"), str):
+            fail(f"POST /transcribe of {seconds} s answered {status}: {body!r}")
+    done = 'ta_requests_total{route="/transcribe",code="200"} ' + str(len(REQUEST_SECONDS))
+    if health.get("status") != "ok" or done not in metrics.splitlines():
+        fail(f"/healthz or /metrics wrong: {health!r}, no line {done!r}")
+    if counts["w8a8_matmul"] == 0 or counts["decode_attention_update"] == 0:
+        fail(f"the served requests missed a kernel of the W8A8 path: {counts}")
+    del handler, served
+    torch.cuda.empty_cache()
+    return (f"status={[a[0] for a in answers]} latency_s={[a[2] for a in answers]} "
+            f"wall_s={wall_s!r} text_chars={[len(a[1]['text']) for a in answers]} "
+            f"checkpoint_bytes={ckpt_bytes} save_s={save_s!r} load_s={load_s!r} "
+            f"healthz={json.dumps(health)} launches={json.dumps(counts)}")
+
+
 def small_model_reference() -> None:
     """The serving path on a small bf16 model, card vs CPU on equal weights."""
     from tiny_audio_tpu_torch import ASRConfig, DecoderConfig, EncoderConfig
@@ -444,6 +726,10 @@ def main() -> None:
     phase_done()
     dec = compare_decode_kernels(gen)
     phase_done()
+    dec_shapes = compare_decode_every_shape(gen)
+    phase_done()
+    int8_errs = compare_int8_matmuls(gen)
+    phase_done()
     small_model_reference()
     phase_done()
 
@@ -467,11 +753,16 @@ def main() -> None:
         prefill_attention,
         prefill_attention_plain,
     )
+    from tiny_audio_tpu_torch.models import decoder as decoder_module
+    from tiny_audio_tpu_torch.ops.wq_head import w8a8_matmul, w8a8_matmul_plain
+    from tiny_audio_tpu_torch.ops.wq_matmul import wq_matmul, wq_matmul_plain
     from tiny_audio_tpu_torch.pipeline import ASRPipeline
 
     wrappers = {"encoder_attention": encoder_attention, "prefill_attention": prefill_attention,
                 "decode_attention": decode_attention,
-                "decode_attention_update": decode_attention_update}
+                "decode_attention_update": decode_attention_update,
+                "w8a8_matmul": w8a8_matmul, "wq_matmul": wq_matmul}
+    no_int8 = {"w8a8_matmul": 0, "wq_matmul": 0}
 
     def reset_counts() -> None:
         for fn in wrappers.values():
@@ -521,7 +812,7 @@ def main() -> None:
         counts = read_counts()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         want = {"encoder_attention": n_enc, "prefill_attention": n_dec,
-                "decode_attention": 0, "decode_attention_update": 0}
+                "decode_attention": 0, "decode_attention_update": 0, **no_int8}
         want[kernel_name] = n_dec * steps
         if counts != want:
             fail(f"{label} decode path launches {counts}, expected {want}")
@@ -559,7 +850,7 @@ def main() -> None:
     phase_done()
 
     # ---- 5b. kernels vs plain versions on the path's own inputs ----
-    if set(path_inputs) != set(wrappers):
+    if set(path_inputs) != set(wrappers) - set(no_int8):
         fail(f"the paths did not reach every kernel's wrapper: {sorted(path_inputs)}")
     enc_path = compare_on_path_inputs("encoder_attention", encoder_attention,
                                       encoder_attention_plain, path_inputs["encoder_attention"])
@@ -589,7 +880,8 @@ def main() -> None:
     phase_done()
     counts = read_counts()
     if min(counts["encoder_attention"], counts["prefill_attention"],
-           counts["decode_attention_update"]) == 0 or counts["decode_attention"]:
+           counts["decode_attention_update"]) == 0 or counts["decode_attention"] or \
+            counts["w8a8_matmul"] or counts["wq_matmul"]:
         fail(f"the pipeline missed a kernel of its path: {counts}")
     print(f"pipeline requests={len(REQUEST_SECONDS)} seconds={list(REQUEST_SECONDS)} "
           f"wall_s={time.perf_counter() - t0!r} text_chars={texts} launches={json.dumps(counts)}")
@@ -619,7 +911,8 @@ def main() -> None:
         asr_module.stream_generate = original_stream
     counts = read_counts()
     want = {"encoder_attention": n_enc, "prefill_attention": n_dec,
-            "decode_attention": n_dec * (STREAM_TOKENS - 1), "decode_attention_update": 0}
+            "decode_attention": n_dec * (STREAM_TOKENS - 1), "decode_attention_update": 0,
+            **no_int8}
     if counts != want:
         fail(f"streaming launches {counts}, expected {want}")
     if not first_token_at or not all(isinstance(f, str) for f in fragments):
@@ -630,8 +923,78 @@ def main() -> None:
           f"launches={json.dumps(counts)}")
     phase_done()
 
+    # ---- 8. generate under each int8 decode mode ----
+    bf16_tokens = results["fused"]["tokens"]
+    int8_inputs: dict = {}
+    per_step_matmuls = 7 * n_dec + 1  # every layer projection and the head
+    mode_launches = {}
+    for mode, kernel_name in INT8_MODES.items():
+        model.wq = None
+        t0 = time.perf_counter()
+        getattr(model, mode)()
+        phase_done()
+        quantize_s = time.perf_counter() - t0
+        n_int8 = steps * (per_step_matmuls if mode != "enable_w8a8_head" else 1) + 1  # + prefill head
+        runs = [("fused", {})] + ([("module", {"fused_decode": False})]
+                                  if mode == "enable_w8a8_decode" else [])
+        mode_tokens = {}
+        for label, kwargs in runs:
+            want = {"encoder_attention": n_enc, "prefill_attention": n_dec,
+                    "decode_attention": n_dec * steps if label == "module" else 0,
+                    "decode_attention_update": n_dec * steps if label == "fused" else 0,
+                    **no_int8, kernel_name: n_int8}
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            with record_first_call(decoder_module, kernel_name, int8_inputs):
+                tokens, first_s, _ = run_generate(MAX_NEW, **kwargs)
+            counts = read_counts()
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            if counts != want:
+                fail(f"{mode} {label} path launches {counts}, expected {want}")
+            reset_counts()
+            tokens2, batch_s, _ = run_generate(MAX_NEW, **kwargs)
+            if read_counts() != want:
+                fail(f"{mode} {label} second call launches {read_counts()}, expected {want}")
+            if tokens.shape != (BATCH, MAX_NEW) or not np.array_equal(tokens, tokens2):
+                fail(f"two {mode} {label} generate calls gave different tokens")
+            _, fixed_s, _ = run_generate(1, **kwargs)
+            step_ms = (batch_s - fixed_s) / steps * 1e3
+            mode_tokens[label] = tokens
+            mode_launches[kernel_name] = counts[kernel_name]
+            print(f"generate mode={mode} path={label} batch={BATCH} clip_s={CLIP_S} "
+                  f"new_tokens={MAX_NEW} kv=int8 quantize_s={quantize_s!r} "
+                  f"first_call_s={first_s!r} batch_wall_s={batch_s!r} one_token_call_s={fixed_s!r} "
+                  f"decode_step_ms={step_ms!r} bf16_fused_decode_step_ms="
+                  f"{results['fused']['step_ms']!r} peak_mem_gib={peak_gib!r} "
+                  f"launches={json.dumps(counts)} deterministic=true "
+                  f"token_agreement_with_bf16={float((tokens == bf16_tokens).mean())!r}")
+        if "module" in mode_tokens and not np.array_equal(mode_tokens["fused"],
+                                                          mode_tokens["module"]):
+            fail(f"{mode}: the fused and the module decode paths gave different tokens")
+        if "module" in mode_tokens:
+            print(f"generate mode={mode} fused_vs_module_tokens_identical=true")
+        phase_done()
+    model.wq = None
+    head_bf16 = model.decoder.embed_tokens.weight  # the tied head, [vocab, hidden]
+    int8_path = {
+        "w8a8_matmul": compare_int8_on_path_inputs(
+            "w8a8_matmul", w8a8_matmul, w8a8_matmul_plain,
+            int8_inputs["w8a8_matmul"], head_bf16),
+        "wq_matmul": compare_int8_on_path_inputs(
+            "wq_matmul", wq_matmul, wq_matmul_plain, int8_inputs["wq_matmul"], head_bf16),
+    }
+    del int8_inputs
+    torch.cuda.empty_cache()
+    phase_done()
+
+    # ---- 9. the HTTP server over a saved checkpoint, W8A8 decode ----
+    served = serve_requests(model, rng, reset_counts, read_counts)
+    print(f"server requests={len(REQUEST_SECONDS)} seconds={list(REQUEST_SECONDS)} "
+          f"{served}")
+    phase_done()
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                                                   "tiny_audio_tpu"))
+                                                                   "msgpack", "tiny_audio_tpu"))
     if loaded:
         fail(f"the port imported the JAX side: {loaded[:5]}")
 
@@ -639,6 +1002,7 @@ def main() -> None:
     # random-input and the path-input comparisons.
     source = "tiny_audio_tpu_torch/csrc/attention.cu"
     decode_source = "tiny_audio_tpu_torch/csrc/decode_attention.cu"
+    int8_source = "tiny_audio_tpu_torch/csrc/int8_matmul.cu"
     launches = {**results["fused"]["counts"],
                 "decode_attention": results["module"]["counts"]["decode_attention"]}
     print(json.dumps({"kernels": [
@@ -653,11 +1017,21 @@ def main() -> None:
         {"name": "decode_attention", "route": "cuda", "source": decode_source,
          "replaces": "tiny_audio_tpu/ops/decode_attention.py:152",
          "launches": launches["decode_attention"], **dec_path,
-         "max_abs_err": max(dec["decode_attention"], dec_path["max_abs_err"])},
+         "max_abs_err": max(dec["decode_attention"], dec_shapes["decode_attention"],
+                            dec_path["max_abs_err"])},
         {"name": "decode_attention_update", "route": "cuda", "source": decode_source,
          "replaces": "tiny_audio_tpu/ops/decode_attention.py:428",
          "launches": launches["decode_attention_update"], **upd_path,
-         "max_abs_err": max(dec["decode_attention_update"], upd_path["max_abs_err"])},
+         "max_abs_err": max(dec["decode_attention_update"], dec_shapes["decode_attention_update"],
+                            upd_path["max_abs_err"])},
+        {"name": "w8a8_matmul", "route": "cuda", "source": int8_source,
+         "replaces": "tiny_audio_tpu/ops/wq_head.py:128",
+         "launches": mode_launches["w8a8_matmul"], **int8_path["w8a8_matmul"],
+         "max_abs_err": max(int8_errs["w8a8_matmul"], int8_path["w8a8_matmul"]["max_abs_err"])},
+        {"name": "wq_matmul", "route": "cuda", "source": int8_source,
+         "replaces": "tiny_audio_tpu/ops/wq_matmul.py:73",
+         "launches": mode_launches["wq_matmul"], **int8_path["wq_matmul"],
+         "max_abs_err": max(int8_errs["wq_matmul"], int8_path["wq_matmul"]["max_abs_err"])},
     ]}))
     print(power_line)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,8 @@ from tiny_audio_tpu_torch.ops.prefill_attention import (
     prefill_attention,
     prefill_attention_plain,
 )
+from tiny_audio_tpu_torch.ops.wq_head import w8a8_matmul, w8a8_matmul_plain
+from tiny_audio_tpu_torch.ops.wq_matmul import WQ_ATOL, WQ_RTOL, wq_matmul, wq_matmul_plain
 
 torch.set_num_threads(1)
 # bf16 kernel vs plain version on the same inputs: both round P and the
@@ -88,10 +90,31 @@ def test_cuda_tensor_never_falls_back(pretend_cuda):
         with pytest.raises(TypeError):
             fn(q.float(), cache, cache, fresh.float(), fresh.float(), 5, scale, scale)
         with pytest.raises(ValueError, match="head_dim"):
-            fn(q[..., :64].contiguous(), cache[..., :64].contiguous(),
-               cache[..., :64].contiguous(), fresh[..., :64].contiguous(),
-               fresh[..., :64].contiguous(), 5, scale, scale)
+            fn(q[..., :32].contiguous(), cache[..., :32].contiguous(),
+               cache[..., :32].contiguous(), fresh[..., :32].contiguous(),
+               fresh[..., :32].contiguous(), 5, scale, scale)
+        with pytest.raises(ValueError, match="query heads per KV head"):  # group 5
+            fn(torch.zeros((2, 10, 128), dtype=torch.bfloat16), cache, cache, fresh, fresh,
+               5, scale, scale)
     assert decode_attention.launches == 0 and decode_attention_update.launches == 0
+
+    w8a8_matmul.launches = wq_matmul.launches = 0
+    x = torch.zeros((2, 64), dtype=torch.bfloat16)
+    scale = torch.ones(96, dtype=torch.float32)
+    wt, w = torch.zeros((96, 64), dtype=torch.int8), torch.zeros((64, 96), dtype=torch.int8)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        w8a8_matmul(x, wt, scale)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        wq_matmul(x, w, scale)
+    with pytest.raises(TypeError):
+        w8a8_matmul(x.float(), wt, scale)
+    with pytest.raises(TypeError):
+        wq_matmul(x, w.float(), scale)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        w8a8_matmul(x[:, :40].contiguous(), wt[:, :40].contiguous(), scale)
+    with pytest.raises(ValueError):
+        wq_matmul(x, wt, scale)  # [N, K] is not the [K, N] layout
+    assert w8a8_matmul.launches == 0 and wq_matmul.launches == 0
 
 
 # ---------------------------------------------------------------- on the card
@@ -206,3 +229,98 @@ def test_decode_update_kernel_matches_plain(cuda_device, quantized, kv_len):
     for got_buf, want_buf in zip(mine, ref):
         if got_buf is not None:
             assert torch.equal(got_buf, want_buf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,d", [(g, d) for g in (1, 2, 3, 4, 8) for d in (64, 128, 256)])
+@pytest.mark.parametrize("quantized", [True, False])
+def test_decode_kernels_every_group_and_head_dim(cuda_device, group, d, quantized):
+    """Both decode kernels at every (GQA group, head_dim) they take, NaN
+    planted at and past kv_len; the appended row is bitwise quantize_kv's."""
+    b, s, hkv, kv_len = 2, 96, 2, 77
+    g = torch.Generator(device=cuda_device).manual_seed(group * 1000 + d)
+    randn = lambda *shape: torch.randn(shape, generator=g, device=cuda_device)  # noqa: E731
+    q = (randn(b, group * hkv, d) * 2).to(torch.bfloat16)
+    fk, fv = (randn(b, hkv, d).to(torch.bfloat16) for _ in range(2))
+    if quantized:
+        ck, cv = (torch.randint(-127, 128, (b, s, hkv, d), generator=g, device=cuda_device)
+                  .to(torch.int8) for _ in range(2))
+        ks, vs = (randn(b, s, hkv).abs() * 0.02 + 1e-3 for _ in range(2))
+        ks[:, kv_len:] = float("nan")
+        vs[:, kv_len:] = float("nan")
+    else:
+        ck, cv = (randn(b, s, hkv, d).to(torch.bfloat16) for _ in range(2))
+        ck[:, kv_len:] = float("nan")
+        cv[:, kv_len:] = float("nan")
+        ks = vs = None
+    got = decode_attention(q, ck, cv, fk, fv, kv_len, ks, vs)
+    want = decode_attention_plain(q, ck, cv, fk, fv, kv_len, ks, vs)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    clone = lambda x: None if x is None else x.clone()  # noqa: E731
+    mine = [clone(x) for x in (ck, cv, ks, vs)]
+    ref = [clone(x) for x in (ck, cv, ks, vs)]
+    got = decode_attention_update(q, mine[0], mine[1], fk, fv, kv_len, mine[2], mine[3])
+    want = decode_attention_update_plain(q, ref[0], ref[1], fk, fv, kv_len, ref[2], ref[3])
+    torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    for got_buf, want_buf in zip(mine, ref):
+        if got_buf is not None:
+            assert torch.equal(got_buf.view(torch.uint8), want_buf.view(torch.uint8))
+
+
+# the decode step's products: the flagship's layer projections and its head,
+# and ragged N for the narrow and the wide tiling
+MATMUL_SHAPES = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024),
+                 (1024, 151936), (96, 300), (64, 40001)]
+
+
+def _matmul_inputs(device, b, k, n, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn((b, k), generator=g, device=device) * 2).to(torch.bfloat16)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=device).to(torch.int8)
+    scale = torch.rand(n, generator=g, device=device) * 0.01
+    return x, w, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4, 16, 19])
+@pytest.mark.parametrize("k,n", MATMUL_SHAPES)
+def test_w8a8_kernel_matches_plain_bitwise(cuda_device, b, k, n):
+    x, wt, scale = _matmul_inputs(cuda_device, b, k, n, seed=b + n)
+    x[0] = 0.0  # an all-zero row takes the 1e-12 guard
+    before = w8a8_matmul.launches
+    got = w8a8_matmul(x, wt, scale)
+    assert w8a8_matmul.launches == before + 1
+    want = w8a8_matmul_plain(x, wt, scale)
+    assert got.shape == (b, n) and torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4, 16, 19])
+@pytest.mark.parametrize("k,n", MATMUL_SHAPES + [(64, 301)])
+def test_wq_kernel_matches_plain(cuda_device, b, k, n):
+    """fp32 sums in another order than cuBLAS's: within WQ_ATOL + WQ_RTOL."""
+    x, wt, scale = _matmul_inputs(cuda_device, b, k, n, seed=3 * b + n)
+    w = wt.T.contiguous()
+    before = wq_matmul.launches
+    got = wq_matmul(x, w, scale)
+    assert wq_matmul.launches == before + 1
+    want = wq_matmul_plain(x, w, scale)
+    torch.testing.assert_close(got.float(), want.float(), atol=WQ_ATOL, rtol=WQ_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [4, 8])
+def test_wq_kernel_takes_a_weight_off_16_byte_alignment(cuda_device, offset):
+    """A contiguous weight view ``offset`` bytes past a 16-byte boundary, at
+    an N that takes the wide tiling's 16-byte loads when aligned."""
+    k, n = 64, 40960
+    x, wt, scale = _matmul_inputs(cuda_device, 4, k, n, seed=offset)
+    buf = torch.empty(k * n + 16, dtype=torch.int8, device=cuda_device)
+    w = buf[offset:offset + k * n].view(k, n)
+    w.copy_(wt.T)
+    assert w.is_contiguous() and w.data_ptr() % 16 == offset
+    got = wq_matmul(x, w, scale)
+    torch.cuda.synchronize()
+    want = wq_matmul_plain(x, w, scale)
+    torch.testing.assert_close(got.float(), want.float(), atol=WQ_ATOL, rtol=WQ_RTOL)

@@ -236,7 +236,7 @@ import importlib, pkgutil, sys
 
 class BlockJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "tiny_audio_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "tiny_audio_tpu"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -264,8 +264,30 @@ for fused in (True, False):
     assert tokens.shape == (1, 4), tokens.shape
 assert isinstance(pipe(np.zeros(4000, np.float32))["text"], str)
 assert all(isinstance(f, str) for f in pipe.transcribe_streaming(np.zeros(4000, np.float32)))
+
+# a checkpoint round trip and the server over it, with msgpack blocked too
+import json, tempfile, threading, urllib.request
+from tiny_audio_tpu_torch.batching import DynamicBatcher
+from tiny_audio_tpu_torch.handler import EndpointHandler
+from tiny_audio_tpu_torch.serving import make_server
+
+ckpt = tempfile.mkdtemp()
+pipe.model.save_pretrained(ckpt)
+handler = EndpointHandler(ckpt, device="cpu", w8a8_decode=True)
+for (name, a), (_, b) in zip(pipe.model.named_parameters(), handler.pipe.model.named_parameters()):
+    assert a.dtype == b.dtype and torch.equal(a, b), name
+batcher = DynamicBatcher(handler.pipe)
+server = make_server(handler, host="127.0.0.1", port=0, batcher=batcher)
+threading.Thread(target=server.serve_forever, daemon=True).start()
+req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/transcribe",
+                             data=np.zeros(8000, np.float32).tobytes(),
+                             headers={"Content-Type": "application/pcm-f32"})
+with urllib.request.urlopen(req, timeout=120) as r:
+    assert isinstance(json.loads(r.read())["text"], str)
+batcher.close()
+server.shutdown()
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "tiny_audio_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "tiny_audio_tpu"))
 assert not loaded, loaded
 print("OK", len(names))
 """

@@ -16,27 +16,30 @@
 // Both run one device function for the attention (attend below).
 //
 // Design (simple and exact first):
-//   - one block of 8 warps per (batch row, KV head): B x Hkv blocks.  The
-//     GROUP = Hq / Hkv = 2 query heads of the KV head share every K/V row,
-//     which is read once: GQA needs no repeat;
+//   - head_dim D in {64, 128, 256} (a template parameter) and GQA group
+//     Hq / Hkv in {1, 2, 3, 4, 8} (a runtime bound): one block of 8 warps
+//     per (batch row, KV head) holds up to MAX_HEADS = 4 query heads of the
+//     group, which share every K/V row it reads once; a group of 8 takes
+//     two blocks per KV head, each reading the rows once;
 //   - kv_len is read from a device int32, so the launch does not depend on a
 //     host value (fit for a CUDA graph of the decode step later);
 //   - rows at kv_len and beyond are never read, so NaN or garbage there
 //     cannot reach the output (the Pallas kernel zero-fills those slabs);
-//   - each lane loads 16 bytes of a row (an int8 head row is 128 bytes: 8
-//     lanes, 4 rows per warp step; a bf16 row 256 bytes: 16 lanes, 2 rows),
-//     dequantizes in registers and prefetches its next row before the math;
+//   - each lane loads 16 bytes of a row (an int8 row of D = 128 is 8 lanes,
+//     4 rows per warp step; a bf16 row 16 lanes, 2 rows), dequantizes in
+//     registers and prefetches its next row before the math;
 //   - scores are q.k * D^-0.5 * k_scale in fp32 (log2 units); an exact
 //     online softmax in fp32 per lane, merged across the rows of a warp with
 //     shuffles and across warps in shared memory; v_scale folds into the
 //     probabilities; the fresh row's score comes from the unquantized bf16
 //     fresh K, and p_self * fresh_v is added last, as both JAX versions do.
+//     The final merge loops over the block's heads x D outputs.
 //
-// The append (ta_decode_attention_update): the last warp of each block
-// quantizes its head's fresh K and V rows, scale = max(amax / 127, 1e-8),
-// q = clamp(rint(x / scale), -127, 127), with IEEE divisions (no fast math,
-// no reciprocal multiply), so the stored bytes and scales equal
-// models/decoder.py::quantize_kv's bit for bit.  The attention reads only
+// The append (ta_decode_attention_update): the last warp of the first block
+// of each KV head quantizes the head's fresh K and V rows, scale =
+// max(amax / 127, 1e-8), q = clamp(rint(x / scale), -127, 127), with IEEE
+// divisions (no fast math, no reciprocal multiply), so the stored bytes and
+// scales equal ops/decode_attention.py::quantize_kv's bit for bit.  The attention reads only
 // rows < kv_len, so the write at row kv_len cannot race with it.
 //
 // What bounds it on the H100: a decode step's attention is a matrix-vector
@@ -58,11 +61,9 @@
 
 namespace {
 
-constexpr int D = 128;        // head_dim: the serving path's
-constexpr int GROUP = 2;      // query heads per KV head: the serving path's
 constexpr int NUM_WARPS = 8;
 constexpr int NUM_THREADS = NUM_WARPS * 32;
-static_assert(NUM_THREADS == GROUP * D, "the final merge gives one thread per output");
+constexpr int MAX_HEADS = 4;  // query heads one block holds
 
 struct Args {
   const __nv_bfloat16* q;        // [B, Hq, D]
@@ -76,6 +77,8 @@ struct Args {
   __nv_bfloat16* out;            // [B, Hq, D]
   int S;
   int Hkv;
+  int group;                     // Hq / Hkv
+  int heads;                     // query heads per block: group, or 4 of a group of 8
   float scale_log2;              // D^-0.5 * log2(e)
 };
 
@@ -94,33 +97,38 @@ __device__ __forceinline__ float merge_weight(float m_part, float m_total) {
   return m_part == -INFINITY ? 0.f : exp2f(m_part - m_total);
 }
 
-template <typename T>
-__device__ void attend(const Args& a, const int b, const int kvh, const int kv_len) {
+// Query heads h0 .. h0 + a.heads - 1 of KV head kvh (heads counted within
+// the group) attend over rows [0, kv_len) of batch row b plus the fresh row.
+template <typename T, int D>
+__device__ void attend(const Args& a, const int b, const int kvh, const int h0, const int kv_len) {
   constexpr bool QUANT = std::is_same<T, int8_t>::value;
   constexpr int EPL = 16 / sizeof(T);  // cache elements a lane loads per row
   constexpr int LPR = D / EPL;         // lanes per row
   constexpr int RPW = 32 / LPR;        // rows per warp step
   constexpr int ROWS_PER_STEP = NUM_WARPS * RPW;
+  constexpr int CPL = D / 32;          // fresh-row columns per lane
 
-  __shared__ float sm_m[NUM_WARPS][GROUP];
-  __shared__ float sm_l[NUM_WARPS][GROUP];
-  __shared__ float sm_acc[NUM_WARPS][GROUP][D];
-  __shared__ float sm_self[GROUP];
+  __shared__ float sm_m[NUM_WARPS][MAX_HEADS];
+  __shared__ float sm_l[NUM_WARPS][MAX_HEADS];
+  __shared__ float sm_acc[NUM_WARPS][MAX_HEADS][D];
+  __shared__ float sm_self[MAX_HEADS];
 
+  const int heads = a.heads;  // uniform across the block
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int sub = lane / LPR;            // which row of the warp step
   const int col0 = (lane % LPR) * EPL;   // this lane's columns
-  const int hq = a.Hkv * GROUP;
-  const __nv_bfloat16* q_rows = a.q + ((int64_t)b * hq + (int64_t)kvh * GROUP) * D;
+  const int hq = a.Hkv * a.group;
+  const int64_t head0 = (int64_t)b * hq + (int64_t)kvh * a.group + h0;
+  const __nv_bfloat16* q_rows = a.q + head0 * D;
   const int64_t fresh_off = ((int64_t)b * a.Hkv + kvh) * D;
 
-  // The fresh row's score per query head: warp g, 4 columns a lane.
-  if (warp < GROUP) {
+  // The fresh row's score per query head: warp g, CPL columns a lane.
+  if (warp < heads) {
     float dot = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = lane * 4 + e;
+    for (int e = 0; e < CPL; ++e) {
+      const int c = lane * CPL + e;
       dot += __bfloat162float(q_rows[warp * D + c]) * __bfloat162float(a.fresh_k[fresh_off + c]);
     }
 #pragma unroll
@@ -128,11 +136,13 @@ __device__ void attend(const Args& a, const int b, const int kvh, const int kv_l
     if (lane == 0) sm_self[warp] = dot * a.scale_log2;
   }
 
-  float q[GROUP][EPL];
+  float q[MAX_HEADS][EPL];
 #pragma unroll
-  for (int g = 0; g < GROUP; ++g) {
+  for (int g = 0; g < MAX_HEADS; ++g) {
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) q[g][e] = __bfloat162float(q_rows[g * D + col0 + e]);
+    for (int e = 0; e < EPL; ++e) {
+      q[g][e] = g < heads ? __bfloat162float(q_rows[g * D + col0 + e]) : 0.f;
+    }
   }
 
   const int64_t row_stride = (int64_t)a.Hkv * D;
@@ -141,9 +151,9 @@ __device__ void attend(const Args& a, const int b, const int kvh, const int kv_l
   const T* v_head = static_cast<const T*>(a.cache_v) + head_off;
   const int64_t scale_off = (int64_t)b * a.S * a.Hkv + kvh;
 
-  float m[GROUP], l[GROUP], acc[GROUP][EPL];
+  float m[MAX_HEADS], l[MAX_HEADS], acc[MAX_HEADS][EPL];
 #pragma unroll
-  for (int g = 0; g < GROUP; ++g) {
+  for (int g = 0; g < MAX_HEADS; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
@@ -181,22 +191,24 @@ __device__ void attend(const Args& a, const int b, const int kvh, const int kv_l
       }
     }
 #pragma unroll
-    for (int g = 0; g < GROUP; ++g) {
-      float dot = 0.f;
+    for (int g = 0; g < MAX_HEADS; ++g) {
+      if (g < heads) {
+        float dot = 0.f;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) dot += q[g][e] * k[e];
+        for (int e = 0; e < EPL; ++e) dot += q[g][e] * k[e];
 #pragma unroll
-      for (int off = LPR / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (valid) {
-        const float s = dot * k_mul;
-        const float m_new = fmaxf(m[g], s);
-        const float corr = exp2f(m[g] - m_new);  // 0 while m is -inf
-        const float p = exp2f(s - m_new);
-        l[g] = l[g] * corr + p;
-        const float pv = p * v_mul;
+        for (int off = LPR / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        if (valid) {
+          const float s = dot * k_mul;
+          const float m_new = fmaxf(m[g], s);
+          const float corr = exp2f(m[g] - m_new);  // 0 while m is -inf
+          const float p = exp2f(s - m_new);
+          l[g] = l[g] * corr + p;
+          const float pv = p * v_mul;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[g][e] = acc[g][e] * corr + pv * v[e];
-        m[g] = m_new;
+          for (int e = 0; e < EPL; ++e) acc[g][e] = acc[g][e] * corr + pv * v[e];
+          m[g] = m_new;
+        }
       }
     }
   }
@@ -205,58 +217,65 @@ __device__ void attend(const Args& a, const int b, const int kvh, const int kv_l
 #pragma unroll
   for (int off = LPR; off < 32; off <<= 1) {
 #pragma unroll
-    for (int g = 0; g < GROUP; ++g) {
-      const float m_o = __shfl_xor_sync(0xffffffffu, m[g], off);
-      const float l_o = __shfl_xor_sync(0xffffffffu, l[g], off);
-      const float m_new = fmaxf(m[g], m_o);
-      const float w_self = merge_weight(m[g], m_new);
-      const float w_o = merge_weight(m_o, m_new);
-      l[g] = l[g] * w_self + l_o * w_o;
+    for (int g = 0; g < MAX_HEADS; ++g) {
+      if (g < heads) {
+        const float m_o = __shfl_xor_sync(0xffffffffu, m[g], off);
+        const float l_o = __shfl_xor_sync(0xffffffffu, l[g], off);
+        const float m_new = fmaxf(m[g], m_o);
+        const float w_self = merge_weight(m[g], m_new);
+        const float w_o = merge_weight(m_o, m_new);
+        l[g] = l[g] * w_self + l_o * w_o;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) {
-        acc[g][e] = acc[g][e] * w_self + __shfl_xor_sync(0xffffffffu, acc[g][e], off) * w_o;
+        for (int e = 0; e < EPL; ++e) {
+          acc[g][e] = acc[g][e] * w_self + __shfl_xor_sync(0xffffffffu, acc[g][e], off) * w_o;
+        }
+        m[g] = m_new;
       }
-      m[g] = m_new;
     }
   }
   if (lane < LPR) {
 #pragma unroll
-    for (int g = 0; g < GROUP; ++g) {
+    for (int g = 0; g < MAX_HEADS; ++g) {
+      if (g < heads) {
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) sm_acc[warp][g][col0 + e] = acc[g][e];
-      if (lane == 0) {
-        sm_m[warp][g] = m[g];
-        sm_l[warp][g] = l[g];
+        for (int e = 0; e < EPL; ++e) sm_acc[warp][g][col0 + e] = acc[g][e];
+        if (lane == 0) {
+          sm_m[warp][g] = m[g];
+          sm_l[warp][g] = l[g];
+        }
       }
     }
   }
   __syncthreads();
 
-  // Merge the warps and fold in the fresh row: one thread per output.
-  const int g = threadIdx.x / D;
-  const int c = threadIdx.x % D;
-  const float s_self = sm_self[g];
-  float m_all = s_self;
+  // Merge the warps and fold in the fresh row, looping over the outputs.
+  for (int o = threadIdx.x; o < heads * D; o += NUM_THREADS) {
+    const int g = o / D;
+    const int c = o % D;
+    const float s_self = sm_self[g];
+    float m_all = s_self;
 #pragma unroll
-  for (int w = 0; w < NUM_WARPS; ++w) m_all = fmaxf(m_all, sm_m[w][g]);
-  const float p_self = exp2f(s_self - m_all);
-  float denom = p_self;
-  float o = p_self * __bfloat162float(a.fresh_v[fresh_off + c]);
+    for (int w = 0; w < NUM_WARPS; ++w) m_all = fmaxf(m_all, sm_m[w][g]);
+    const float p_self = exp2f(s_self - m_all);
+    float denom = p_self;
+    float out = p_self * __bfloat162float(a.fresh_v[fresh_off + c]);
 #pragma unroll
-  for (int w = 0; w < NUM_WARPS; ++w) {
-    const float wt = merge_weight(sm_m[w][g], m_all);
-    denom += sm_l[w][g] * wt;
-    o += sm_acc[w][g][c] * wt;
+    for (int w = 0; w < NUM_WARPS; ++w) {
+      const float wt = merge_weight(sm_m[w][g], m_all);
+      denom += sm_l[w][g] * wt;
+      out += sm_acc[w][g][c] * wt;
+    }
+    a.out[(head0 + g) * D + c] = __float2bfloat16(out / denom);
   }
-  a.out[((int64_t)b * hq + (int64_t)kvh * GROUP + g) * D + c] = __float2bfloat16(o / denom);
 }
 
 // Row kv_len of one head's K and V: quantized (int8) or copied (bf16); one warp.
-template <typename T>
+template <typename T, int D>
 __device__ void append_row(const Args& a, const int b, const int kvh, const int kv_len) {
   constexpr bool QUANT = std::is_same<T, int8_t>::value;
+  constexpr int CPL = D / 32;  // columns per lane
   const int lane = threadIdx.x % 32;
-  const int c = lane * 4;
+  const int c = lane * CPL;
   const int64_t fresh_off = ((int64_t)b * a.Hkv + kvh) * D + c;
   const int64_t row_off = ((int64_t)b * a.S + kv_len) * a.Hkv * D + (int64_t)kvh * D + c;
   const int64_t scale_at = ((int64_t)b * a.S + kv_len) * a.Hkv + kvh;
@@ -264,11 +283,11 @@ __device__ void append_row(const Args& a, const int b, const int kvh, const int 
   for (int which = 0; which < 2; ++which) {
     const __nv_bfloat16* src = (which == 0 ? a.fresh_k : a.fresh_v) + fresh_off;
     T* dst = static_cast<T*>(which == 0 ? a.cache_k : a.cache_v) + row_off;
-    if (QUANT) {
-      float x[4];
+    if constexpr (QUANT) {
+      float x[CPL];
       float amax = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < CPL; ++e) {
         x[e] = __bfloat162float(src[e]);
         amax = fmaxf(amax, fabsf(x[e]));
       }
@@ -277,40 +296,62 @@ __device__ void append_row(const Args& a, const int b, const int kvh, const int 
         amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
       }
       const float scale = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
-      char4 packed;
-      packed.x = static_cast<signed char>(fminf(fmaxf(rintf(__fdiv_rn(x[0], scale)), -127.f), 127.f));
-      packed.y = static_cast<signed char>(fminf(fmaxf(rintf(__fdiv_rn(x[1], scale)), -127.f), 127.f));
-      packed.z = static_cast<signed char>(fminf(fmaxf(rintf(__fdiv_rn(x[2], scale)), -127.f), 127.f));
-      packed.w = static_cast<signed char>(fminf(fmaxf(rintf(__fdiv_rn(x[3], scale)), -127.f), 127.f));
-      *reinterpret_cast<char4*>(dst) = packed;
+#pragma unroll
+      for (int e = 0; e < CPL; ++e) {
+        reinterpret_cast<int8_t*>(dst)[e] = static_cast<int8_t>(
+            fminf(fmaxf(rintf(__fdiv_rn(x[e], scale)), -127.f), 127.f));
+      }
       if (lane == 0) (which == 0 ? a.k_scale : a.v_scale)[scale_at] = scale;
     } else {
-      *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+#pragma unroll
+      for (int e = 0; e < CPL; ++e) dst[e] = src[e];
     }
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(NUM_THREADS) decode_attention_kernel(Args a) {
   const int kv_len = min(max(*a.kv_len, 0), a.S);
-  attend<T>(a, blockIdx.y, blockIdx.x, kv_len);
+  const int chunks = a.group / a.heads;
+  attend<T, D>(a, blockIdx.y, blockIdx.x / chunks, (blockIdx.x % chunks) * a.heads, kv_len);
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(NUM_THREADS) decode_attention_update_kernel(Args a) {
   const int kv_len = *a.kv_len;
-  // a row outside the cache is not written (the wrapper checks a host kv_len)
-  if (threadIdx.x / 32 == NUM_WARPS - 1 && kv_len >= 0 && kv_len < a.S) {
-    append_row<T>(a, blockIdx.y, blockIdx.x, kv_len);
+  const int chunks = a.group / a.heads;
+  const int kvh = blockIdx.x / chunks;
+  const int chunk = blockIdx.x % chunks;
+  // one block per KV head appends; a row outside the cache is not written
+  // (the wrapper checks a host kv_len)
+  if (chunk == 0 && threadIdx.x / 32 == NUM_WARPS - 1 && kv_len >= 0 && kv_len < a.S) {
+    append_row<T, D>(a, blockIdx.y, kvh, kv_len);
   }
-  attend<T>(a, blockIdx.y, blockIdx.x, min(max(kv_len, 0), a.S));
+  attend<T, D>(a, blockIdx.y, kvh, chunk * a.heads, min(max(kv_len, 0), a.S));
+}
+
+template <typename T, int D>
+void launch_typed(bool update, const Args& a, dim3 grid, cudaStream_t s) {
+  if (update) decode_attention_update_kernel<T, D><<<grid, NUM_THREADS, 0, s>>>(a);
+  else decode_attention_kernel<T, D><<<grid, NUM_THREADS, 0, s>>>(a);
+}
+
+template <int D>
+void launch_dim(bool update, bool quantized, const Args& a, dim3 grid, cudaStream_t s) {
+  if (quantized) launch_typed<int8_t, D>(update, a, grid, s);
+  else launch_typed<__nv_bfloat16, D>(update, a, grid, s);
+}
+
+bool supported_group(int group) {
+  return group == 1 || group == 2 || group == 3 || group == 4 || group == 8;
 }
 
 int launch(bool update, const void* q, void* cache_k, void* cache_v, void* k_scale,
            void* v_scale, const void* fresh_k, const void* fresh_v, const void* kv_len,
            void* out, int B, int S, int Hq, int Hkv, int head_dim, int quantized,
            float scale, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq != Hkv * GROUP || head_dim != D ||
+  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || !supported_group(Hq / Hkv) ||
+      (head_dim != 64 && head_dim != 128 && head_dim != 256) ||
       (quantized && (k_scale == nullptr || v_scale == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -326,16 +367,14 @@ int launch(bool update, const void* q, void* cache_k, void* cache_v, void* k_sca
   a.out = static_cast<__nv_bfloat16*>(out);
   a.S = S;
   a.Hkv = Hkv;
+  a.group = Hq / Hkv;
+  a.heads = a.group <= MAX_HEADS ? a.group : MAX_HEADS;
   a.scale_log2 = scale * 1.4426950408889634f;
-  const dim3 grid(Hkv, B);
+  const dim3 grid(Hkv * (a.group / a.heads), B);
   cudaStream_t s = (cudaStream_t)stream;
-  if (update) {
-    if (quantized) decode_attention_update_kernel<int8_t><<<grid, NUM_THREADS, 0, s>>>(a);
-    else decode_attention_update_kernel<__nv_bfloat16><<<grid, NUM_THREADS, 0, s>>>(a);
-  } else {
-    if (quantized) decode_attention_kernel<int8_t><<<grid, NUM_THREADS, 0, s>>>(a);
-    else decode_attention_kernel<__nv_bfloat16><<<grid, NUM_THREADS, 0, s>>>(a);
-  }
+  if (head_dim == 64) launch_dim<64>(update, quantized, a, grid, s);
+  else if (head_dim == 128) launch_dim<128>(update, quantized, a, grid, s);
+  else launch_dim<256>(update, quantized, a, grid, s);
   return (int)cudaGetLastError();
 }
 
@@ -345,8 +384,9 @@ extern "C" {
 
 // q/out: [B, Hq, D] bf16; cache_k/v: [B, S, Hkv, D] int8 (quantized = 1, with
 // k/v_scale [B, S, Hkv] fp32) or bf16 (quantized = 0, scales null); fresh_k/v:
-// [B, Hkv, D] bf16; kv_len: device int32 scalar.  Hq = 2 Hkv, D = 128; every
-// tensor contiguous and 16-byte aligned.  Returns the launch's CUDA error code.
+// [B, Hkv, D] bf16; kv_len: device int32 scalar.  D in {64, 128, 256},
+// Hq / Hkv in {1, 2, 3, 4, 8}; every tensor contiguous and 16-byte aligned.
+// Returns the launch's CUDA error code.
 int ta_decode_attention(const void* q, const void* cache_k, const void* cache_v,
                         const void* k_scale, const void* v_scale, const void* fresh_k,
                         const void* fresh_v, const void* kv_len, void* out, int B, int S,

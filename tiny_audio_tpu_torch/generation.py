@@ -27,7 +27,6 @@ from typing import Iterator, Optional, Sequence
 import torch
 
 from tiny_audio_tpu_torch.models.decoder import Qwen3Decoder
-from tiny_audio_tpu_torch.ops.decode_attention import KERNEL_GROUP, KERNEL_HEAD_DIM
 from tiny_audio_tpu_torch.ops.fused_decode import fused_decode_step
 
 
@@ -95,16 +94,11 @@ def _apply_repetition_penalty(logits, seen, penalty: float):
 
 
 def _fused_decode_available(decoder: Qwen3Decoder) -> bool:
-    """The fused decode path needs the card (the decoder's weights on CUDA),
-    the kernel's head_dim of 128 and GQA group of 2, and no live LoRA: the
-    JAX package's gate, with "on the TPU" read as "on the card"."""
-    cfg = decoder.cfg
-    return (
-        decoder.embed_tokens.weight.is_cuda
-        and cfg.head_dim == KERNEL_HEAD_DIM
-        and cfg.num_heads == KERNEL_GROUP * cfg.num_kv_heads
-        and cfg.lora_rank == 0
-    )
+    """The fused decode path needs the card (the decoder's weights on CUDA)
+    and no live LoRA: the JAX package's gate, with "on the TPU" read as "on
+    the card".  The kernel takes every head_dim and GQA group of the decoders
+    the JAX package supports; its wrapper raises for any other shape."""
+    return decoder.embed_tokens.weight.is_cuda and decoder.cfg.lora_rank == 0
 
 
 def _cache_len(t: int, max_new: int) -> int:

@@ -33,8 +33,9 @@ LIB_NAME = "libta_kernels.so"
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _DECODE_ARGS = (_PTR,) * 9 + (_INT,) * 6 + (ctypes.c_float, _PTR)
-# name -> argtypes of the C entry points in csrc/attention.cu and
-# csrc/decode_attention.cu
+_MATMUL_ARGS = (_PTR,) * 4 + (_INT,) * 3 + (_PTR,)
+# name -> argtypes of the C entry points in csrc/attention.cu,
+# csrc/decode_attention.cu and csrc/int8_matmul.cu
 _SIGNATURES = {
     "ta_encoder_attention": (_PTR, _PTR, _PTR, _PTR, _PTR,
                              _INT, _INT, _INT, _INT, ctypes.c_float, _PTR),
@@ -42,6 +43,8 @@ _SIGNATURES = {
                              _INT, _INT, _INT, _INT, _INT, ctypes.c_float, _PTR),
     "ta_decode_attention": _DECODE_ARGS,
     "ta_decode_attention_update": _DECODE_ARGS,
+    "ta_w8a8_matmul": _MATMUL_ARGS,
+    "ta_wq_matmul": _MATMUL_ARGS,
 }
 
 

@@ -3,33 +3,46 @@
 Port of the inference half of :class:`tiny_audio_tpu.models.asr.ASRModel`:
 mel mask -> encoder -> projector -> row-aligned ``<audio>`` splice ->
 KV-cached greedy decode, batched (:meth:`ASRModel.generate`) or streamed token
-by token (:meth:`ASRModel.generate_streaming`).  Not ported yet (ROADMAP.md):
-loading a JAX checkpoint, training, LoRA and the quantized decode modes.
+by token (:meth:`ASRModel.generate_streaming`); the opt-in int8 decode modes
+(:meth:`ASRModel.enable_wq_decode`, :meth:`~ASRModel.enable_w8a8_head`,
+:meth:`~ASRModel.enable_w8a8_decode`); the JAX package's checkpoint layout
+(:meth:`ASRModel.save_pretrained`, :meth:`ASRModel.from_pretrained`).  Not
+ported yet (ROADMAP.md): training, LoRA.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from tiny_audio_tpu_torch.bridge import load_jax_params, state_dict_to_jax
 from tiny_audio_tpu_torch.config import ASRConfig, compute_encoder_output_length
 from tiny_audio_tpu_torch.device import require_device
-from tiny_audio_tpu_torch.tokenization import AUDIO_TOKEN, ByteTokenizer
+from tiny_audio_tpu_torch.tokenization import AUDIO_TOKEN, ByteTokenizer, HFTokenizerAdapter
+from tiny_audio_tpu_torch.utils import msgpack_io
 from tiny_audio_tpu_torch.generation import (
     GenerationConfig,
     check_supported,
     generate_tokens,
     stream_generate,
 )
-from tiny_audio_tpu_torch.models.decoder import Qwen3Decoder
+from tiny_audio_tpu_torch.models.decoder import (
+    Qwen3Decoder,
+    head_kernel,
+    quantize_decoder_w8a8,
+    quantize_decoder_wq,
+)
 from tiny_audio_tpu_torch.models.encoder import AudioEncoder
 from tiny_audio_tpu_torch.models.layers import sinusoidal_positions
 from tiny_audio_tpu_torch.models.projectors import create_projector
+from tiny_audio_tpu_torch.ops.wq_head import quantize_head_w8a8
 
 TRANSCRIBE_PROMPT = "Transcribe the speech to text"
 
@@ -107,8 +120,9 @@ class ASRModel(nn.Module):
     ``torch.Generator`` on ``device`` (the CUDA device unless the caller
     asks for ``"cpu"``), following the JAX package's flax
     defaults (lecun-normal Dense/Conv kernels, zero biases, unit norms,
-    flax's Embed init, sinusoidal encoder positions).  Load real weights
-    with :func:`tiny_audio_tpu_torch.bridge.load_jax_params`.
+    flax's Embed init, sinusoidal encoder positions).  Load a checkpoint of
+    the JAX package with :meth:`from_pretrained`, or a JAX params tree with
+    :func:`tiny_audio_tpu_torch.bridge.load_jax_params`.
     """
 
     TRANSCRIBE_PROMPT = TRANSCRIBE_PROMPT
@@ -177,6 +191,38 @@ class ASRModel(nn.Module):
         self.encoder.embed_positions.copy_(
             sinusoidal_positions(enc.max_source_positions, enc.d_model, device=self.device)
         )
+
+    # ------------------------------------------------------- int8 decode modes
+
+    @property
+    def wq(self) -> Optional[dict]:
+        """The int8 decode weights (``Qwen3Decoder.wq``); None = off.
+        Setting it to None turns the int8 modes off, as in the JAX package."""
+        return self.decoder.wq
+
+    @wq.setter
+    def wq(self, wq: Optional[dict]) -> None:
+        self.decoder.wq = wq
+
+    def enable_wq_decode(self) -> None:
+        """Opt-in weight-only int8 decode: every T == 1 layer projection and
+        the one-position LM head read per-channel int8 weights (kernel #6);
+        prefill keeps the bf16 weights.  A numerics trade, never a default."""
+        self.wq = quantize_decoder_wq(self.decoder)
+
+    def enable_w8a8_head(self) -> None:
+        """Opt-in W8A8 LM head for one-position logits (kernel #5, int8
+        activations too).  Composes with :meth:`enable_wq_decode`: the W8A8
+        head then takes precedence, the layers keep their mode."""
+        wt_i8, scale = quantize_head_w8a8(head_kernel(self.decoder))
+        wq = dict(self.wq) if self.wq is not None else {}
+        wq["head_t_i8"], wq["head_w8a8_scale"] = wt_i8, scale
+        self.wq = wq
+
+    def enable_w8a8_decode(self) -> None:
+        """Opt-in W8A8 for every T == 1 product, layer projections and the
+        head (kernel #5); supersedes the two modes above."""
+        self.wq = quantize_decoder_w8a8(self.decoder)
 
     # ------------------------------------------------------------- audio path
 
@@ -350,3 +396,50 @@ class ASRModel(nn.Module):
                     yield text
 
         yield from filter_think_stream(decoded_chunks())
+
+    # ------------------------------------------------------------ persistence
+
+    def save_pretrained(self, save_directory, save_towers: bool = True) -> None:
+        """The JAX package's checkpoint: ``config.json``,
+        ``projector.msgpack``, ``decoder.msgpack`` (unless the language
+        model is frozen), ``towers.msgpack`` (encoder and decoder) and
+        ``tpu_metadata.json``, in flax's msgpack layout and the JAX params
+        tree, so the JAX package's ``ASRModel.from_pretrained`` loads it."""
+        save_dir = Path(save_directory)
+        save_dir.mkdir(parents=True, exist_ok=True)
+        self.config.save_pretrained(save_dir)
+        params = state_dict_to_jax(self)
+        msgpack_io.save(save_dir / "projector.msgpack", params["projector"])
+        if not self.config.freeze_language_model:
+            msgpack_io.save(save_dir / "decoder.msgpack", params["decoder"])
+        if save_towers:
+            msgpack_io.save(save_dir / "towers.msgpack",
+                            {"encoder": params["encoder"], "decoder": params["decoder"]})
+        meta = {"framework": "tiny_audio_tpu", "format": "flax-msgpack"}
+        (save_dir / "tpu_metadata.json").write_text(json.dumps(meta, indent=2))
+
+    @classmethod
+    def from_pretrained(cls, path, tokenizer=None, device="cuda") -> "ASRModel":
+        """Load a checkpoint of the JAX package (or of :meth:`save_pretrained`)
+        with neither flax nor msgpack: ``config.json``, then
+        ``towers.msgpack``, ``decoder.msgpack`` and ``projector.msgpack``
+        where present (a tower without a file keeps its seeded random
+        weights, as in the JAX package).  ``tokenizer_config.json`` loads
+        an HF tokenizer (needs ``transformers``).  LoRA adapters and the
+        aligner / speaker-embedder files are not ported (ROADMAP.md)."""
+        path = Path(path)
+        if (path / "adapter.msgpack").exists():
+            raise NotImplementedError(
+                "adapter.msgpack: LoRA is not ported to PyTorch yet (ROADMAP.md)")
+        config = ASRConfig.from_pretrained(path)
+        if tokenizer is None and (path / "tokenizer_config.json").exists():
+            tokenizer = HFTokenizerAdapter.from_pretrained(str(path))
+        model = cls(config, tokenizer=tokenizer, device=device)
+        params = {}
+        if (path / "towers.msgpack").exists():
+            params.update(msgpack_io.load(path / "towers.msgpack"))
+        for tower in ("decoder", "projector"):
+            if (path / f"{tower}.msgpack").exists():
+                params[tower] = msgpack_io.load(path / f"{tower}.msgpack")
+        load_jax_params(model, params, require_all=False)
+        return model

@@ -10,6 +10,14 @@ per-entry scales ``[L, B, S, Hkv]``), updated IN PLACE: prefill writes its
 post-rope K/V at ``cache_index``; a decode step attends over the stale cache
 plus the fresh row (the decode attention kernel reads only the valid
 prefix) and then writes that row, once per layer per step.
+
+Int8 decode weights: ``Qwen3Decoder.wq`` holds the JAX package's ``wq``
+variables collection (:func:`quantize_decoder_wq`,
+:func:`quantize_decoder_w8a8`; None = off).  One-position products read it
+(every layer projection of a decode step, and the LM head on one position,
+which includes the prefill's ``last_logit_index`` row): W8A8 (``*_t_i8``,
+kernel #5) before weight-only (``*_i8``, kernel #6) before the bf16
+weights, which stay and serve every other product.
 """
 
 from __future__ import annotations
@@ -24,6 +32,29 @@ from tiny_audio_tpu_torch.config import DecoderConfig
 from tiny_audio_tpu_torch.models.layers import RMSNorm, apply_rotary, rms_norm, rotary_embed
 from tiny_audio_tpu_torch.ops.attention import causal_self_attention, decode_step_attention
 from tiny_audio_tpu_torch.ops.decode_attention import write_cache_rows
+from tiny_audio_tpu_torch.ops.wq_head import (
+    quantize_head_w8a8,
+    quantize_weight_w8a8,
+    w8a8_matmul,
+)
+from tiny_audio_tpu_torch.ops.wq_matmul import NT, quantize_weight, wq_matmul
+
+#: the block projections the int8 decode modes quantize
+PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+
+
+def int8_matmul(x: torch.Tensor, wq: dict, name: str) -> Optional[torch.Tensor]:
+    """``x [B, K]`` through the int8 weights ``name`` of ``wq`` (a layer's
+    slice of the collection, or its head entries): W8A8 (``{name}_t_i8``)
+    before weight-only (``{name}_i8``); None if ``wq`` has neither.  The
+    activation goes in as bf16 and the result comes out bf16, as in the JAX
+    package."""
+    if f"{name}_t_i8" in wq:
+        scale = wq["head_w8a8_scale" if name == "head" else f"{name}_t_scale"]
+        return w8a8_matmul(x.to(torch.bfloat16), wq[f"{name}_t_i8"], scale)
+    if f"{name}_i8" in wq:
+        return wq_matmul(x.to(torch.bfloat16), wq[f"{name}_i8"], wq[f"{name}_scale"])
+    return None
 
 
 class Qwen3Block(nn.Module):
@@ -50,6 +81,18 @@ class Qwen3Block(nn.Module):
         self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+        #: this layer's slice of ``Qwen3Decoder.wq["layers"]`` (None = off)
+        self.wq: Optional[dict] = None
+
+    def dense(self, h: torch.Tensor, name: str) -> torch.Tensor:
+        """Projection ``name`` of ``h [B, T, K]``: a decode step (T == 1)
+        reads this layer's int8 weights when there are any, else the bf16
+        ``nn.Linear``."""
+        if self.wq is not None and h.shape[1] == 1:
+            y = int8_matmul(h[:, 0], self.wq, name)
+            if y is not None:
+                return y[:, None].to(self.dtype)
+        return getattr(self, name)(h)
 
     def forward(
         self,
@@ -87,9 +130,9 @@ class Qwen3Block(nn.Module):
         b, t, _ = x.shape
         hd = cfg.head_dim
         h = self.input_layernorm(x)
-        q = self.q_proj(h).reshape(b, t, cfg.num_heads, hd)
-        k = self.k_proj(h).reshape(b, t, cfg.num_kv_heads, hd)
-        v = self.v_proj(h).reshape(b, t, cfg.num_kv_heads, hd)
+        q = self.dense(h, "q_proj").reshape(b, t, cfg.num_heads, hd)
+        k = self.dense(h, "k_proj").reshape(b, t, cfg.num_kv_heads, hd)
+        v = self.dense(h, "v_proj").reshape(b, t, cfg.num_kv_heads, hd)
         if cfg.qk_norm:
             q = rms_norm(q, self.q_norm, cfg.rms_norm_eps)
             k = rms_norm(k, self.k_norm, cfg.rms_norm_eps)
@@ -99,12 +142,12 @@ class Qwen3Block(nn.Module):
         """The rest of the block after attention: output projection and
         residual, then the SwiGLU / GeGLU MLP with its pre-LN and residual."""
         b, t, _ = x.shape
-        x = x + self.o_proj(attn_out.reshape(b, t, -1))
+        x = x + self.dense(attn_out.reshape(b, t, -1), "o_proj")
         h = self.post_attention_layernorm(x)
-        gate, up = self.gate_proj(h), self.up_proj(h)
+        gate, up = self.dense(h, "gate_proj"), self.dense(h, "up_proj")
         silu = self.cfg.hidden_activation == "silu"
         act = F.silu(gate) if silu else F.gelu(gate, approximate="tanh")
-        return x + self.down_proj(act * up)
+        return x + self.dense(act * up, "down_proj")
 
 
 class Qwen3Decoder(nn.Module):
@@ -134,6 +177,20 @@ class Qwen3Decoder(nn.Module):
             self.lm_head = nn.Linear(
                 cfg.hidden_size, cfg.vocab_size, bias=False, dtype=dtype, device=device
             )
+        self.wq = None
+
+    @property
+    def wq(self) -> Optional[dict]:
+        """The int8 decode weights, in the JAX package's collection layout
+        (``{"layers": {name: [L, ...]}, "head_...": ...}``), or None."""
+        return self._wq
+
+    @wq.setter
+    def wq(self, wq: Optional[dict]) -> None:
+        self._wq = wq
+        layers = None if wq is None else wq.get("layers")
+        for i, layer in enumerate(self.layers):
+            layer.wq = None if layers is None else {name: buf[i] for name, buf in layers.items()}
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens(input_ids)
@@ -147,8 +204,14 @@ class Qwen3Decoder(nn.Module):
         return x
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Final norm and the (tied) LM head."""
+        """Final norm and the (tied) LM head.  One position reads the int8
+        head of ``wq`` when there is one (bf16 logits, sliced to the
+        vocabulary: the int8 head is padded)."""
         x = self.norm(x)
+        if self.wq is not None and x.shape[1] == 1:
+            y = int8_matmul(x[:, 0], self.wq, "head")
+            if y is not None:
+                return y[:, None, : self.cfg.vocab_size]
         if self.cfg.tie_word_embeddings:
             return F.linear(x, self.embed_tokens.weight)
         return self.lm_head(x)
@@ -197,3 +260,47 @@ class Qwen3Decoder(nn.Module):
             "k": torch.zeros(shape, dtype=self.dtype, device=device),
             "v": torch.zeros(shape, dtype=self.dtype, device=device),
         }
+
+
+def head_kernel(decoder: Qwen3Decoder) -> torch.Tensor:
+    """The LM head as the JAX package's Dense kernel ``[hidden, vocab]``:
+    the embedding's transpose when tied."""
+    if decoder.cfg.tie_word_embeddings:
+        return decoder.embed_tokens.weight.T
+    return decoder.lm_head.weight.T
+
+
+def _stacked_kernels(decoder: Qwen3Decoder, name: str) -> torch.Tensor:
+    """Projection ``name`` of every layer as the JAX kernels ``[L, K, N]``."""
+    return torch.stack([getattr(layer, name).weight.T for layer in decoder.layers])
+
+
+@torch.no_grad()
+def quantize_decoder_wq(decoder: Qwen3Decoder) -> dict:
+    """The weight-only ``wq`` collection of the JAX package's
+    ``quantize_decoder_wq``: ``{name}_i8 [L, K, N]`` and ``{name}_scale
+    [L, N]`` for every block projection, and the head ``head_i8 [K, N_pad]``
+    / ``head_scale`` padded to a multiple of ``NT`` columns (pad scales 0).
+    The bf16 weights stay."""
+    layers = {}
+    for name in PROJECTIONS:
+        layers[f"{name}_i8"], layers[f"{name}_scale"] = quantize_weight(
+            _stacked_kernels(decoder, name))
+    head_i8, head_scale = quantize_weight(head_kernel(decoder))
+    pad = -head_i8.shape[1] % NT
+    return {"layers": layers, "head_i8": F.pad(head_i8, (0, pad)),
+            "head_scale": F.pad(head_scale, (0, pad))}
+
+
+@torch.no_grad()
+def quantize_decoder_w8a8(decoder: Qwen3Decoder) -> dict:
+    """The W8A8 ``wq`` collection of the JAX package's
+    ``quantize_decoder_w8a8``: ``{name}_t_i8 [L, N, K]`` and
+    ``{name}_t_scale [L, N]`` for every block projection, and the W8A8
+    head ``head_t_i8 [N_pad, K]`` / ``head_w8a8_scale``."""
+    layers = {}
+    for name in PROJECTIONS:
+        layers[f"{name}_t_i8"], layers[f"{name}_t_scale"] = quantize_weight_w8a8(
+            _stacked_kernels(decoder, name))
+    head_t_i8, head_scale = quantize_head_w8a8(head_kernel(decoder))
+    return {"layers": layers, "head_t_i8": head_t_i8, "head_w8a8_scale": head_scale}

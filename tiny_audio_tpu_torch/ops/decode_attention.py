@@ -32,8 +32,10 @@ import torch
 
 from tiny_audio_tpu_torch import kernels
 
-KERNEL_HEAD_DIM = 128  # the serving path's; the library builds only this one
-KERNEL_GROUP = 2       # query heads per KV head, likewise
+#: head_dims and GQA groups (query heads per KV head) the kernels take:
+#: Qwen3, Llama-3.2, SmolLM2 and Gemma shapes
+KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_GROUPS = (1, 2, 3, 4, 8)
 
 KvLen = Union[int, torch.Tensor]
 
@@ -149,11 +151,15 @@ def _check_cuda_inputs(q, cache_k, cache_v, fresh_k, fresh_v, k_scale, v_scale) 
                          f"{cache_v.shape}")
     b, hq, d = q.shape
     _, s, hkv, _ = cache_k.shape
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"decode attention kernel takes head_dim {KERNEL_HEAD_DIM}, got {d}")
-    if cache_k.shape[0] != b or cache_k.shape[3] != d or hq != KERNEL_GROUP * hkv:
-        raise ValueError(f"cache {tuple(cache_k.shape)} does not match q {tuple(q.shape)} "
-                         f"with {KERNEL_GROUP} query heads per KV head")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"decode attention kernel takes head_dim in {KERNEL_HEAD_DIMS}, "
+                         f"got q {tuple(q.shape)} with head_dim {d}")
+    if cache_k.shape[0] != b or cache_k.shape[3] != d or hq % hkv:
+        raise ValueError(f"cache {tuple(cache_k.shape)} does not match q {tuple(q.shape)}")
+    if hq // hkv not in KERNEL_GROUPS:
+        raise ValueError(f"decode attention kernel takes {KERNEL_GROUPS} query heads per KV "
+                         f"head, got {hq} over {hkv} (q {tuple(q.shape)}, cache "
+                         f"{tuple(cache_k.shape)})")
     if fresh_k.shape != (b, hkv, d) or fresh_v.shape != (b, hkv, d):
         raise ValueError(f"fresh K/V must be [B, Hkv, D] = {(b, hkv, d)}")
     quantized = k_scale is not None

@@ -9,6 +9,11 @@ layer's cache in place (int8-quantized for an int8 cache) and attends over
 the prefix plus that row: one launch per layer where the module path has
 the attention kernel plus the separate quantize-and-store ops.
 
+The projections and the LM head go through the same ``Qwen3Block.dense``
+and ``Qwen3Decoder.logits`` as the module step, so under an int8 decode
+mode (``Qwen3Decoder.wq``) both steps read the same int8 weights and give
+the same logits.
+
 The cache is the decoder's own ``[L, B, S, Hkv, D]`` (scales
 ``[L, B, S, Hkv]``); a layer's view is already the kernel's memory, so no
 ``flatten_cache`` is needed.  The step works in the decoder's dtype (bf16
