@@ -19,7 +19,20 @@ port at the flagship width (random weights from seed 0, int8 KV cache):
 - the HTTP server: ``save_pretrained`` of the flagship model,
   ``EndpointHandler(path, w8a8_decode=True)`` over it, ``make_server`` with a
   ``DynamicBatcher``, three concurrent ``POST /transcribe`` and the
-  ``/healthz`` and ``/metrics`` routes.
+  ``/healthz`` and ``/metrics`` routes;
+- training at the flagship width (``Trainer`` over a synthetic corpus of
+  10-30 s clips, batch 6): stage 1 (projector only) for 10 steps on one
+  batch, with gradient accumulation 2, with gradient checkpointing, and
+  stage 2 (LoRA, projector frozen); exact launch counts per micro-step
+  (kernel #1 32, #2 28 or 56 checkpointed, its backward kernels 28 each,
+  the decode and int8 kernels 0), finite losses and gradient norms, frozen
+  towers bitwise unchanged, trainable parameters changed, the repeated
+  batch's loss falling, and ``model/`` loaded back with ``from_pretrained``
+  and generating on the card.
+
+Before the paths, the prefill kernel's forward (serving and with saved
+statistics) and its two backward kernels are held against their plain
+versions at every (GQA group, head_dim) pair the decoders take.
 
 Every kernel's launch count is set to 0 just before each path and read just
 after; the inputs the path gave each kernel in its first call are kept,
@@ -37,6 +50,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -55,6 +69,10 @@ MAX_NEW = 128
 REQUEST_SECONDS = (5, 12, 30)
 STREAM_TOKENS = 32
 DECODE_KV_LENS = (1, 255, 256, 468, 595)
+TRAIN_BATCH = 6  # configs/training/production.yaml's per_device_batch_size
+TRAIN_CLIP_S = (10.0, 30.0)
+TRAIN_STEPS = 10  # stage 1 on one repeated batch
+TRAIN_LR = 1e-3
 
 # H100 SXM peaks at its 700 W limit (NVIDIA's data sheet; dense rates)
 HBM_BYTES_PER_S = 3.35e12
@@ -62,7 +80,14 @@ BF16_TENSOR_FLOPS = 989e12
 INT8_TENSOR_OPS = 1979e12
 FP32_FLOPS = 67e12
 
-# (GQA group, head_dim) pairs the decode kernels take
+# the library kernels of jax 0.9.0 that the backward kernels replace
+BWD_REPLACES = {
+    "prefill_attention_bwd_dkv":
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+    "prefill_attention_bwd_dq":
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+}
+# (GQA group, head_dim) pairs the decode and prefill kernels take
 DECODE_SHAPES = [(g, d) for g in (1, 2, 3, 4, 8) for d in (64, 128, 256)]
 # the decode step's int8 products at the flagship width: (K, N) of the layer
 # projections and of the LM head, and the batches they are checked at
@@ -85,6 +110,13 @@ KERNEL_RTOL = 2.0**-6
 # cuBLAS) and on the CPU (plain versions); matmul order and the kernels'
 # rounding points differ, so outputs agree to a few bf16 ulps of their scale.
 SMALL_MODEL_RTOL = 5e-2
+# A backward kernel's gradient against the fp32 plain backward (autograd
+# through the plain version on the fp32 copies of the same bf16 inputs): its
+# error may be at most BWD_ERR_RATIO times the bf16 plain backward's own
+# error, plus BWD_FLOOR of the gradient's largest magnitude (one bf16 ulp
+# near the top of a binade; both outputs are rounded to bf16).
+BWD_ERR_RATIO = 2.0
+BWD_FLOOR = 2.0**-8
 
 
 def fail(msg: str) -> None:
@@ -163,6 +195,31 @@ def record_first_call(module, name: str, store: dict):
         yield
     finally:
         setattr(module, name, original)
+
+
+@contextlib.contextmanager
+def record_first_backward(store: dict):
+    """Keep a copy of what the first ``PrefillAttention`` backward hands its
+    two kernels: (q, k, v, padding_mask, dout, m, l, delta)."""
+    from tiny_audio_tpu_torch.ops import prefill_attention as prefill_module
+
+    function = prefill_module.PrefillAttention
+    original = function.backward
+
+    def backward(ctx, dout):
+        if "backward" not in store:
+            q, k, v, mask, out, m, l = ctx.saved_tensors
+            dout = dout.to(q.dtype).contiguous()
+            delta = prefill_module.attention_delta(out, dout)
+            store["backward"] = tuple(None if x is None else x.clone()
+                                      for x in (q, k, v, mask, dout, m, l, delta))
+        return original(ctx, dout)
+
+    function.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        function.backward = staticmethod(original)
 
 
 def compare_on_path_inputs(name: str, kernel, plain, call: tuple) -> dict:
@@ -662,6 +719,282 @@ def serve_requests(model, rng, reset_counts, read_counts) -> str:
             f"healthz={json.dumps(health)} launches={json.dumps(counts)}")
 
 
+def backward_error(got: torch.Tensor, want32: torch.Tensor, ref16: torch.Tensor) -> tuple[float, float, bool]:
+    """(error against fp32, the bf16 plain backward's error, within the
+    BWD_ERR_RATIO / BWD_FLOOR criterion and finite)."""
+    want32 = want32.float()
+    err = (got.float() - want32).abs().max().item()
+    ref_err = (ref16.float() - want32).abs().max().item()
+    limit = BWD_ERR_RATIO * ref_err + BWD_FLOOR * want32.abs().max().item()
+    return err, ref_err, bool(torch.isfinite(got).all()) and err <= limit
+
+
+def check_prefill_backward(q, k, v, mask, dout, label: str) -> dict:
+    """Forward with statistics, then both backward kernels, against the
+    plain backward in fp32 and in bf16; fails the run on a disagreement."""
+    from tiny_audio_tpu_torch.ops.prefill_attention import (
+        attention_delta,
+        prefill_attention_backward_plain,
+        prefill_attention_bwd_dkv,
+        prefill_attention_bwd_dq,
+        prefill_attention_forward,
+        prefill_attention_plain,
+    )
+
+    out, m, l = prefill_attention_forward(q, k, v, mask)
+    fwd_err, fwd_ok = kernel_error(out, prefill_attention_plain(q, k, v, mask))
+    delta = attention_delta(out, dout)
+    dk, dv = prefill_attention_bwd_dkv(q, k, v, mask, dout, m, l, delta)
+    dq = prefill_attention_bwd_dq(q, k, v, mask, dout, m, l, delta)
+    want = prefill_attention_backward_plain(*(x.float() for x in (q, k, v)), mask, dout.float())
+    ref = prefill_attention_backward_plain(q, k, v, mask, dout)
+    errs = {}
+    for name, got, w, r in zip(("dq", "dk", "dv"), (dq, dk, dv), want, ref):
+        err, ref_err, ok = backward_error(got, w, r)
+        errs[name] = (err, ref_err)
+        if not ok:
+            fail(f"prefill backward {name} at {label}: error {err} against the fp32 plain "
+                 f"backward, the bf16 plain backward's {ref_err}")
+    if not fwd_ok or not bool(torch.isfinite(out).all()):
+        fail(f"prefill forward with statistics disagrees with its plain version at {label}: {fwd_err}")
+    return {"forward": fwd_err, "dkv": max(errs["dk"][0], errs["dv"][0]), "dq": errs["dq"][0],
+            "errs": errs}
+
+
+def compare_prefill_every_shape(gen: torch.Generator) -> dict:
+    """Kernel #2's forward (serving launch and with statistics) and its two
+    backward kernels at every (GQA group, head_dim) pair, B=2, ragged T=131,
+    padding inside one row and at the end of the other."""
+    from tiny_audio_tpu_torch.ops.prefill_attention import prefill_attention, prefill_attention_plain
+
+    b, t, hkv = 2, 131, 2
+    worst = {"prefill_attention": 0.0, "prefill_attention_bwd_dkv": 0.0,
+             "prefill_attention_bwd_dq": 0.0}
+    for group, d in DECODE_SHAPES:
+        randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+        q = (randn(b, t, group * hkv, d) * 2).to(torch.bfloat16)
+        k, v = (randn(b, t, hkv, d).to(torch.bfloat16) for _ in range(2))
+        dout = randn(b, t, group * hkv, d).to(torch.bfloat16)
+        mask = torch.ones((b, t), dtype=torch.int32, device="cuda")
+        mask[0, 5:9] = 0
+        mask[1, 90:] = 0
+        serve_err, serve_ok = kernel_error(prefill_attention(q, k, v, mask),
+                                           prefill_attention_plain(q, k, v, mask))
+        if not serve_ok:
+            fail(f"prefill forward disagrees at group={group} head_dim={d}: {serve_err}")
+        r = check_prefill_backward(q, k, v, mask, dout, f"group={group} head_dim={d}")
+        worst["prefill_attention"] = max(worst["prefill_attention"], serve_err, r["forward"])
+        worst["prefill_attention_bwd_dkv"] = max(worst["prefill_attention_bwd_dkv"], r["dkv"])
+        worst["prefill_attention_bwd_dq"] = max(worst["prefill_attention_bwd_dq"], r["dq"])
+        print(f"prefill kernels group={group} head_dim={d} B={b} T={t} Hkv={hkv} bf16 "
+              f"forward_max_abs_err={max(serve_err, r['forward'])!r} "
+              + " ".join(f"{n}_err={e!r} {n}_bf16_plain_err={pe!r}"
+                         for n, (e, pe) in r["errs"].items())
+              + f" ratio_limit={BWD_ERR_RATIO} floor={BWD_FLOOR}")
+    return worst
+
+
+def compare_backward_on_path_inputs(call: tuple) -> dict:
+    """The backward kernels on the tensors the training path gave them first
+    (the backward's first call: the last layer), against the plain backward,
+    with times: the forward with statistics (on the same layer's inputs),
+    each backward kernel, the plain backward (bf16 autograd), the bound, and
+    scaled_dot_product_attention's backward on the same shapes (a yardstick
+    the port never calls; one autograd call computing dq, dk and dv, without
+    the padding mask, which SDPA's causal path does not take)."""
+    import torch.nn.functional as F
+
+    from tiny_audio_tpu_torch.ops.prefill_attention import (
+        prefill_attention_backward_plain,
+        prefill_attention_bwd_dkv,
+        prefill_attention_bwd_dq,
+        prefill_attention_forward,
+    )
+
+    q, k, v, mask, dout, m, l, delta = call
+    r = check_prefill_backward(q, k, v, mask, dout, "the training path's inputs")
+    fwd_ms = cuda_ms(lambda: prefill_attention_forward(q, k, v, mask), 20)
+    dkv_ms = cuda_ms(lambda: prefill_attention_bwd_dkv(q, k, v, mask, dout, m, l, delta), 20)
+    dq_ms = cuda_ms(lambda: prefill_attention_bwd_dq(q, k, v, mask, dout, m, l, delta), 20)
+    plain_ms = cuda_ms(lambda: prefill_attention_backward_plain(q, k, v, mask, dout), 5)
+    qq, kk, vv = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    dd = dout.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True, enable_gqa=True)
+
+    sdpa_fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qq, kk, vv), dd), 20)
+    out = sdpa()
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), dd, retain_graph=True), 20)
+    b, t, hq, d = q.shape
+    fwd_flops = 4.0 * b * hq * d * t * (t + 1) / 2  # causal: keys 1..t for query row t
+    inputs = nbytes(q, k, v, mask, dout, m, l, delta)
+    # dkv recomputes S and dP and forms dV, dK (2x the forward's products);
+    # dq recomputes S and dP and forms dQ (1.5x); a fused backward 2.5x
+    b_dkv = bound(inputs + nbytes(k, v), 2.0 * fwd_flops, BF16_TENSOR_FLOPS)
+    b_dq = bound(inputs + nbytes(q), 1.5 * fwd_flops, BF16_TENSOR_FLOPS)
+    b_bwd = bound(inputs + nbytes(q, k, v), 2.5 * fwd_flops, BF16_TENSOR_FLOPS)
+    print(f"prefill backward on the training path's inputs q={list(q.shape)} k={list(k.shape)} "
+          f"real_keys={int(mask.sum()) if mask is not None else 'all'} "
+          + " ".join(f"{n}_err={e!r} {n}_bf16_plain_err={pe!r}" for n, (e, pe) in r["errs"].items())
+          + f" fwd_stats_ms={fwd_ms!r} dkv_ms={dkv_ms!r} dq_ms={dq_ms!r} "
+          f"plain_backward_ms={plain_ms!r} bound_dkv_ms={b_dkv['bound_ms']!r} "
+          f"bound_dq_ms={b_dq['bound_ms']!r} bound_backward_2.5x_ms={b_bwd['bound_ms']!r} "
+          f"sdpa_backward_ms={sdpa_bwd_ms!r} sdpa_forward_backward_ms={sdpa_fwd_bwd_ms!r}")
+    return {
+        "prefill_attention_bwd_dkv": {"max_abs_err": r["dkv"], "ms": dkv_ms, "plain_ms": plain_ms,
+                                      **b_dkv, "library_ms": sdpa_bwd_ms},
+        "prefill_attention_bwd_dq": {"max_abs_err": r["dq"], "ms": dq_ms, "plain_ms": plain_ms,
+                                     **b_dq, "library_ms": sdpa_bwd_ms},
+        "fwd_stats_ms": fwd_ms,
+    }
+
+
+def train_phases(reset_counts, read_counts) -> dict:
+    """Training at the flagship width on the card (see the module docstring).
+    Returns the backward kernels' path numbers and the stage-1 run's counts."""
+    from tiny_audio_tpu_torch import ASRConfig
+    from tiny_audio_tpu_torch.models.asr import ASRModel
+    from tiny_audio_tpu_torch.train.collator import DataCollator
+    from tiny_audio_tpu_torch.train.data import synthetic_dataset
+    from tiny_audio_tpu_torch.train.optim import OptimizerConfig
+    from tiny_audio_tpu_torch.train.trainer import Trainer, TrainingConfig
+
+    rows = synthetic_dataset(TRAIN_BATCH, seed=SEED, min_s=TRAIN_CLIP_S[0],
+                             max_s=TRAIN_CLIP_S[1])
+    path_inputs: dict = {}
+    results = {}
+    tmp = tempfile.mkdtemp()
+
+    class StepClock:
+        """Host time at each logged optimizer step (logging reads the loss,
+        which waits for the device)."""
+
+        def __init__(self):
+            self.times = []
+
+        def on_log(self, trainer, record):
+            self.times.append(time.perf_counter())
+
+    def run(label, model, steps, accum=1, record=False):
+        collator = DataCollator(model.tokenizer, model.projector,
+                                num_mel_bins=model.config.encoder.num_mel_bins,
+                                system_prompt=model.config.system_prompt,
+                                encoder_conv_layers=model.config.encoder_conv_layers,
+                                device=model.device)
+        out_dir = Path(tmp) / label
+        config = TrainingConfig(
+            output_dir=str(out_dir), max_steps=steps, per_device_batch_size=TRAIN_BATCH,
+            gradient_accumulation_steps=accum, logging_steps=1, save_steps=0, eval_steps=0,
+            dataloader_workers=0, seed=SEED,
+            optimizer=OptimizerConfig(learning_rate=TRAIN_LR, lr_scheduler_type="constant"))
+        # snapshots on the host, so the device's peak memory is the run's own
+        snapshot = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+        frozen = {n: t for n, t in snapshot.items() if not model.get_parameter(n).requires_grad}
+        trainable = {n: t for n, t in snapshot.items() if n not in frozen}
+        clock = StepClock()
+        trainer = Trainer(model, config, rows, collator, callbacks=[clock])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        if record:
+            with record_first_backward(path_inputs):
+                trainer.train()
+        else:
+            trainer.train()
+        counts = read_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        micro = steps * accum
+        forwards = 2 if model.config.gradient_checkpointing else 1
+        n_enc, n_dec = model.config.encoder.num_layers, model.config.decoder.num_layers
+        want = {name: 0 for name in counts}
+        want.update({"encoder_attention": n_enc * micro,
+                     "prefill_attention": n_dec * micro * forwards,
+                     "prefill_attention_bwd_dkv": n_dec * micro,
+                     "prefill_attention_bwd_dq": n_dec * micro})
+        if counts != want:
+            fail(f"training run {label} launches {counts}, expected {want}")
+        records = [json.loads(line)
+                   for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["ce_loss"] for r in records]
+        norms = [r["grad_norm"] for r in records]
+        if len(losses) != steps or not all(np.isfinite(losses + norms)):
+            fail(f"training run {label}: losses {losses}, grad norms {norms}")
+        params = dict(model.named_parameters())
+        for name, before in frozen.items():
+            if not same_bytes(before, params[name].detach().cpu()):
+                fail(f"training run {label} changed the frozen parameter {name}")
+        changed = [n for n, before in trainable.items()
+                   if not torch.equal(params[n].detach().cpu(), before)]
+        if not changed:
+            fail(f"training run {label} changed no trainable parameter")
+        del frozen, trainable
+        step_times = [float(x) for x in np.diff([t0] + clock.times)]
+        step_ms = float(np.mean(step_times[1:]) * 1e3) if len(step_times) > 1 else None
+        print(f"train run={label} stage={'2 (LoRA)' if model.config.use_lora else '1'} "
+              f"batch={TRAIN_BATCH} clip_s={list(TRAIN_CLIP_S)} steps={steps} accum={accum} "
+              f"checkpointing={str(model.config.gradient_checkpointing).lower()} "
+              f"first_step_ms={step_times[0] * 1e3!r} step_ms_after_first={step_ms!r} "
+              f"peak_mem_gib={peak_gib!r} first_loss={losses[0]!r} last_loss={losses[-1]!r} "
+              f"grad_norms={[round(x, 4) for x in norms]} trainable_changed={len(changed)} "
+              f"frozen_unchanged=true launches={json.dumps(counts)} "
+              f"micro_steps={micro}")
+        results[label] = {"losses": losses, "counts": counts, "out_dir": out_dir}
+        phase_done()
+        return losses
+
+    t0 = time.perf_counter()
+    model = ASRModel(ASRConfig(), seed=SEED)  # stage 1: freeze_language_model, the default
+    phase_done()
+    print(f"train init_s={time.perf_counter() - t0!r} trainable_params="
+          f"{sum(p.numel() for p in model.parameters() if p.requires_grad)}")
+    losses = run("stage1", model, TRAIN_STEPS, record=True)
+    if not losses[-1] < losses[0]:
+        fail(f"stage 1 on one repeated batch did not lower the loss: {losses}")
+    run("stage1_accum2", model, 2, accum=2)
+    del model
+    torch.cuda.empty_cache()
+    model = ASRModel(ASRConfig(gradient_checkpointing=True), seed=SEED)
+    run("stage1_checkpointed", model, 3)
+    del model
+    torch.cuda.empty_cache()
+    model = ASRModel(ASRConfig(use_lora=True, lora_rank=8, lora_alpha=32,
+                               freeze_projector=True), seed=SEED)
+    run("stage2_lora", model, 3)
+
+    # model/ of the LoRA run back from disk, on the card, and generating
+    t0 = time.perf_counter()
+    loaded = ASRModel.from_pretrained(results["stage2_lora"]["out_dir"] / "model")
+    phase_done()
+    load_s = time.perf_counter() - t0
+    if loaded.device.type != "cuda" or not loaded.config.use_lora:
+        fail("model/ did not load as a LoRA model on the card")
+    for (name, a), (_, b) in zip(model.named_parameters(), loaded.named_parameters()):
+        if not torch.equal(a, b):
+            fail(f"model/ read back another {name}")
+    from tiny_audio_tpu_torch.processing import ASRProcessor
+
+    feats = ASRProcessor(loaded.projector, num_mel_bins=loaded.config.encoder.num_mel_bins,
+                         device=loaded.device).extract_features(
+        [rows[0]["audio"]["array"], rows[1]["audio"]["array"]])
+    tokens = loaded.generate(feats["input_features"], feats["audio_attention_mask"],
+                             min_new_tokens=8, max_new_tokens=8)
+    vocab = loaded.config.decoder.vocab_size
+    if tokens.shape != (2, 8) or tokens.min() < 0 or tokens.max() >= vocab:
+        fail(f"generate on the loaded LoRA model gave {tokens!r}")
+    files = sorted(p.name for p in (results["stage2_lora"]["out_dir"] / "model").iterdir())
+    print(f"train model_dir_loaded=true files={files} load_s={load_s!r} "
+          f"generate_tokens_shape={list(tokens.shape)}")
+    del model, loaded
+    torch.cuda.empty_cache()
+    phase_done()
+
+    path = compare_backward_on_path_inputs(path_inputs["backward"])
+    shutil.rmtree(tmp)
+    return {"path": path, "counts": results["stage1"]["counts"]}
+
+
 def small_model_reference() -> None:
     """The serving path on a small bf16 model, card vs CPU on equal weights."""
     from tiny_audio_tpu_torch import ASRConfig, DecoderConfig, EncoderConfig
@@ -724,6 +1057,8 @@ def main() -> None:
     phase_done()
     pre = compare_prefill_kernel(gen)
     phase_done()
+    pre_shapes = compare_prefill_every_shape(gen)
+    phase_done()
     dec = compare_decode_kernels(gen)
     phase_done()
     dec_shapes = compare_decode_every_shape(gen)
@@ -751,6 +1086,8 @@ def main() -> None:
     )
     from tiny_audio_tpu_torch.ops.prefill_attention import (
         prefill_attention,
+        prefill_attention_bwd_dkv,
+        prefill_attention_bwd_dq,
         prefill_attention_plain,
     )
     from tiny_audio_tpu_torch.models import decoder as decoder_module
@@ -761,8 +1098,13 @@ def main() -> None:
     wrappers = {"encoder_attention": encoder_attention, "prefill_attention": prefill_attention,
                 "decode_attention": decode_attention,
                 "decode_attention_update": decode_attention_update,
-                "w8a8_matmul": w8a8_matmul, "wq_matmul": wq_matmul}
-    no_int8 = {"w8a8_matmul": 0, "wq_matmul": 0}
+                "w8a8_matmul": w8a8_matmul, "wq_matmul": wq_matmul,
+                "prefill_attention_bwd_dkv": prefill_attention_bwd_dkv,
+                "prefill_attention_bwd_dq": prefill_attention_bwd_dq}
+    # the serving paths launch neither int8 product (outside their modes) nor
+    # a backward kernel
+    no_int8 = {"w8a8_matmul": 0, "wq_matmul": 0, "prefill_attention_bwd_dkv": 0,
+               "prefill_attention_bwd_dq": 0}
 
     def reset_counts() -> None:
         for fn in wrappers.values():
@@ -881,7 +1223,7 @@ def main() -> None:
     counts = read_counts()
     if min(counts["encoder_attention"], counts["prefill_attention"],
            counts["decode_attention_update"]) == 0 or counts["decode_attention"] or \
-            counts["w8a8_matmul"] or counts["wq_matmul"]:
+            any(counts[name] for name in no_int8):
         fail(f"the pipeline missed a kernel of its path: {counts}")
     print(f"pipeline requests={len(REQUEST_SECONDS)} seconds={list(REQUEST_SECONDS)} "
           f"wall_s={time.perf_counter() - t0!r} text_chars={texts} launches={json.dumps(counts)}")
@@ -992,6 +1334,12 @@ def main() -> None:
     print(f"server requests={len(REQUEST_SECONDS)} seconds={list(REQUEST_SECONDS)} "
           f"{served}")
     phase_done()
+    del model, pipe
+    torch.cuda.empty_cache()
+
+    # ---- 10. training at the flagship width ----
+    trained = train_phases(reset_counts, read_counts)
+    phase_done()
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                                                    "msgpack", "tiny_audio_tpu"))
@@ -1001,6 +1349,7 @@ def main() -> None:
     # Times are at the paths' inputs; the error is the larger of the
     # random-input and the path-input comparisons.
     source = "tiny_audio_tpu_torch/csrc/attention.cu"
+    bwd_source = "tiny_audio_tpu_torch/csrc/attention_bwd.cu"
     decode_source = "tiny_audio_tpu_torch/csrc/decode_attention.cu"
     int8_source = "tiny_audio_tpu_torch/csrc/int8_matmul.cu"
     launches = {**results["fused"]["counts"],
@@ -1013,7 +1362,8 @@ def main() -> None:
         {"name": "prefill_attention", "route": "cuda", "source": source,
          "replaces": "tiny_audio_tpu/ops/attention.py:65",
          "launches": launches["prefill_attention"], **pre_path,
-         "max_abs_err": max(pre["max_abs_err"], pre_path["max_abs_err"])},
+         "max_abs_err": max(pre["max_abs_err"], pre_shapes["prefill_attention"],
+                            pre_path["max_abs_err"])},
         {"name": "decode_attention", "route": "cuda", "source": decode_source,
          "replaces": "tiny_audio_tpu/ops/decode_attention.py:152",
          "launches": launches["decode_attention"], **dec_path,
@@ -1032,6 +1382,10 @@ def main() -> None:
          "replaces": "tiny_audio_tpu/ops/wq_matmul.py:73",
          "launches": mode_launches["wq_matmul"], **int8_path["wq_matmul"],
          "max_abs_err": max(int8_errs["wq_matmul"], int8_path["wq_matmul"]["max_abs_err"])},
+        *({"name": name, "route": "cuda", "source": bwd_source, "replaces": replaces,
+           "launches": trained["counts"][name], **trained["path"][name],
+           "max_abs_err": max(pre_shapes[name], trained["path"][name]["max_abs_err"])}
+          for name, replaces in BWD_REPLACES.items()),
     ]}))
     print(power_line)
     print(json.dumps({"ok": True, "device": {

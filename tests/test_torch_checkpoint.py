@@ -100,11 +100,25 @@ def test_projector_only_checkpoint_keeps_seeded_towers(tmp_path):
 
 
 def test_adapter_checkpoint_raises(tmp_path):
-    cfg = tiny_test_config(model_dtype="float32")
-    JaxASRModel(cfg, seed=0).save_pretrained(tmp_path)
-    (tmp_path / "adapter.msgpack").write_bytes(msgpack_io.to_bytes({}))
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        ASRModel.from_pretrained(tmp_path, device="cpu")
+    """``adapter.msgpack`` no longer raises now that LoRA is ported: a
+    JAX stage-2 checkpoint (LoRA leaves in the adapter file, the base in
+    the towers) loads with equal parameters, and an adapter file beside a
+    config without ``use_lora`` is ignored, as the JAX package ignores it."""
+    cfg = tiny_test_config(model_dtype="float32", use_lora=True)
+    jm = JaxASRModel(cfg, seed=0)
+    layers = jm.params["decoder"]["layers"]
+    layers["q_proj_lora_b"] = layers["q_proj_lora_b"] + 0.5
+    jm.save_pretrained(tmp_path / "lora")
+    assert (tmp_path / "lora" / "adapter.msgpack").exists()
+    tm = ASRModel.from_pretrained(tmp_path / "lora", device="cpu")
+    _assert_same_params(state_dict_to_jax(tm), jm.params)
+
+    plain = tiny_test_config(model_dtype="float32")
+    JaxASRModel(plain, seed=0).save_pretrained(tmp_path / "plain")
+    (tmp_path / "plain" / "adapter.msgpack").write_bytes((tmp_path / "lora" / "adapter.msgpack")
+                                                         .read_bytes())
+    tm = ASRModel.from_pretrained(tmp_path / "plain", device="cpu")
+    assert not any("lora" in name for name, _ in tm.named_parameters())
 
 
 def test_chunked_arrays_read_and_write(monkeypatch):

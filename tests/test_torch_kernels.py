@@ -23,7 +23,12 @@ from tiny_audio_tpu_torch.ops.encoder_attention import (
     encoder_attention_plain,
 )
 from tiny_audio_tpu_torch.ops.prefill_attention import (
+    attention_delta,
     prefill_attention,
+    prefill_attention_backward_plain,
+    prefill_attention_bwd_dkv,
+    prefill_attention_bwd_dq,
+    prefill_attention_forward,
     prefill_attention_plain,
 )
 from tiny_audio_tpu_torch.ops.wq_head import w8a8_matmul, w8a8_matmul_plain
@@ -33,6 +38,12 @@ torch.set_num_threads(1)
 # bf16 kernel vs plain version on the same inputs: both round P and the
 # output to bf16 (chip_smoke.py states the derivation)
 KERNEL_ATOL, KERNEL_RTOL = 1e-2, 2.0**-6
+# A backward kernel's gradient is held against the plain backward in fp32:
+# its error may be at most BWD_ERR_RATIO times the bf16 plain backward's own
+# error against the fp32 one, plus BWD_FLOOR of the gradient's largest
+# magnitude (one bf16 ulp near the top of a binade) for gradients so small
+# that the bf16 plain version happens to round exactly.
+BWD_ERR_RATIO, BWD_FLOOR = 2.0, 2.0**-8
 
 
 def test_cpu_calls_launch_no_kernel():
@@ -58,6 +69,31 @@ def pretend_cuda(monkeypatch, tmp_path):
     yield
     kernels.build.cache_clear()
     kernels.library.cache_clear()
+
+
+def test_cuda_grad_paths_never_fall_back(pretend_cuda):
+    """With grad, a CUDA tensor takes the autograd functions, whose forward
+    and backward launch kernels: they raise here, never run the plain version."""
+    y = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, requires_grad=True)
+    prefill_attention.launches = 0
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        prefill_attention(y, y, y, None)
+    x = torch.zeros((1, 8, 2 * 64), dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        encoder_attention(x, x, x, None, 2)
+    stats = torch.zeros((1, 2, 8))
+    z = y.detach()
+    prefill_attention_bwd_dkv.launches = prefill_attention_bwd_dq.launches = 0
+    for fn in (prefill_attention_bwd_dkv, prefill_attention_bwd_dq):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            fn(z, z, z, None, z, stats, stats, stats)
+        with pytest.raises(ValueError, match="delta"):
+            fn(z, z, z, None, z, stats, stats, stats[..., :4])
+        with pytest.raises(ValueError, match="head_dim"):
+            w = z[..., :32].contiguous()
+            fn(w, w, w, None, w, stats, stats, stats)
+    assert prefill_attention.launches == 0
+    assert prefill_attention_bwd_dkv.launches == prefill_attention_bwd_dq.launches == 0
 
 
 def test_cuda_tensor_never_falls_back(pretend_cuda):
@@ -156,7 +192,8 @@ def test_encoder_kernel_matches_plain(cuda_device, b, t, h, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,hq,hkv,d", [(2, 468, 16, 8, 128), (4, 468, 16, 8, 128), (1, 130, 4, 4, 128), (2, 64, 8, 2, 128)])
+@pytest.mark.parametrize("b,t,hq,hkv,d", [(2, 468, 16, 8, 128), (4, 468, 16, 8, 128), (1, 130, 4, 4, 128), (2, 64, 8, 2, 128),
+                                         (2, 200, 9, 3, 64), (1, 67, 8, 1, 64), (2, 150, 8, 2, 256), (1, 33, 4, 4, 256)])
 def test_prefill_kernel_matches_plain(cuda_device, b, t, hq, hkv, d):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     q = torch.randn((b, t, hq, d), generator=g, device=cuda_device).to(torch.bfloat16)
@@ -170,6 +207,113 @@ def test_prefill_kernel_matches_plain(cuda_device, b, t, hq, hkv, d):
     _close(got, prefill_attention_plain(q, k, v, mask), mask.bool())
     _close(prefill_attention(q, k, v, None), prefill_attention_plain(q, k, v, None),
            torch.ones_like(mask, dtype=torch.bool))
+
+
+def _prefill_inputs(device, b, t, hq, hkv, d, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = (torch.randn((b, t, hq, d), generator=g, device=device) * 2).to(torch.bfloat16)
+    k, v, = (torch.randn((b, t, hkv, d), generator=g, device=device).to(torch.bfloat16)
+             for _ in range(2))
+    dout = torch.randn((b, t, hq, d), generator=g, device=device).to(torch.bfloat16)
+    mask = torch.ones((b, t), dtype=torch.int32, device=device)
+    mask[-1, t - t // 3:] = 0  # the last row right-padded
+    if b > 1:
+        mask[0, 5:9] = 0  # padding inside a row too
+    return q, k, v, dout, mask
+
+
+def _bwd_close(name, got, want32, ref16):
+    want32 = want32.float()
+    err = (got.float() - want32).abs().max().item()
+    ref_err = (ref16.float() - want32).abs().max().item()
+    limit = BWD_ERR_RATIO * ref_err + BWD_FLOOR * want32.abs().max().item()
+    assert torch.isfinite(got).all(), name
+    assert err <= limit, f"{name}: error {err} against fp32, bf16 plain {ref_err}, limit {limit}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,d", [(g, d) for g in (1, 2, 3, 4, 8) for d in (64, 128, 256)])
+def test_prefill_backward_kernels_match_plain(cuda_device, group, d):
+    """dkv and dq at every (GQA group, head_dim), ragged T, padding keys
+    inside and at the end of a row, against the plain backward."""
+    b, t, hkv = 2, 131, 2
+    q, k, v, dout, mask = _prefill_inputs(cuda_device, b, t, group * hkv, hkv, d, group + d)
+    before = (prefill_attention.launches, prefill_attention_bwd_dkv.launches,
+              prefill_attention_bwd_dq.launches)
+    out, m, l = prefill_attention_forward(q, k, v, mask)
+    _close(out, prefill_attention_plain(q, k, v, mask), torch.ones_like(mask, dtype=torch.bool))
+    delta = attention_delta(out, dout)
+    dk, dv = prefill_attention_bwd_dkv(q, k, v, mask, dout, m, l, delta)
+    dq = prefill_attention_bwd_dq(q, k, v, mask, dout, m, l, delta)
+    assert (prefill_attention.launches, prefill_attention_bwd_dkv.launches,
+            prefill_attention_bwd_dq.launches) == tuple(n + 1 for n in before)
+    want = prefill_attention_backward_plain(*(x.float() for x in (q, k, v)), mask, dout.float())
+    ref = prefill_attention_backward_plain(q, k, v, mask, dout)
+    for name, got, w, r in zip(("dq", "dk", "dv"), (dq, dk, dv), want, ref):
+        _bwd_close(name, got, w, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("checkpointed", [False, True])
+def test_prefill_attention_autograd_on_card(cuda_device, checkpointed):
+    """Gradients through prefill_attention launch the forward with
+    statistics and both backward kernels, also when torch.utils.checkpoint
+    recomputes the forward.  Batch row 1 is all padding: every query sees
+    only MASK_VALUE scores, so the kernels weight its visible keys uniformly
+    (the plain version, whose causal mask also scores MASK_VALUE, averages
+    over all T keys there: such rows are don't-care on the path) and its
+    gradient is known in closed form: dv_j = sum over the group's heads and
+    rows r >= j of dO_r / (r + 1), dq = dk = 0.  With m + log(l) fused, the
+    backward's P would be 1, not 1 / (r + 1), in that row."""
+    from torch.utils.checkpoint import checkpoint
+
+    b, t, hq, hkv, d = 3, 96, 16, 8, 128
+    q, k, v, dout, mask = _prefill_inputs(cuda_device, b, t, hq, hkv, d, 5)
+    mask[1] = 0
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = (prefill_attention.launches, prefill_attention_bwd_dkv.launches,
+              prefill_attention_bwd_dq.launches)
+    if checkpointed:
+        out = checkpoint(prefill_attention, *leaves, mask, use_reentrant=False)
+    else:
+        out = prefill_attention(*leaves, mask)
+    assert out.grad_fn is not None
+    out.backward(dout)
+    forwards = 2 if checkpointed else 1
+    assert (prefill_attention.launches, prefill_attention_bwd_dkv.launches,
+            prefill_attention_bwd_dq.launches) == (before[0] + forwards, before[1] + 1,
+                                                   before[2] + 1)
+    real = [0, 2]
+    want = prefill_attention_backward_plain(*(x[real].float() for x in (q, k, v)), mask[real],
+                                            dout[real].float())
+    ref = prefill_attention_backward_plain(*(x[real] for x in (q, k, v)), mask[real], dout[real])
+    for name, leaf, w, r in zip(("dq", "dk", "dv"), leaves, want, ref):
+        _bwd_close(name, leaf.grad[real], w, r)
+    weights = 1.0 / torch.arange(1, t + 1, device=cuda_device, dtype=torch.float32)
+    share = dout[1].float() * weights[:, None, None]  # [T, Hq, D]
+    dv_pad = share.flip(0).cumsum(0).flip(0).reshape(t, hkv, hq // hkv, d).sum(2)
+    torch.testing.assert_close(leaves[2].grad[1].float(), dv_pad, atol=3e-2, rtol=2.0**-6)
+    assert not leaves[0].grad[1].any() and not leaves[1].grad[1].any()
+
+
+@pytest.mark.cuda
+def test_encoder_attention_carries_a_gradient_on_card(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    b, t, h, d = 2, 150, 4, 64
+    q, k, v, dout = (torch.randn((b, t, h * d), generator=g, device=cuda_device)
+                     .to(torch.bfloat16) for _ in range(4))
+    mask = torch.ones((b, t), dtype=torch.int32, device=cuda_device)
+    mask[1, 100:] = 0
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = encoder_attention.launches
+    out = encoder_attention(*leaves, mask, h)
+    assert encoder_attention.launches == before + 1 and out.grad_fn is not None
+    out.backward(dout)
+    with torch.enable_grad():
+        ref = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        encoder_attention_plain(*ref, mask, h).backward(dout)
+    for leaf, r in zip(leaves, ref):
+        torch.testing.assert_close(leaf.grad, r.grad)  # the same plain recompute
 
 
 def _decode_inputs(device, b, s, hkv, quantized, seed):

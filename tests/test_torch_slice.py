@@ -3,8 +3,9 @@
 The JAX model's random params are carried into the port; greedy decoding
 must then give the same tokens, for both KV-cache dtypes and both decode
 paths, the pipelines the same texts and streaming the same fragments.  A
-subprocess imports every module of the port with jax, flax and the JAX
-package blocked.
+subprocess imports every module of the port (the training package
+included) with jax, flax and the JAX package blocked, serves a checkpoint
+and runs a stage-2 train step.
 """
 
 import os
@@ -286,6 +287,23 @@ with urllib.request.urlopen(req, timeout=120) as r:
     assert isinstance(json.loads(r.read())["text"], str)
 batcher.close()
 server.shutdown()
+
+# one stage-2 train step (LoRA, checkpointed blocks) and its model/ save
+from tiny_audio_tpu_torch.train.collator import DataCollator
+from tiny_audio_tpu_torch.train.data import synthetic_dataset
+from tiny_audio_tpu_torch.train.optim import OptimizerConfig, build_optimizer, make_train_step
+
+train_cfg = tiny_test_config(use_lora=True, freeze_projector=True, gradient_checkpointing=True)
+model = ASRModel(train_cfg, seed=0, device="cpu")
+collator = DataCollator(model.tokenizer, model.projector, num_mel_bins=80, device="cpu")
+opt, labels = build_optimizer(train_cfg, OptimizerConfig(), model)
+before = model.decoder.layers[0].q_proj_lora_b.detach().clone()
+loss, metrics = make_train_step(model, opt)(collator(synthetic_dataset(2, seed=0)))
+assert torch.isfinite(loss) and float(metrics["grad_norm"]) > 0
+assert not torch.equal(before, model.decoder.layers[0].q_proj_lora_b)
+model.save_pretrained(ckpt + "/stage2", save_towers=False)
+back = ASRModel.from_pretrained(ckpt + "/stage2", device="cpu")
+assert torch.equal(back.decoder.layers[0].q_proj_lora_b, model.decoder.layers[0].q_proj_lora_b)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "tiny_audio_tpu"))
 assert not loaded, loaded

@@ -1,15 +1,25 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 in and out, fp32
 // accumulation, exact online softmax.
 //
-// One templated kernel serves the two attention kernels of the serving path:
+// One templated kernel serves three entry points:
 //
-//   ta_encoder_attention  replaces tiny_audio_tpu/ops/encoder_attention.py
-//                         (_encoder_attention_impl): bidirectional MHA over
-//                         packed heads [B, T, H*D], key-padding mask, D = 64.
-//   ta_prefill_attention  replaces tiny_audio_tpu/ops/attention.py
-//                         (_flash_call / flash_mha): causal attention with
-//                         native GQA (kv_head = q_head / group), key-padding
-//                         mask, D = 128.
+//   ta_encoder_attention       replaces tiny_audio_tpu/ops/encoder_attention.py
+//                              (_encoder_attention_impl): bidirectional MHA
+//                              over packed heads [B, T, H*D], key-padding
+//                              mask, D = 64.
+//   ta_prefill_attention       replaces tiny_audio_tpu/ops/attention.py
+//                              (_flash_call / flash_mha): causal attention
+//                              with native GQA (kv_head = q_head / group),
+//                              key-padding mask, D = 64, 128 or 256.
+//   ta_prefill_attention_fwd_stats
+//                              the same, and also each query row's softmax
+//                              statistics for the backward (attention_bwd.cu):
+//                              the row max m (log2 units) and the row sum l,
+//                              [B, Hq, T] fp32 each.  They stay apart, as the
+//                              library kernel's save_residuals keeps them: a
+//                              row whose visible keys are all padding has
+//                              m = MASK_VALUE, where m + log2(l) would round
+//                              back to m and lose l.
 //
 // The packed encoder layout [B, T, H*D] is the same memory as [B, T, H, D],
 // so both read q as [B, T, Hq, D] and k/v as [B, T, Hkv, D] straight from
@@ -18,15 +28,18 @@
 // Design (simple and exact first; wgmma, TMA and warp specialisation come
 // later):
 //   - one block of 4 warps per (64-row q tile, q head, batch row); each warp
-//     owns 16 query rows and keeps its Q fragments in registers;
-//   - K and V tiles of 64 keys are staged in shared memory (V transposed so
+//     owns 16 query rows; up to D = 128 it keeps its Q fragments in
+//     registers, at D = 256 (64 more registers) it reloads them from L1/L2
+//     at each key tile instead;
+//   - K and V tiles of 64 keys (32 at D = 256, to stay inside 48 KB of
+//     static shared memory) are staged in shared memory (V transposed so
 //     the P.V operand fragments are contiguous 32-bit loads);
 //   - S = Q K^T and O += P V run on the tensor cores with
 //     mma.sync.m16n8k16 (bf16 x bf16 -> fp32); the S accumulator fragment is
 //     reused as the A fragment of P, so P never leaves registers;
 //   - online softmax in fp32 in the log2 domain; the ragged edge (T is no
 //     tile multiple: 1500 frames) is masked in the kernel; causal blocks
-//     stop at the diagonal tile.
+//     stop at the diagonal.
 //
 // Masking follows the plain version (models/layers.attention): a key whose
 // padding-mask entry is 0 scores MASK_VALUE (-0.7 * FLT_MAX), not -inf, so a
@@ -49,42 +62,32 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
+using ta::ld32;
+using ta::mma_16816;
+using ta::pack_bf16;
+using ta::MASK_VALUE;
+
 constexpr int BLOCK_Q = 64;    // query rows per block, 16 per warp
-constexpr int BLOCK_K = 64;    // keys per shared-memory tile (== BLOCK_Q)
 constexpr int NUM_WARPS = 4;
 constexpr int NUM_THREADS = NUM_WARPS * 32;
-constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two bf16 values (lo at the lower address) as one 32-bit register.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool STATS>
 __global__ void __launch_bounds__(NUM_THREADS)
 attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      const int* __restrict__ mask,  // [B, T], 1 = real; or null
                      __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ m_out,     // [B, Hq, T] when STATS
+                     float* __restrict__ l_out,
                      int T, int Hq, int Hkv, float scale_log2) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr int BLOCK_K = D > 128 ? 32 : 64;  // keys per shared-memory tile
+  constexpr bool Q_IN_REGS = D <= 128;
   constexpr int KPAD = D + 8;        // padded K row: conflict-free fragment loads
   constexpr int VPAD = BLOCK_K + 8;  // padded V^T row
   constexpr int VEC = 8;             // bf16 values per 16-byte load
@@ -117,15 +120,18 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int r0 = q_tile * BLOCK_Q + warp * 16 + g;
   const int r1 = r0 + 8;
 
-  // Q as mma A fragments, one set of 4 registers per 16-wide k step.
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  // Q as mma A fragments for the 16-wide k step kk (rows past T are zero).
+  auto load_q = [&](int kk, uint32_t (&a)[4]) {
     const int c = kk * 16 + 2 * t4;
-    qf[kk][0] = r0 < T ? ld32(q_base + r0 * q_stride + c) : 0u;
-    qf[kk][1] = r1 < T ? ld32(q_base + r1 * q_stride + c) : 0u;
-    qf[kk][2] = r0 < T ? ld32(q_base + r0 * q_stride + c + 8) : 0u;
-    qf[kk][3] = r1 < T ? ld32(q_base + r1 * q_stride + c + 8) : 0u;
+    a[0] = r0 < T ? ld32(q_base + r0 * q_stride + c) : 0u;
+    a[1] = r1 < T ? ld32(q_base + r1 * q_stride + c) : 0u;
+    a[2] = r0 < T ? ld32(q_base + r0 * q_stride + c + 8) : 0u;
+    a[3] = r1 < T ? ld32(q_base + r1 * q_stride + c + 8) : 0u;
+  };
+  uint32_t qf[Q_IN_REGS ? D / 16 : 1][4];
+  if constexpr (Q_IN_REGS) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) load_q(kk, qf[kk]);
   }
 
   float o[O_TILES][4];
@@ -134,8 +140,8 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   float m0 = -INFINITY, m1 = -INFINITY;  // running row max (log2 units)
   float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sum
 
-  const int num_k_tiles = (T + BLOCK_K - 1) / BLOCK_K;
-  const int k_tiles = CAUSAL ? min(num_k_tiles, q_tile + 1) : num_k_tiles;
+  const int k_end = CAUSAL ? min(T, (q_tile + 1) * BLOCK_Q) : T;
+  const int k_tiles = (k_end + BLOCK_K - 1) / BLOCK_K;
 
   for (int kt = 0; kt < k_tiles; ++kt) {
     const int k0 = kt * BLOCK_K;
@@ -163,15 +169,23 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows x 64 keys.
+    // S = Q K^T for this warp's 16 rows x BLOCK_K keys.
     float s[N_TILES][4];
 #pragma unroll
-    for (int n = 0; n < N_TILES; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int n = 0; n < N_TILES; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      if constexpr (Q_IN_REGS) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[r] = qf[kk][r];
+      } else {
+        load_q(kk, a);
+      }
+#pragma unroll
+      for (int n = 0; n < N_TILES; ++n) {
         const __nv_bfloat16* kp = &k_s[(n * 8 + g) * KPAD + kk * 16 + 2 * t4];
-        mma_16816(s[n], qf[kk], ld32(kp), ld32(kp + 8));
+        mma_16816(s[n], a, ld32(kp), ld32(kp + 8));
       }
     }
 
@@ -261,18 +275,49 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
           pack_bf16(o[j][2] * inv1, o[j][3] * inv1);
     }
   }
+  if constexpr (STATS) {
+    if (t4 == 0) {  // one thread of the four that share a row writes it
+      const int64_t base = ((int64_t)b * Hq + h) * T;
+      if (r0 < T) {
+        m_out[base + r0] = m0;
+        l_out[base + r0] = l0;
+      }
+      if (r1 < T) {
+        m_out[base + r1] = m1;
+        l_out[base + r1] = l1;
+      }
+    }
+  }
 }
 
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool STATS>
 int launch(const void* q, const void* k, const void* v, const void* mask, void* out,
-           int B, int T, int Hq, int Hkv, float scale, void* stream) {
+           void* m_out, void* l_out, int B, int T, int Hq, int Hkv, float scale,
+           void* stream) {
   const dim3 grid((T + BLOCK_Q - 1) / BLOCK_Q, Hq, B);
-  const float log2e = 1.4426950408889634f;
-  attention_fwd_kernel<D, CAUSAL><<<grid, NUM_THREADS, 0, (cudaStream_t)stream>>>(
+  attention_fwd_kernel<D, CAUSAL, STATS><<<grid, NUM_THREADS, 0, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(mask),
-      static_cast<__nv_bfloat16*>(out), T, Hq, Hkv, scale * log2e);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(m_out),
+      static_cast<float*>(l_out), T, Hq, Hkv, scale * ta::LOG2E);
   return (int)cudaGetLastError();
+}
+
+template <bool STATS>
+int launch_prefill(const void* q, const void* k, const void* v, const void* mask, void* out,
+                   void* m_out, void* l_out, int B, int T, int Hq, int Hkv, int D,
+                   float scale, void* stream) {
+  if (T <= 0 || B <= 0 || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 64:
+      return launch<64, true, STATS>(q, k, v, mask, out, m_out, l_out, B, T, Hq, Hkv, scale, stream);
+    case 128:
+      return launch<128, true, STATS>(q, k, v, mask, out, m_out, l_out, B, T, Hq, Hkv, scale, stream);
+    case 256:
+      return launch<256, true, STATS>(q, k, v, mask, out, m_out, l_out, B, T, Hq, Hkv, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -285,18 +330,25 @@ int ta_encoder_attention(const void* q, const void* k, const void* v, const void
                          void* out, int B, int T, int H, int D, float scale,
                          void* stream) {
   if (T <= 0 || B <= 0 || H <= 0 || D != 64) return (int)cudaErrorInvalidValue;
-  return launch<64, false>(q, k, v, mask, out, B, T, H, H, scale, stream);
+  return launch<64, false, false>(q, k, v, mask, out, nullptr, nullptr, B, T, H, H, scale,
+                                  stream);
 }
 
-// q/out: [B, T, Hq, D]; k/v: [B, T, Hkv, D] (Hq % Hkv == 0, D = 128); bf16,
-// contiguous, 16-byte aligned; mask: [B, T] int32 or null.  Causal.
+// q/out: [B, T, Hq, D]; k/v: [B, T, Hkv, D] (Hq % Hkv == 0, D = 64, 128 or
+// 256); bf16, contiguous, 16-byte aligned; mask: [B, T] int32 or null.  Causal.
 int ta_prefill_attention(const void* q, const void* k, const void* v, const void* mask,
                          void* out, int B, int T, int Hq, int Hkv, int D, float scale,
                          void* stream) {
-  if (T <= 0 || B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D != 128) {
-    return (int)cudaErrorInvalidValue;
-  }
-  return launch<128, true>(q, k, v, mask, out, B, T, Hq, Hkv, scale, stream);
+  return launch_prefill<false>(q, k, v, mask, out, nullptr, nullptr, B, T, Hq, Hkv, D, scale,
+                               stream);
+}
+
+// As ta_prefill_attention, and m/l: [B, Hq, T] fp32, each row's max score
+// (log2 units, scale applied) and sum of exp2(score - max).
+int ta_prefill_attention_fwd_stats(const void* q, const void* k, const void* v,
+                                   const void* mask, void* out, void* m, void* l, int B,
+                                   int T, int Hq, int Hkv, int D, float scale, void* stream) {
+  return launch_prefill<true>(q, k, v, mask, out, m, l, B, T, Hq, Hkv, D, scale, stream);
 }
 
 }  // extern "C"

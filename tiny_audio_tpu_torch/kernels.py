@@ -34,13 +34,17 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _DECODE_ARGS = (_PTR,) * 9 + (_INT,) * 6 + (ctypes.c_float, _PTR)
 _MATMUL_ARGS = (_PTR,) * 4 + (_INT,) * 3 + (_PTR,)
+_PREFILL_BWD_ARGS = (_INT,) * 5 + (ctypes.c_float, _PTR)
 # name -> argtypes of the C entry points in csrc/attention.cu,
-# csrc/decode_attention.cu and csrc/int8_matmul.cu
+# csrc/attention_bwd.cu, csrc/decode_attention.cu and csrc/int8_matmul.cu
 _SIGNATURES = {
     "ta_encoder_attention": (_PTR, _PTR, _PTR, _PTR, _PTR,
                              _INT, _INT, _INT, _INT, ctypes.c_float, _PTR),
     "ta_prefill_attention": (_PTR, _PTR, _PTR, _PTR, _PTR,
                              _INT, _INT, _INT, _INT, _INT, ctypes.c_float, _PTR),
+    "ta_prefill_attention_fwd_stats": (_PTR,) * 7 + _PREFILL_BWD_ARGS,
+    "ta_prefill_attention_bwd_dkv": (_PTR,) * 10 + _PREFILL_BWD_ARGS,
+    "ta_prefill_attention_bwd_dq": (_PTR,) * 9 + _PREFILL_BWD_ARGS,
     "ta_decode_attention": _DECODE_ARGS,
     "ta_decode_attention_update": _DECODE_ARGS,
     "ta_w8a8_matmul": _MATMUL_ARGS,

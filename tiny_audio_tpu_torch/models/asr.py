@@ -6,8 +6,12 @@ KV-cached greedy decode, batched (:meth:`ASRModel.generate`) or streamed token
 by token (:meth:`ASRModel.generate_streaming`); the opt-in int8 decode modes
 (:meth:`ASRModel.enable_wq_decode`, :meth:`~ASRModel.enable_w8a8_head`,
 :meth:`~ASRModel.enable_w8a8_decode`); the JAX package's checkpoint layout
-(:meth:`ASRModel.save_pretrained`, :meth:`ASRModel.from_pretrained`).  Not
-ported yet (ROADMAP.md): training, LoRA.
+(:meth:`ASRModel.save_pretrained`, :meth:`ASRModel.from_pretrained`, LoRA
+adapters in ``adapter.msgpack``); and its training half:
+:meth:`ASRModel.compute_loss` (frozen encoder under ``no_grad``, frame
+dropout, projector, splice, causal decoder, shifted CE), with
+``requires_grad`` following the optimizer's labels (frozen towers get no
+gradient), LoRA on the decoder and gradient checkpointing.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from tiny_audio_tpu_torch.bridge import load_jax_params, state_dict_to_jax
+from tiny_audio_tpu_torch.bridge import _flatten, _set, load_jax_params, state_dict_to_jax
 from tiny_audio_tpu_torch.config import ASRConfig, compute_encoder_output_length
 from tiny_audio_tpu_torch.device import require_device
 from tiny_audio_tpu_torch.tokenization import AUDIO_TOKEN, ByteTokenizer, HFTokenizerAdapter
@@ -53,6 +57,37 @@ PROMPT_BUCKET = 64
 # stddev of a standard normal truncated to (-2, 2): flax's lecun_normal
 # divides by it so the truncated draw keeps variance 1 / fan_in
 _TRUNC_STD = 0.87962566103423978
+
+
+def is_frozen(name: str, config: ASRConfig) -> bool:
+    """Whether the ``ASRModel`` parameter ``name`` is frozen: the encoder
+    always, the decoder but its LoRA leaves under ``freeze_language_model``,
+    the projector under ``freeze_projector``."""
+    tower = name.split(".", 1)[0]
+    if tower == "encoder":
+        return True
+    if tower == "decoder":
+        return config.freeze_language_model and "lora" not in name
+    return config.freeze_projector
+
+
+def split_lora(params: dict) -> tuple[dict, dict]:
+    """Partition a JAX-layout params tree (nested dicts) into (base, lora)
+    sub-trees: a leaf is LoRA when any key of its path contains "lora"."""
+    base: dict = {}
+    lora: dict = {}
+    for path, leaf in _flatten(params):
+        _set(lora if any("lora" in key for key in path) else base, path, leaf)
+    return base, lora
+
+
+def merge_lora(base: dict, lora: dict) -> dict:
+    """The inverse of :func:`split_lora` (``lora`` leaves win)."""
+    merged: dict = {}
+    for tree in (base, lora):
+        for path, leaf in _flatten(tree):
+            _set(merged, path, leaf)
+    return merged
 
 
 def splice_audio(
@@ -135,13 +170,17 @@ class ASRModel(nn.Module):
         device="cuda",
     ):
         super().__init__()
-        if config.use_lora:
-            raise NotImplementedError("LoRA is not ported to PyTorch yet (ROADMAP.md)")
         self.config = config
         self.device = require_device(device)
         dtype = torch.bfloat16 if config.model_dtype == "bfloat16" else torch.float32
         self.dtype = dtype
         dec_cfg = config.decoder
+        if config.use_lora:
+            dec_cfg = dataclasses.replace(
+                dec_cfg, lora_rank=config.lora_rank, lora_alpha=float(config.lora_alpha),
+                lora_targets=tuple(config.lora_target_modules))
+        if config.gradient_checkpointing and not dec_cfg.gradient_checkpointing:
+            dec_cfg = dataclasses.replace(dec_cfg, gradient_checkpointing=True)
         if config.kv_cache_dtype != dec_cfg.kv_cache_dtype:
             # non-default side wins; conflicting customizations are an error
             if dec_cfg.kv_cache_dtype == "bfloat16":
@@ -160,8 +199,15 @@ class ASRModel(nn.Module):
         self.gen_config = GenerationConfig.from_asr_config(
             config, self.tokenizer.eos_token_ids, self.tokenizer.pad_token_id
         )
-        self.requires_grad_(False)
         self.init_weights(seed)
+        self.freeze()
+
+    def freeze(self) -> None:
+        """``requires_grad`` off for the parameters :func:`is_frozen` names
+        and on for the rest, which the optimizer trains.  The serving entry
+        points run under ``inference_mode`` and build no graph."""
+        for name, param in self.named_parameters():
+            param.requires_grad_(not is_frozen(name, self.config))
 
     # ------------------------------------------------------------------ init
 
@@ -187,6 +233,14 @@ class ASRModel(nn.Module):
                 tmp = torch.empty(module.weight.shape, dtype=torch.float32, device=self.device)
                 tmp.normal_(0.0, math.sqrt(1.0 / module.embedding_dim), generator=gen)
                 module.weight.copy_(tmp)
+        # LoRA A ~ normal(0.02), B = 0 (the JAX initializers), drawn after the
+        # towers so that a seed gives the same base weights with or without
+        for name, param in self.decoder.named_parameters():
+            if name.endswith("_lora_a"):
+                tmp = torch.empty(param.shape, dtype=torch.float32, device=self.device)
+                param.copy_(tmp.normal_(0.0, 0.02, generator=gen))
+            elif name.endswith("_lora_b"):
+                param.zero_()
         enc = self.config.encoder
         self.encoder.embed_positions.copy_(
             sinusoidal_positions(enc.max_source_positions, enc.d_model, device=self.device)
@@ -232,6 +286,54 @@ class ASRModel(nn.Module):
         """Mel -> encoder -> projector: [B, T_proj, llm_dim] audio embeds."""
         hidden = self.encoder(input_features, frame_mask=audio_attention_mask)
         return self.projector(hidden)
+
+    # --------------------------------------------------------------- training
+
+    def compute_loss(self, batch: dict, train: bool = True,
+                     generator: Optional[torch.Generator] = None):
+        """Causal-LM loss over the assistant tokens plus the projector's aux
+        loss (0 for the MLP projector), as the JAX package's ``compute_loss``.
+
+        ``batch``: ``input_ids``, ``attention_mask``, ``labels`` [B, T]
+        (-100 = unsupervised; numpy or tensors), ``input_features``
+        [B, mel, Tm] and ``audio_attention_mask`` [B, Tm].  The encoder runs
+        under ``no_grad`` (frozen, as the JAX package stop-gradients its
+        params and input).  With ``train`` and ``audio_token_dropout`` p > 0,
+        encoder frames are kept with probability 1 - p, drawn from
+        ``generator``.  Returns ``(loss, {"ce_loss", "aux_loss",
+        "num_label_tokens"})`` as 0-d tensors.
+        """
+        dev = self.device
+        as_long = lambda x: torch.as_tensor(x, device=dev).long()  # noqa: E731
+        input_ids, labels, attn = (as_long(batch[key]) for key in
+                                   ("input_ids", "labels", "attention_mask"))
+        with torch.no_grad():
+            hidden = self.encoder(torch.as_tensor(batch["input_features"], device=dev),
+                                  frame_mask=torch.as_tensor(batch["audio_attention_mask"],
+                                                             device=dev))
+        p = float(self.config.audio_token_dropout)
+        if train and p > 0.0:
+            keep = torch.bernoulli(torch.full(hidden.shape[:-1], 1.0 - p, device=dev),
+                                   generator=generator)
+            hidden = hidden * keep[..., None].to(hidden.dtype)
+        audio_embeds = self.projector(hidden)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+
+        text_embeds = self.decoder.embed(input_ids)
+        inputs_embeds = splice_audio(text_embeds, input_ids == self.tokenizer.audio_token_id,
+                                     audio_embeds)
+        positions = torch.clamp(torch.cumsum(attn, dim=1) - 1, min=0)
+        logits = self.decoder(inputs_embeds, positions, padding_mask=attn)
+
+        # shift: predict token t+1 from position t
+        shift_labels = labels[:, 1:]
+        valid = shift_labels != -100
+        logprobs = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+        safe_labels = torch.where(valid, shift_labels, 0)
+        token_ll = torch.gather(logprobs, -1, safe_labels[..., None])[..., 0]
+        n_valid = valid.sum()
+        ce = -(token_ll * valid).sum() / torch.clamp(n_valid, min=1)
+        return ce + aux, {"ce_loss": ce, "aux_loss": aux, "num_label_tokens": n_valid}
 
     def _num_audio_tokens(self, mel_length: int) -> int:
         enc_len = compute_encoder_output_length(
@@ -401,20 +503,25 @@ class ASRModel(nn.Module):
 
     def save_pretrained(self, save_directory, save_towers: bool = True) -> None:
         """The JAX package's checkpoint: ``config.json``,
-        ``projector.msgpack``, ``decoder.msgpack`` (unless the language
-        model is frozen), ``towers.msgpack`` (encoder and decoder) and
-        ``tpu_metadata.json``, in flax's msgpack layout and the JAX params
-        tree, so the JAX package's ``ASRModel.from_pretrained`` loads it."""
+        ``projector.msgpack``, ``adapter.msgpack`` (the LoRA leaves, when
+        LoRA is on), ``decoder.msgpack`` (the base decoder, unless the
+        language model is frozen), ``towers.msgpack`` (encoder and base
+        decoder) and ``tpu_metadata.json``, in flax's msgpack layout and the
+        JAX params tree, so the JAX package's ``ASRModel.from_pretrained``
+        loads it."""
         save_dir = Path(save_directory)
         save_dir.mkdir(parents=True, exist_ok=True)
         self.config.save_pretrained(save_dir)
         params = state_dict_to_jax(self)
+        dec_base, dec_lora = split_lora(params["decoder"])
         msgpack_io.save(save_dir / "projector.msgpack", params["projector"])
+        if dec_lora:
+            msgpack_io.save(save_dir / "adapter.msgpack", dec_lora)
         if not self.config.freeze_language_model:
-            msgpack_io.save(save_dir / "decoder.msgpack", params["decoder"])
+            msgpack_io.save(save_dir / "decoder.msgpack", dec_base)
         if save_towers:
             msgpack_io.save(save_dir / "towers.msgpack",
-                            {"encoder": params["encoder"], "decoder": params["decoder"]})
+                            {"encoder": params["encoder"], "decoder": dec_base})
         meta = {"framework": "tiny_audio_tpu", "format": "flax-msgpack"}
         (save_dir / "tpu_metadata.json").write_text(json.dumps(meta, indent=2))
 
@@ -424,13 +531,11 @@ class ASRModel(nn.Module):
         with neither flax nor msgpack: ``config.json``, then
         ``towers.msgpack``, ``decoder.msgpack`` and ``projector.msgpack``
         where present (a tower without a file keeps its seeded random
-        weights, as in the JAX package).  ``tokenizer_config.json`` loads
-        an HF tokenizer (needs ``transformers``).  LoRA adapters and the
-        aligner / speaker-embedder files are not ported (ROADMAP.md)."""
+        weights, as in the JAX package), and ``adapter.msgpack`` when the
+        config has ``use_lora``.  ``tokenizer_config.json`` loads an HF
+        tokenizer (needs ``transformers``).  The aligner / speaker-embedder
+        files are not ported (ROADMAP.md)."""
         path = Path(path)
-        if (path / "adapter.msgpack").exists():
-            raise NotImplementedError(
-                "adapter.msgpack: LoRA is not ported to PyTorch yet (ROADMAP.md)")
         config = ASRConfig.from_pretrained(path)
         if tokenizer is None and (path / "tokenizer_config.json").exists():
             tokenizer = HFTokenizerAdapter.from_pretrained(str(path))
@@ -441,5 +546,8 @@ class ASRModel(nn.Module):
         for tower in ("decoder", "projector"):
             if (path / f"{tower}.msgpack").exists():
                 params[tower] = msgpack_io.load(path / f"{tower}.msgpack")
+        if config.use_lora and (path / "adapter.msgpack").exists():
+            params["decoder"] = merge_lora(params.get("decoder", {}),
+                                           msgpack_io.load(path / "adapter.msgpack"))
         load_jax_params(model, params, require_all=False)
         return model

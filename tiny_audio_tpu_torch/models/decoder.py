@@ -11,6 +11,14 @@ post-rope K/V at ``cache_index``; a decode step attends over the stale cache
 plus the fresh row (the decode attention kernel reads only the valid
 prefix) and then writes that row, once per layer per step.
 
+LoRA (``cfg.lora_rank > 0``): ``Qwen3Block.{name}_lora_a`` ``[K, r]`` and
+``{name}_lora_b`` ``[r, N]`` (fp32) sit beside each target projection under
+the JAX package's names and layout, and every product of that projection
+(prefill, training, the decode step's int8 products) adds
+``(h.float() @ a) @ b * alpha / r`` in its output dtype.  With
+``cfg.gradient_checkpointing`` the blocks of a causal forward with grad
+enabled run under ``torch.utils.checkpoint`` (the JAX package's ``nn.remat``).
+
 Int8 decode weights: ``Qwen3Decoder.wq`` holds the JAX package's ``wq``
 variables collection (:func:`quantize_decoder_wq`,
 :func:`quantize_decoder_w8a8`; None = off).  One-position products read it
@@ -27,6 +35,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tiny_audio_tpu_torch.config import DecoderConfig
 from tiny_audio_tpu_torch.models.layers import RMSNorm, apply_rotary, rms_norm, rotary_embed
@@ -60,8 +69,6 @@ def int8_matmul(x: torch.Tensor, wq: dict, name: str) -> Optional[torch.Tensor]:
 class Qwen3Block(nn.Module):
     def __init__(self, cfg: DecoderConfig, dtype: torch.dtype, device=None):
         super().__init__()
-        if cfg.lora_rank > 0:
-            raise NotImplementedError("LoRA is not ported to PyTorch yet (ROADMAP.md)")
         self.cfg = cfg
         self.dtype = dtype
         hd = cfg.head_dim
@@ -81,18 +88,32 @@ class Qwen3Block(nn.Module):
         self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+        if cfg.lora_rank > 0:
+            for name in cfg.lora_targets:
+                linear = getattr(self, name)
+                self.register_parameter(f"{name}_lora_a", nn.Parameter(torch.zeros(
+                    (linear.in_features, cfg.lora_rank), dtype=torch.float32, device=device)))
+                self.register_parameter(f"{name}_lora_b", nn.Parameter(torch.zeros(
+                    (cfg.lora_rank, linear.out_features), dtype=torch.float32, device=device)))
         #: this layer's slice of ``Qwen3Decoder.wq["layers"]`` (None = off)
         self.wq: Optional[dict] = None
 
     def dense(self, h: torch.Tensor, name: str) -> torch.Tensor:
         """Projection ``name`` of ``h [B, T, K]``: a decode step (T == 1)
         reads this layer's int8 weights when there are any, else the bf16
-        ``nn.Linear``."""
+        ``nn.Linear``; plus the LoRA delta when ``name`` is a LoRA target."""
+        y = None
         if self.wq is not None and h.shape[1] == 1:
             y = int8_matmul(h[:, 0], self.wq, name)
             if y is not None:
-                return y[:, None].to(self.dtype)
-        return getattr(self, name)(h)
+                y = y[:, None].to(self.dtype)
+        if y is None:
+            y = getattr(self, name)(h)
+        if self.cfg.lora_rank > 0 and name in self.cfg.lora_targets:
+            a, b = getattr(self, f"{name}_lora_a"), getattr(self, f"{name}_lora_b")
+            delta = (h.float() @ a) @ b * (self.cfg.lora_alpha / self.cfg.lora_rank)
+            y = y + delta.to(y.dtype)
+        return y
 
     def forward(
         self,
@@ -235,12 +256,17 @@ class Qwen3Decoder(nn.Module):
             # the decode kernel reads the prefix length from device memory:
             # one scalar per step, shared by every layer
             kv_len = torch.full((), cache_index, dtype=torch.int32, device=x.device)
+        remat = cfg.gradient_checkpointing and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             layer_cache = None
             if cache is not None:
                 layer_cache = {name: buf[i] for name, buf in cache.items()}
-            x = layer(x, cos, sin, padding_mask, layer_cache, cache_index, step_kv_valid,
-                      kv_len)
+            if remat:
+                x = checkpoint(layer, x, cos, sin, padding_mask, None, 0, None,
+                               use_reentrant=False)
+            else:
+                x = layer(x, cos, sin, padding_mask, layer_cache, cache_index, step_kv_valid,
+                          kv_len)
         if last_logit_index is not None:
             x = x[:, last_logit_index : last_logit_index + 1]
         return self.logits(x)

@@ -1,13 +1,15 @@
-"""Attention dispatch for the three attention shapes of the serving path.
+"""Attention dispatch for the three attention shapes of serving and training.
 
 Port of :mod:`tiny_audio_tpu.ops.attention`; public functions take the
 [B, T, H, D] layout, as in the JAX package:
 
 - encoder self-attention ([B, 1500, 20, 64]) -> the encoder kernel
   (:mod:`.encoder_attention`) for CUDA tensors, its plain version for CPU
-  tensors;
-- decoder prefill ([B, ~470, 16/8 GQA, 128]) -> the causal prefill kernel
-  (:mod:`.prefill_attention`) likewise;
+  tensors; with grad, its backward recomputes the plain version;
+- decoder causal attention over fresh K/V, the prefill and the training
+  forward ([B, ~470-576, 16/8 GQA, 128]; head_dim 64/128/256) -> the causal
+  kernel (:mod:`.prefill_attention`) likewise; with grad, the forward keeps
+  its softmax statistics and the backward runs the two backward kernels;
 - the decode step (q_len == 1 over the KV cache) with a scalar ``kv_len``
   -> the decode kernel (:mod:`.decode_attention`) for CUDA tensors, its plain
   version for CPU tensors; without ``kv_len`` (a per-row cache index, which

@@ -12,8 +12,16 @@ vector unit, nor its padding of T to a 256 multiple: it masks the ragged edge
 of T = 1500 itself.  It is bound by compute, not memory: the [T, T] scores
 stay on the SM (the source's header has the numbers).
 
+Gradient: as the JAX package's custom VJP recomputes through the naive
+formula (``tiny_audio_tpu/ops/encoder_attention.py:141-155``), the backward
+of :class:`EncoderAttention` recomputes :func:`encoder_attention_plain` and
+differentiates it; there is no backward kernel, as there is no backward
+Pallas kernel.  Training keeps the encoder frozen under ``no_grad``, so only
+a caller that trains the encoder reaches it.
+
 On a CPU tensor :func:`encoder_attention` runs :func:`encoder_attention_plain`;
-on a CUDA tensor it launches the kernel or raises.
+on a CUDA tensor it launches the kernel or raises, and with grad enabled on
+an input that requires grad it goes through :class:`EncoderAttention`.
 """
 
 from __future__ import annotations
@@ -76,6 +84,32 @@ def encoder_attention(
     """
     if not q.is_cuda:
         return encoder_attention_plain(q, k, v, kv_mask, num_heads)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return EncoderAttention.apply(q, k, v, kv_mask, num_heads)
+    return _launch(q, k, v, kv_mask, num_heads)
+
+
+class EncoderAttention(torch.autograd.Function):
+    """Kernel #1 forward; the backward recomputes the plain formula and
+    differentiates it (no backward kernel, as in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, num_heads):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        ctx.num_heads = num_heads
+        return _launch(q, k, v, kv_mask, num_heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_mask = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            out = encoder_attention_plain(*leaves, kv_mask, ctx.num_heads)
+            dq, dk, dv = torch.autograd.grad(out, leaves, dout)
+        return dq, dk, dv, None, None
+
+
+def _launch(q, k, v, kv_mask, num_heads: int) -> torch.Tensor:
     _check_cuda_inputs(q, k, v, num_heads)
     b, t, packed = q.shape
     d = packed // num_heads
