@@ -28,7 +28,17 @@ port at the flagship width (random weights from seed 0, int8 KV cache):
   the decode and int8 kernels 0), finite losses and gradient norms, frozen
   towers bitwise unchanged, trainable parameters changed, the repeated
   batch's loss falling, and ``model/`` loaded back with ``from_pretrained``
-  and generating on the card.
+  and generating on the card;
+- the two kernels that only their own entry points reach (no path of the
+  port or of the JAX package calls them; every path above launches them 0
+  times): the fused log-mel front end (#7, ``log_mel_spectrogram_fused``) on
+  the serving batch's audio, the training batch's clips zero-padded to 30 s
+  and the edge shapes of tests/test_mel_pallas.py, each held with its plain
+  version against an fp64 oracle; and the fused encoder FFN (#8,
+  ``fused_ffn`` / ``encoder_ffn``) on encoder layer 0's MLP input from the
+  serving ``generate`` and at scripts/bench_encoder_ffn.py's shape, with
+  what that script prints (fused and unfused cuBLAS times and TFLOP/s, both
+  errors against fp64 on 4,096 rows) and the gradient through ``EncoderFFN``.
 
 Before the paths, the prefill kernel's forward (serving and with saved
 statistics) and its two backward kernels are held against their plain
@@ -117,6 +127,24 @@ SMALL_MODEL_RTOL = 5e-2
 # near the top of a binade; both outputs are rounded to bf16).
 BWD_ERR_RATIO = 2.0
 BWD_FLOOR = 2.0**-8
+# Kernel #7 (fp32) and its plain version (cuBLAS fp32 products) are each held
+# against an fp64 oracle of the same formula: near the max - 8 floor a bin is
+# a difference of large terms, where two right fp32 answers can differ by
+# more than the JAX tests' 5e-4 after the log.  The kernel's error may be at
+# most MEL_ERR_RATIO times the plain version's, plus MEL_FLOOR (a fifth of
+# that 5e-4, in the normalized units of the output).
+MEL_ERR_RATIO = 2.0
+MEL_FLOOR = 1e-4
+# Kernel #8's second input: the shape of scripts/bench_encoder_ffn.py
+# (32 x 1536 frames of the flagship encoder), errors against fp64 on 4,096 rows
+FFN_BENCH_SHAPE = (32 * 1536, 1280, 5120)
+FFN_ORACLE_ROWS = 4096
+# Kernel #8 and its plain version compute one formula (fp32 h through the
+# GELU, g rounded to bf16 once) and differ only where a g sits on a bf16
+# rounding boundary: ~98% of the outputs are bitwise equal at F = 5,120.
+# Rounding h to bf16 before the GELU (naive_ffn's formula) still fits the
+# tolerance above but matches about a third, so the share is held too.
+FFN_MIN_EQUAL_SHARE = 0.95
 
 
 def fail(msg: str) -> None:
@@ -995,6 +1023,275 @@ def train_phases(reset_counts, read_counts) -> dict:
     return {"path": path, "counts": results["stage1"]["counts"]}
 
 
+def mel_oracle_fp64(audio: torch.Tensor, mels: int) -> torch.Tensor:
+    """The log-mel formula in float64 on the card: frame t is the 400 padded
+    samples at t * hop, hann-windowed DFT, power, filterbank, log10, clamp."""
+    from tiny_audio_tpu_torch.ops.mel import (
+        HOP_LENGTH,
+        N_FFT,
+        _dft_basis,
+        mel_filter_bank,
+        normalize_log_spec,
+        pad_audio,
+    )
+
+    n_frames = audio.shape[1] // HOP_LENGTH
+    frames = pad_audio(audio).double().unfold(1, N_FFT, HOP_LENGTH)[:, :n_frames]
+    cos_b, sin_b = (torch.from_numpy(b).to(audio.device) for b in _dft_basis())
+    power = (frames @ cos_b.T) ** 2 + (frames @ sin_b.T) ** 2
+    fb = torch.from_numpy(mel_filter_bank(N_FFT // 2 + 1, mels)).to(audio.device)
+    mel = (power @ fb).transpose(1, 2)
+    return normalize_log_spec(torch.log10(torch.clamp(mel, min=1e-10)))
+
+
+def mel_bound(audio: torch.Tensor, mels: int) -> dict:
+    """Kernel #7's bound from the work its function needs, not the work the
+    kernel does: the audio read and the features written once, and per frame
+    the window, a real FFT of 400 samples (2.5 N log2 N, half a complex
+    FFT's 5 N log2 N), the power (two products and a sum per bin), the
+    filterbank's nonzero weights (each bin feeds at most two triangles) and
+    one log per mel, in fp32."""
+    from tiny_audio_tpu_torch.ops.mel import HOP_LENGTH, N_FFT, mel_filter_bank
+
+    b, n = audio.shape
+    t = n // HOP_LENGTH
+    n_freq = N_FFT // 2 + 1
+    nonzero = int(np.count_nonzero(mel_filter_bank(n_freq, mels)))
+    per_frame = N_FFT + 2.5 * N_FFT * np.log2(N_FFT) + 3 * n_freq + 2 * nonzero + mels
+    return bound(nbytes(audio) + b * mels * t * 4, b * t * per_frame, FP32_FLOPS)
+
+
+def front_end_phase(serving_audio: list, reset_counts, read_counts) -> dict:
+    """Kernel #7 through its entry point, ``log_mel_spectrogram_fused``, on the
+    serving batch's audio, the training batch's clips zero-padded to 30 s and
+    the edge shapes of tests/test_mel_pallas.py; each output against the plain
+    mel and both against an fp64 oracle; then timed at the serving batch
+    beside the plain mel and torch.stft + power + filterbank."""
+    from tiny_audio_tpu_torch.ops.mel import log_mel_spectrogram, pad_audio
+    from tiny_audio_tpu_torch.ops.mel_fused import (
+        kernel_constants,
+        launch_log_mel,
+        log_mel_spectrogram_fused,
+    )
+    from tiny_audio_tpu_torch.train.data import synthetic_dataset
+
+    n30 = int(CLIP_S * 16000)
+    clips = [r["audio"]["array"] for r in synthetic_dataset(
+        TRAIN_BATCH, seed=SEED, min_s=TRAIN_CLIP_S[0], max_s=TRAIN_CLIP_S[1])]
+    train = np.zeros((len(clips), n30), np.float32)
+    for i, clip in enumerate(clips):
+        train[i, : len(clip)] = clip[:n30]
+    rng = np.random.default_rng(SEED + 7)
+    noise = lambda b, n: (rng.standard_normal((b, n)) * 0.1).astype(np.float32)  # noqa: E731
+    cases = [("serving_4x30s", np.stack(serving_audio), 128),
+             ("training_6x10-30s_zero_padded", train, 128),
+             ("1s_80mels", noise(2, 16000), 80), ("3s_128mels", noise(2, 48000), 128),
+             ("one_tpu_tile", noise(2, 256 * 160), 128), ("30s_128mels", noise(2, n30), 128),
+             ("silence_80mels", np.zeros((1, 32000), np.float32), 80),
+             ("160_samples_constant_pad", noise(2, 160), 80)]
+    inputs = [(label, torch.from_numpy(a).cuda(), mels) for label, a, mels in cases]
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = [log_mel_spectrogram_fused(x, num_mel_bins=mels) for _, x, mels in inputs]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {name: 0 for name in counts}
+    want["log_mel_spectrogram_fused"] = len(inputs)
+    if counts != want:
+        fail(f"the front-end phase launches {counts}, expected {want}")
+    worst = 0.0
+    for (label, x, mels), got in zip(inputs, outs):
+        plain = log_mel_spectrogram(x, mels)
+        oracle = mel_oracle_fp64(x, mels)
+        err = (got - plain).abs().max().item()
+        err_k = (got.double() - oracle).abs().max().item()
+        err_p = (plain.double() - oracle).abs().max().item()
+        at_floor = oracle <= oracle.amin(dim=(1, 2), keepdim=True) + 1e-6
+        floor_err = (got - plain).abs()[at_floor].max().item() if at_floor.any() else None
+        within = err_k <= MEL_ERR_RATIO * err_p + MEL_FLOOR
+        print(f"log_mel_spectrogram_fused {label} shape={list(x.shape)} mels={mels} "
+              f"max_abs_err_vs_plain={err!r} kernel_vs_fp64={err_k!r} plain_vs_fp64={err_p!r} "
+              f"limit=({MEL_ERR_RATIO} x plain + {MEL_FLOOR}) bins_at_floor={int(at_floor.sum())} "
+              f"max_abs_err_at_floor={floor_err!r}")
+        if got.shape != plain.shape or not bool(torch.isfinite(got).all()):
+            fail(f"the front-end kernel gave shape {tuple(got.shape)} or non-finite values at {label}")
+        if not within:
+            fail(f"the front-end kernel is further from fp64 than its plain version allows at "
+                 f"{label}: {err_k} against {err_p}")
+        worst = max(worst, err)
+
+    # times at the serving batch: the kernel alone, the entry point, the plain
+    # mel and the library chain (torch.stft, power, filterbank, log, clamp)
+    _, x, mels = inputs[0]
+    b, n = x.shape
+    t = n // 160
+    padded = pad_audio(x)[:, : (t + 3) * 160].contiguous()
+    ms = cuda_ms(lambda: launch_log_mel(padded, t, mels), 20)
+    entry_ms = cuda_ms(lambda: log_mel_spectrogram_fused(x, mels), 20)
+    plain_ms = cuda_ms(lambda: log_mel_spectrogram(x, mels), 20)
+    window = torch.hann_window(400, periodic=True, device=x.device)
+    fb = torch.from_numpy(kernel_constants(mels)[1]).cuda()
+
+    def library():
+        spec = torch.stft(x, 400, 160, window=window, center=True, pad_mode="reflect",
+                          return_complex=True)[..., :-1]
+        mel = torch.matmul(fb.T, spec.abs() ** 2)
+        log_spec = torch.log10(torch.clamp(mel, min=1e-10))
+        return (torch.maximum(log_spec, log_spec.amax(dim=(1, 2), keepdim=True) - 8.0) + 4.0) / 4.0
+
+    library_ms = cuda_ms(library, 20)
+    stft_ms = cuda_ms(lambda: torch.stft(x, 400, 160, window=window, center=True,
+                                         pad_mode="reflect", return_complex=True), 20)
+    library_err = (library() - outs[0]).abs().max().item()
+    stats = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+             **mel_bound(x, mels), "library_ms": library_ms}
+    print(f"log_mel_spectrogram_fused timing shape={list(x.shape)} mels={mels} kernel_ms={ms!r} "
+          f"entry_point_ms={entry_ms!r} plain_ms={plain_ms!r} stft_chain_ms={library_ms!r} "
+          f"stft_alone_ms={stft_ms!r} stft_chain_vs_kernel_max_abs_err={library_err!r} "
+          f"bound_ms={stats['bound_ms']!r} bound_by={stats['bound_by']} "
+          f"launches={json.dumps(counts)}")
+    return {"stats": stats, "launches": counts["log_mel_spectrogram_fused"]}
+
+
+@contextlib.contextmanager
+def record_encoder_mlp(model, store: dict):
+    """Keep the first input of encoder layer 0's MLP (fc1's input, the
+    final LayerNorm's output), its weights, and the MLP's own output (fc2's)."""
+    layer = model.encoder.layers[0]
+
+    def fc1_hook(module, args):
+        if "x" not in store:
+            store["x"] = args[0].detach().clone()
+
+    def fc2_hook(module, args, output):
+        if "mlp_out" not in store:
+            store["mlp_out"] = output.detach().clone()
+
+    hooks = [layer.fc1.register_forward_pre_hook(fc1_hook),
+             layer.fc2.register_forward_hook(fc2_hook)]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+        store.update({name: p.detach().clone() for name, p in (
+            ("w1", layer.fc1.weight), ("b1", layer.fc1.bias),
+            ("w2", layer.fc2.weight), ("b2", layer.fc2.bias))})
+
+
+def ffn_phase(layer0: dict, reset_counts, read_counts) -> dict:
+    """Kernel #8 through its entry points on encoder layer 0's MLP input of
+    the serving batch (``fused_ffn``, [4, 1500, 1280]) and at the shape of
+    scripts/bench_encoder_ffn.py (``encoder_ffn``, and its gradient through
+    ``EncoderFFN``), against the plain version; then what that script
+    prints: fused and unfused ms and TFLOP/s, both errors against fp64."""
+    import torch.nn.functional as F
+
+    from tiny_audio_tpu_torch.ops.encoder_ffn import (
+        encoder_ffn,
+        encoder_ffn_plain,
+        fused_ffn,
+        naive_ffn,
+    )
+
+    x0 = layer0["x"]
+    w = [layer0[k] for k in ("w1", "b1", "w2", "b2")]
+    m, d, f = FFN_BENCH_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    xb = randn(m, d).to(torch.bfloat16)
+    wb = [(randn(f, d) / d ** 0.5).to(torch.bfloat16), (0.1 * randn(f)).to(torch.bfloat16),
+          (randn(d, f) / f ** 0.5).to(torch.bfloat16), (0.1 * randn(d)).to(torch.bfloat16)]
+    dout = randn(m, d).to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (xb, *wb)]
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        out0 = fused_ffn(x0, *w, torch.bfloat16)
+        outb = encoder_ffn(xb, *wb)
+    out_g = encoder_ffn(*leaves)
+    out_g.backward(dout)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {name: 0 for name in counts}
+    want["encoder_ffn"] = 3
+    if counts != want:
+        fail(f"the FFN phase launches {counts}, expected {want}")
+
+    worst = 0.0
+    x0_2d = x0.reshape(-1, d)
+    for label, got, args in (("encoder_layer0_mlp", out0.reshape(-1, d), (x0_2d, *w)),
+                             ("bench_encoder_ffn_shape", outb, (xb, *wb))):
+        plain = encoder_ffn_plain(*args)
+        err, within = kernel_error(got, plain)
+        equal = (got == plain).float().mean().item()
+        finite = bool(torch.isfinite(got).all())
+        print(f"encoder_ffn {label} M={args[0].shape[0]} D={d} F={f} bf16 max_abs_err={err!r} "
+              f"atol={KERNEL_ATOL} rtol={KERNEL_RTOL} bitwise_equal_share={equal!r}")
+        if not (finite and within):
+            fail(f"the FFN kernel disagrees with its plain version at {label}: {err}, finite={finite}")
+        if equal < FFN_MIN_EQUAL_SHARE:
+            fail(f"the FFN kernel is bitwise its plain version on {equal} of the outputs at {label}, "
+                 f"below {FFN_MIN_EQUAL_SHARE}: not the fp32-h formula")
+        worst = max(worst, err)
+    vs_block = (out0 - layer0["mlp_out"]).abs().max().item()
+    print(f"encoder_ffn layer-0 kernel vs the encoder block's own unfused MLP (bf16 h) "
+          f"max_abs_err={vs_block!r}")
+
+    # the gradient: EncoderFFN's backward recomputes naive_ffn in bf16
+    ref = [t.detach().clone().requires_grad_(True) for t in (xb, *wb)]
+    naive_ffn(*ref, dtype=torch.bfloat16).backward(dout)
+    names = ("x", "w1", "b1", "w2", "b2")
+    for name, leaf, r in zip(names, leaves, ref):
+        if not torch.equal(leaf.grad, r.grad):
+            fail(f"EncoderFFN's gradient of {name} differs from autograd through naive_ffn")
+    ref32 = [t.detach().float().requires_grad_(True) for t in (xb, *wb)]
+    encoder_ffn_plain(*ref32).backward(dout.float())
+    grad_errs = {n: ((leaf.grad.float() - r.grad).abs().max() / r.grad.abs().max()).item()
+                 for n, leaf, r in zip(names, leaves, ref32)}
+    print(f"encoder_ffn gradient through EncoderFFN M={m}: equal to autograd through naive_ffn "
+          f"(bf16)=true; relative max error against fp32 autograd of the plain version "
+          f"{json.dumps(grad_errs)}")
+    del leaves, ref, ref32, out_g
+
+    # scripts/bench_encoder_ffn.py's numbers at its shape
+    flops_b = 4.0 * m * d * f
+
+    def unfused(x, w1, b1, w2, b2):
+        return F.linear(F.gelu(F.linear(x, w1, b1), approximate="tanh"), w2, b2)
+
+    fused_ms_b = cuda_ms(lambda: encoder_ffn(xb, *wb), 10)
+    unfused_ms_b = cuda_ms(lambda: unfused(xb, *wb), 10)
+    rows = slice(0, FFN_ORACLE_ROWS)
+    xd, w1d, b1d, w2d, b2d = (t.double() for t in (xb[rows], *wb))
+    hd = xd @ w1d.T + b1d
+    gd = 0.5 * hd * (1.0 + torch.tanh(0.7978845608028654 * (hd + 0.044715 * hd ** 3)))
+    oracle = gd @ w2d.T + b2d
+    scale = oracle.abs().max()
+    rel = {name: ((out[rows].double() - oracle).abs().max() / scale).item()
+           for name, out in (("fused", outb), ("unfused", unfused(xb, *wb)))}
+    print(f"encoder_ffn bench shape M={m} D={d} F={f} bf16 fused_ms={fused_ms_b!r} "
+          f"fused_tflops={flops_b / fused_ms_b / 1e9!r} unfused_cublas_ms={unfused_ms_b!r} "
+          f"unfused_tflops={flops_b / unfused_ms_b / 1e9!r} "
+          f"max_rel_err_vs_fp64_{FFN_ORACLE_ROWS}_rows={json.dumps(rel)}")
+    del xb, wb, outb, dout, xd, hd, gd, oracle
+    torch.cuda.empty_cache()
+
+    # times on the path's own tensors (M = 6,000)
+    ms = cuda_ms(lambda: encoder_ffn(x0_2d, *w), 20)
+    plain_ms = cuda_ms(lambda: encoder_ffn_plain(x0_2d, *w), 5)
+    library_ms = cuda_ms(lambda: unfused(x0_2d, *w), 20)
+    m0 = x0_2d.shape[0]
+    stats = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+             **bound(2 * nbytes(x0_2d) + nbytes(*w), 4.0 * m0 * d * f, BF16_TENSOR_FLOPS),
+             "library_ms": library_ms}
+    print(f"encoder_ffn timing on the layer-0 input M={m0} kernel_ms={ms!r} "
+          f"kernel_tflops={4.0 * m0 * d * f / ms / 1e9!r} plain_ms={plain_ms!r} "
+          f"cublas_chain_ms={library_ms!r} bound_ms={stats['bound_ms']!r} "
+          f"bound_by={stats['bound_by']} launches={json.dumps(counts)}")
+    return {"stats": stats, "launches": counts["encoder_ffn"]}
+
+
 def small_model_reference() -> None:
     """The serving path on a small bf16 model, card vs CPU on equal weights."""
     from tiny_audio_tpu_torch import ASRConfig, DecoderConfig, EncoderConfig
@@ -1084,6 +1381,8 @@ def main() -> None:
         encoder_attention,
         encoder_attention_plain,
     )
+    from tiny_audio_tpu_torch.ops.encoder_ffn import encoder_ffn
+    from tiny_audio_tpu_torch.ops.mel_fused import log_mel_spectrogram_fused
     from tiny_audio_tpu_torch.ops.prefill_attention import (
         prefill_attention,
         prefill_attention_bwd_dkv,
@@ -1100,11 +1399,14 @@ def main() -> None:
                 "decode_attention_update": decode_attention_update,
                 "w8a8_matmul": w8a8_matmul, "wq_matmul": wq_matmul,
                 "prefill_attention_bwd_dkv": prefill_attention_bwd_dkv,
-                "prefill_attention_bwd_dq": prefill_attention_bwd_dq}
-    # the serving paths launch neither int8 product (outside their modes) nor
-    # a backward kernel
+                "prefill_attention_bwd_dq": prefill_attention_bwd_dq,
+                "log_mel_spectrogram_fused": log_mel_spectrogram_fused,
+                "encoder_ffn": encoder_ffn}
+    # the serving paths launch neither int8 product (outside their modes), nor
+    # a backward kernel, nor the fused front end (#7) or encoder FFN (#8),
+    # which only their own entry points reach
     no_int8 = {"w8a8_matmul": 0, "wq_matmul": 0, "prefill_attention_bwd_dkv": 0,
-               "prefill_attention_bwd_dq": 0}
+               "prefill_attention_bwd_dq": 0, "log_mel_spectrogram_fused": 0, "encoder_ffn": 0}
 
     def reset_counts() -> None:
         for fn in wrappers.values():
@@ -1140,6 +1442,7 @@ def main() -> None:
         return tokens, time.perf_counter() - t0, feats
 
     path_inputs: dict = {}
+    layer0_mlp: dict = {}  # encoder layer 0's MLP input and weights, for kernel #8
     results = {}
     for label, kwargs, kernel_name in (("fused", {}, "decode_attention_update"),
                                        ("module", {"fused_decode": False}, "decode_attention")):
@@ -1149,7 +1452,8 @@ def main() -> None:
         with record_first_call(attention_dispatch, "encoder_attention", path_inputs), \
                 record_first_call(attention_dispatch, "prefill_attention", path_inputs), \
                 record_first_call(attention_dispatch, "decode_attention", path_inputs), \
-                record_first_call(fused_module, "decode_attention_update", path_inputs):
+                record_first_call(fused_module, "decode_attention_update", path_inputs), \
+                record_encoder_mlp(model, layer0_mlp):
             tokens, first_s, feats = run_generate(MAX_NEW, **kwargs)
         counts = read_counts()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1341,6 +1645,15 @@ def main() -> None:
     trained = train_phases(reset_counts, read_counts)
     phase_done()
 
+    # ---- 11. kernel #7, the fused front end, through its entry point ----
+    front = front_end_phase(audio, reset_counts, read_counts)
+    phase_done()
+
+    # ---- 12. kernel #8, the fused encoder FFN, through its entry points ----
+    ffn = ffn_phase(layer0_mlp, reset_counts, read_counts)
+    del layer0_mlp
+    phase_done()
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                                                    "msgpack", "tiny_audio_tpu"))
     if loaded:
@@ -1386,6 +1699,13 @@ def main() -> None:
            "launches": trained["counts"][name], **trained["path"][name],
            "max_abs_err": max(pre_shapes[name], trained["path"][name]["max_abs_err"])}
           for name, replaces in BWD_REPLACES.items()),
+        {"name": "log_mel_spectrogram_fused", "route": "cuda",
+         "source": "tiny_audio_tpu_torch/csrc/mel.cu",
+         "replaces": "tiny_audio_tpu/ops/mel_pallas.py:93",
+         "launches": front["launches"], **front["stats"]},
+        {"name": "encoder_ffn", "route": "cuda", "source": "tiny_audio_tpu_torch/csrc/encoder_ffn.cu",
+         "replaces": "tiny_audio_tpu/ops/encoder_ffn.py:115",
+         "launches": ffn["launches"], **ffn["stats"]},
     ]}))
     print(power_line)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,15 @@ from tiny_audio_tpu_torch.ops.encoder_attention import (
     encoder_attention,
     encoder_attention_plain,
 )
+from tiny_audio_tpu_torch.ops.encoder_ffn import (
+    EncoderFFN,
+    encoder_ffn,
+    encoder_ffn_plain,
+    fused_ffn,
+    naive_ffn,
+)
+from tiny_audio_tpu_torch.ops.mel import log_mel_spectrogram
+from tiny_audio_tpu_torch.ops.mel_fused import log_mel_spectrogram_fused
 from tiny_audio_tpu_torch.ops.prefill_attention import (
     attention_delta,
     prefill_attention,
@@ -151,6 +160,87 @@ def test_cuda_tensor_never_falls_back(pretend_cuda):
     with pytest.raises(ValueError):
         wq_matmul(x, wt, scale)  # [N, K] is not the [K, N] layout
     assert w8a8_matmul.launches == 0 and wq_matmul.launches == 0
+
+
+def _ffn_operands(m, d, f, dtype=torch.bfloat16, device="cpu", seed=0, requires_grad=False):
+    g = torch.Generator(device=device).manual_seed(seed)
+    shapes = ((m, d), (f, d), (f,), (d, f), (d,))
+    scales = (1.0, d ** -0.5, 0.1, f ** -0.5, 0.1)
+    return [(torch.randn(s, generator=g, device=device) * c).to(dtype).requires_grad_(requires_grad)
+            for s, c in zip(shapes, scales)]
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_front_end_and_ffn_never_fall_back(pretend_cuda, grad, monkeypatch):
+    """Kernels #7 and #8 on a CUDA tensor, with and without grad: the launch
+    is attempted and raises here, the plain versions never run, wrong dtypes
+    raise TypeError, and no launch is counted."""
+    from tiny_audio_tpu_torch.ops import encoder_ffn as ffn_module
+    from tiny_audio_tpu_torch.ops import mel_fused as mel_module
+
+    def plain_called(*args, **kwargs):
+        raise AssertionError("a CUDA tensor ran the plain version")
+
+    monkeypatch.setattr(ffn_module, "encoder_ffn_plain", plain_called)
+    monkeypatch.setattr(ffn_module, "naive_ffn", plain_called)
+    monkeypatch.setattr(mel_module, "log_mel_spectrogram", plain_called)
+    monkeypatch.setattr(mel_module, "log_spec_from_padded", plain_called)
+    encoder_ffn.launches = log_mel_spectrogram_fused.launches = 0
+    ops = _ffn_operands(40, 256, 512, requires_grad=grad)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        encoder_ffn(*ops)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        fused_ffn(ops[0].reshape(4, 10, 256), *ops[1:], torch.bfloat16)
+    with pytest.raises(TypeError):
+        encoder_ffn(*(t.float() for t in ops))
+    with pytest.raises(TypeError):
+        encoder_ffn(ops[0], ops[1].float(), *ops[2:])
+    with pytest.raises(ValueError, match="multiple of 128"):
+        small = _ffn_operands(40, 200, 512, requires_grad=grad)
+        encoder_ffn(*small)
+    with pytest.raises(ValueError, match="w1"):
+        encoder_ffn(ops[0], ops[3], ops[2], ops[1], ops[4])  # [D, F] is not nn.Linear's w1
+    audio = torch.zeros((2, 16000), requires_grad=grad)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        log_mel_spectrogram_fused(audio, num_mel_bins=80)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        log_mel_spectrogram_fused(torch.zeros((1, 160), dtype=torch.int16))
+    with pytest.raises(TypeError):
+        log_mel_spectrogram_fused(torch.zeros((1, 16000), dtype=torch.complex64))
+    with pytest.raises(ValueError, match="mel bins"):
+        log_mel_spectrogram_fused(torch.zeros((1, 16000)), num_mel_bins=100)
+    assert encoder_ffn.launches == 0 and log_mel_spectrogram_fused.launches == 0
+
+
+def test_front_end_carries_a_gradient_on_a_cuda_tensor(pretend_cuda, monkeypatch):
+    """The launch writes into a tensor with no grad_fn; with grad, LogMel
+    wraps it and its backward recomputes the plain formula, so the gradient
+    reaches the audio and equals autograd through the plain mel.  The launch
+    is replaced by the plain formula run without grad, as the kernel's output
+    is."""
+    from tiny_audio_tpu_torch.ops import mel_fused as mel_module
+    from tiny_audio_tpu_torch.ops.mel import log_spec_from_padded
+
+    def launch_without_grad(padded, n_frames, mels):
+        with torch.no_grad():
+            out = log_spec_from_padded(padded, n_frames, mels)
+        log_mel_spectrogram_fused.launches += 1
+        return out
+
+    monkeypatch.setattr(mel_module, "launch_log_mel", launch_without_grad)
+    log_mel_spectrogram_fused.launches = 0
+    g = torch.Generator().manual_seed(3)
+    audio = (torch.randn((2, 3200), generator=g) * 0.1).requires_grad_(True)
+    out = log_mel_spectrogram_fused(audio, num_mel_bins=80)
+    assert log_mel_spectrogram_fused.launches == 1 and out.requires_grad
+    dout = torch.randn(out.shape, generator=g)
+    out.backward(dout)
+    ref = audio.detach().clone().requires_grad_(True)
+    log_mel_spectrogram(ref, 80).backward(dout)
+    torch.testing.assert_close(audio.grad, ref.grad)
+    with torch.no_grad():
+        assert not log_mel_spectrogram_fused(audio, num_mel_bins=80).requires_grad
+    assert log_mel_spectrogram_fused.launches == 2
 
 
 # ---------------------------------------------------------------- on the card
@@ -468,3 +558,114 @@ def test_wq_kernel_takes_a_weight_off_16_byte_alignment(cuda_device, offset):
     torch.cuda.synchronize()
     want = wq_matmul_plain(x, w, scale)
     torch.testing.assert_close(got.float(), want.float(), atol=WQ_ATOL, rtol=WQ_RTOL)
+
+
+# the fused encoder FFN (#8): the flagship layer, ragged M, and the widths it takes
+FFN_SHAPES = [(6000, 1280, 5120), (1, 1280, 5120), (77, 1280, 5120), (333, 384, 1536),
+              (64, 128, 256), (100, 512, 2048), (45, 1024, 4096), (31, 768, 3072)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,f", FFN_SHAPES)
+def test_encoder_ffn_kernel_matches_plain(cuda_device, m, d, f):
+    """bf16: kernel and plain version both round g and the output to bf16
+    after fp32 sums in other orders (chip_smoke.py states the tolerance)."""
+    ops = _ffn_operands(m, d, f, device=cuda_device, seed=m + d)
+    before = encoder_ffn.launches
+    got = encoder_ffn(*ops)
+    assert encoder_ffn.launches == before + 1
+    want = encoder_ffn_plain(*ops)
+    assert got.shape == (m, d) and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    # A g that flips its bf16 rounding moves ~1 output in 100 by an ulp at
+    # F = 5120 (98.4% bitwise equal on the card); the naive formula, which
+    # rounds h first, agrees on about a third.
+    assert (got == want).float().mean().item() >= 0.95
+
+
+@pytest.mark.cuda
+def test_fused_ffn_on_card_is_the_encoder_layout(cuda_device):
+    """fused_ffn on [B, T, D] with the nn.Linear weights of an encoder
+    block: ragged B*T, one launch."""
+    from torch import nn
+
+    b, t, d, f = 3, 151, 1280, 5120
+    fc1 = nn.Linear(d, f, dtype=torch.bfloat16, device=cuda_device)
+    fc2 = nn.Linear(f, d, dtype=torch.bfloat16, device=cuda_device)
+    x = torch.randn((b, t, d), device=cuda_device).to(torch.bfloat16)
+    with torch.no_grad():
+        before = encoder_ffn.launches
+        got = fused_ffn(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias, torch.bfloat16)
+        assert encoder_ffn.launches == before + 1
+        want = encoder_ffn_plain(x.reshape(-1, d), fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+    torch.testing.assert_close(got.reshape(-1, d).float(), want.float(),
+                               atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+
+
+@pytest.mark.cuda
+def test_encoder_ffn_carries_a_gradient_on_card(cuda_device):
+    """EncoderFFN: kernel forward, backward = naive_ffn recomputed in bf16,
+    so the gradients equal autograd through naive_ffn bitwise."""
+    ops = _ffn_operands(300, 1280, 5120, device=cuda_device, seed=7, requires_grad=True)
+    dout = torch.randn((300, 1280), device=cuda_device).to(torch.bfloat16)
+    before = encoder_ffn.launches
+    out = encoder_ffn(*ops)
+    assert encoder_ffn.launches == before + 1
+    assert type(out.grad_fn).__name__ == EncoderFFN.__name__ + "Backward"
+    out.backward(dout)
+    ref = [t.detach().clone().requires_grad_(True) for t in ops]
+    naive_ffn(*ref, dtype=torch.bfloat16).backward(dout)
+    for leaf, r in zip(ops, ref):
+        assert torch.equal(leaf.grad, r.grad)
+
+
+# the fused log-mel front end (#7): ragged T at both mel counts, the edge shapes
+MEL_CASES = [(4, 480000, 128), (4, 480000, 80), (2, 16000, 80), (2, 48000, 128),
+             (3, 40960, 128), (1, 160, 80), (2, 160 * 33, 128), (5, 160 * 1001, 80)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,mels", MEL_CASES)
+def test_log_mel_kernel_matches_plain(cuda_device, b, n, mels):
+    """fp32 on both sides: the kernel's FMAs in sample order vs cuBLAS's
+    fp32 products; on noise every bin is well above the floor, so the
+    JAX tests' 5e-4 after the log holds."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + mels)
+    audio = torch.randn((b, n), generator=g, device=cuda_device) * 0.1
+    before = log_mel_spectrogram_fused.launches
+    got = log_mel_spectrogram_fused(audio, num_mel_bins=mels)
+    assert log_mel_spectrogram_fused.launches == before + 1
+    want = log_mel_spectrogram(audio, num_mel_bins=mels)
+    assert got.shape == (b, mels, n // 160) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=5e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_log_mel_kernel_silence_and_int16(cuda_device):
+    """Silence (every bin at the 1e-10 floor, then the max - 8 clamp) and
+    int16 PCM cast as is, as the plain mel takes it."""
+    silent = torch.zeros((2, 32000), device=cuda_device)
+    torch.testing.assert_close(log_mel_spectrogram_fused(silent, 80),
+                               log_mel_spectrogram(silent, 80), atol=0, rtol=0)
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    pcm = (torch.randn((2, 16000), generator=g, device=cuda_device) * 3000).to(torch.int16)
+    torch.testing.assert_close(log_mel_spectrogram_fused(pcm, 128),
+                               log_mel_spectrogram(pcm, 128), atol=5e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_log_mel_kernel_carries_a_gradient_on_card(cuda_device):
+    """LogMel: kernel forward, backward = the plain formula recomputed, so the
+    audio's gradient matches autograd through the plain mel (on noise no bin
+    sits at the max - 8 clamp, where the two forwards could pick differently)."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    audio = (torch.randn((2, 32000), generator=g, device=cuda_device) * 0.1).requires_grad_(True)
+    dout = torch.randn((2, 80, 200), generator=g, device=cuda_device)
+    before = log_mel_spectrogram_fused.launches
+    out = log_mel_spectrogram_fused(audio, num_mel_bins=80)
+    assert log_mel_spectrogram_fused.launches == before + 1 and out.requires_grad
+    out.backward(dout)
+    ref = audio.detach().clone().requires_grad_(True)
+    log_mel_spectrogram(ref, 80).backward(dout)
+    scale = ref.grad.abs().max().item()
+    torch.testing.assert_close(audio.grad, ref.grad, atol=1e-4 * scale, rtol=1e-4)

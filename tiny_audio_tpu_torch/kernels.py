@@ -36,8 +36,11 @@ _DECODE_ARGS = (_PTR,) * 9 + (_INT,) * 6 + (ctypes.c_float, _PTR)
 _MATMUL_ARGS = (_PTR,) * 4 + (_INT,) * 3 + (_PTR,)
 _PREFILL_BWD_ARGS = (_INT,) * 5 + (ctypes.c_float, _PTR)
 # name -> argtypes of the C entry points in csrc/attention.cu,
-# csrc/attention_bwd.cu, csrc/decode_attention.cu and csrc/int8_matmul.cu
+# csrc/attention_bwd.cu, csrc/decode_attention.cu, csrc/int8_matmul.cu,
+# csrc/encoder_ffn.cu and csrc/mel.cu
 _SIGNATURES = {
+    "ta_encoder_ffn": (_PTR,) * 6 + (_INT,) * 3 + (_PTR,),
+    "ta_log_mel": (_PTR,) * 4 + (_INT,) * 4 + (_PTR,),
     "ta_encoder_attention": (_PTR, _PTR, _PTR, _PTR, _PTR,
                              _INT, _INT, _INT, _INT, ctypes.c_float, _PTR),
     "ta_prefill_attention": (_PTR, _PTR, _PTR, _PTR, _PTR,

@@ -147,22 +147,16 @@ def log_mel_spectrogram(audio: torch.Tensor, num_mel_bins: int = 128) -> torch.T
         [batch, num_mel_bins, num_samples // HOP_LENGTH] float32 features on
         ``audio``'s device.
     """
-    basis, fb = _constants(num_mel_bins, audio.device)
-    audio = audio.to(torch.float32)
-    batch, n_samples = audio.shape
-    n_frames = n_samples // HOP_LENGTH
+    n_frames = audio.shape[1] // HOP_LENGTH
+    return normalize_log_spec(log_spec_from_padded(pad_audio(audio), n_frames, num_mel_bins))
 
-    # center=True reflect padding of n_fft // 2 on both sides, plus trailing
-    # zeros so the chunk view covers frame starts up to (n_frames-1)*hop.
-    # Reflect needs pad < length; shorter inputs fall back to zero padding.
-    half = N_FFT // 2
-    if n_samples > half:
-        padded = F.pad(audio[:, None], (half, half), mode="reflect")[:, 0]
-    else:
-        padded = F.pad(audio, (half, half))
-    tail = (n_frames + FRAME_CHUNKS) * HOP_LENGTH - padded.shape[1]
-    if tail > 0:
-        padded = F.pad(padded, (0, tail))
+
+def log_spec_from_padded(padded: torch.Tensor, n_frames: int, num_mel_bins: int) -> torch.Tensor:
+    """``log10(max(mel, 1e-10))`` [B, mels, T] of padded audio
+    [B, (T + FRAME_CHUNKS) * hop] float32, before the per-row clamp: what
+    the fused kernel computes (``ops/mel_fused.py``)."""
+    basis, fb = _constants(num_mel_bins, padded.device)
+    batch = padded.shape[0]
 
     # Overlapping frames without gather: frame t is the concatenation of
     # hop-sized chunks [t, t+1, t+2]; the final partial frame is dropped.
@@ -176,8 +170,31 @@ def log_mel_spectrogram(audio: torch.Tensor, num_mel_bins: int = 128) -> torch.T
         stft = frames @ basis  # [B, T, 2*n_freq]
         power = stft[..., :n_freq] ** 2 + stft[..., n_freq:] ** 2
         mel = (power @ fb).transpose(1, 2)  # [B, mels, T]
-    log_spec = torch.log10(torch.clamp(mel, min=1e-10))
-    # Per-sample dynamic-range clamp + affine normalization
+    return torch.log10(torch.clamp(mel, min=1e-10))
+
+
+def pad_audio(audio: torch.Tensor) -> torch.Tensor:
+    """[B, N] audio as float32, padded for framing: center=True reflect
+    padding of n_fft // 2 on both sides, plus trailing zeros so frame starts
+    up to (N // hop - 1) * hop have a whole chunk view.  Returns
+    [B, (N // hop + FRAME_CHUNKS) * hop].  Reflect needs pad < length;
+    shorter inputs fall back to zero padding."""
+    audio = audio.to(torch.float32)
+    n_samples = audio.shape[1]
+    half = N_FFT // 2
+    if n_samples > half:
+        padded = F.pad(audio[:, None], (half, half), mode="reflect")[:, 0]
+    else:
+        padded = F.pad(audio, (half, half))
+    tail = (n_samples // HOP_LENGTH + FRAME_CHUNKS) * HOP_LENGTH - padded.shape[1]
+    if tail > 0:
+        padded = F.pad(padded, (0, tail))
+    return padded.contiguous()
+
+
+def normalize_log_spec(log_spec: torch.Tensor) -> torch.Tensor:
+    """Per-sample dynamic-range clamp (max - 8) and affine normalization of
+    [B, mels, T] log10 power."""
     global_max = log_spec.amax(dim=(1, 2), keepdim=True)
     log_spec = torch.maximum(log_spec, global_max - 8.0)
     return (log_spec + 4.0) / 4.0
