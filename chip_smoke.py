@@ -42,7 +42,17 @@ port at the flagship width (random weights from seed 0, int8 KV cache):
 
 Before the paths, the prefill kernel's forward (serving and with saved
 statistics) and its two backward kernels are held against their plain
-versions at every (GQA group, head_dim) pair the decoders take.
+versions at every (GQA group, head_dim) pair the decoders take, and the
+repo's tiny towers (``tiny_test_config``, head_dim 16) run on the card in
+fp32 and bf16 against the same weights on the CPU (``generate`` on both
+decode paths and both cache kinds, fp32 token-exact), then the documented
+``python -m tiny_audio_tpu_torch.train +experiments=smoke`` for 4 steps in
+process, each fp32 / head_dim-16 attention instance timed on its inputs.
+After the paths, the four bench variants (#9a-#9d), which no path calls,
+run through their entry points, ``tools/bench_encoder_attention.py`` and
+``tools/bench_wq_head.py``, at the TPU scripts' full shapes: every mode and
+sweep point against its plain version (#9c and #9d bitwise, ``packed2``
+bitwise ``shift_post``), #9a also against an fp64 oracle.
 
 Every kernel's launch count is set to 0 just before each path and read just
 after; the inputs the path gave each kernel in its first call are kept,
@@ -98,7 +108,7 @@ BWD_REPLACES = {
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
 }
 # (GQA group, head_dim) pairs the decode and prefill kernels take
-DECODE_SHAPES = [(g, d) for g in (1, 2, 3, 4, 8) for d in (64, 128, 256)]
+DECODE_SHAPES = [(g, d) for g in (1, 2, 3, 4, 8) for d in (16, 32, 64, 128, 256)]
 # the decode step's int8 products at the flagship width: (K, N) of the layer
 # projections and of the LM head, and the batches they are checked at
 INT8_SHAPES = {"q_proj": (1024, 2048), "k_proj|v_proj": (1024, 1024), "o_proj": (2048, 1024),
@@ -116,6 +126,10 @@ INT8_MODES = {"enable_wq_decode": "wq_matmul", "enable_w8a8_head": "w8a8_matmul"
 # KERNEL_ATOL covers outputs near zero, where the P rounding dominates.
 KERNEL_ATOL = 1e-2
 KERNEL_RTOL = 2.0**-6
+# An fp32 kernel (fp32 FMAs) against its fp32 plain version, forward or
+# gradient: sums in other orders, a few fp32 ulps a term; FP32_TOL of the
+# largest |want| (at least 1) bounds a row's sum (the cuda tests' limit).
+FP32_TOL = 1e-4
 # The small-model check runs the same bf16 weights on the card (kernels,
 # cuBLAS) and on the CPU (plain versions); matmul order and the kernels'
 # rounding points differ, so outputs agree to a few bf16 ulps of their scale.
@@ -145,6 +159,21 @@ FFN_ORACLE_ROWS = 4096
 # Rounding h to bf16 before the GELU (naive_ffn's formula) still fits the
 # tolerance above but matches about a third, so the share is held too.
 FFN_MIN_EQUAL_SHARE = 0.95
+# The tiny towers (tiny_test_config, head_dim 16): the clips, tokens and
+# training steps of their phase.  fp32 runs the same formulas on the card's
+# CUDA cores and on the CPU, so their audio embeddings agree to fp32 sums
+# in other orders (FP32_EMBED_RTOL of the largest).
+TINY_CLIP_S = (1.0, 0.55, 0.3)
+TINY_TOKENS = 16
+TINY_TRAIN_STEPS = 4
+FP32_EMBED_RTOL = 1e-4
+# Kernels #9a-#9d, the bench variants that only their tools reach; reps of
+# their timed loops (the scripts' own are 30 and 50).  Every #9a mode's bf16
+# output against the fp64 oracle on the real rows: at most 2.5e-3 measured on
+# the card over the 13 modes (bf16 P and output roundings), twice that here.
+BENCH_VARIANTS = ("encoder_attention_variant", "wq_matmul_pipe", "a8_matmul", "a8t_matmul")
+VARIANT_REPS = 20
+VARIANT_ORACLE_ATOL = 5e-3
 
 
 def fail(msg: str) -> None:
@@ -193,10 +222,20 @@ def graph_ms(fn, iters: int) -> float:
 
 
 def kernel_error(got: torch.Tensor, want: torch.Tensor) -> tuple[float, bool]:
-    """(max |got - want|, whether every element is within the tolerance)."""
+    """(max |got - want|, whether every element is within the tolerance of
+    got's dtype: FP32_TOL for fp32, KERNEL_ATOL/RTOL for bf16)."""
     diff = (got.float() - want.float()).abs()
-    within = bool((diff <= KERNEL_ATOL + KERNEL_RTOL * want.float().abs()).all())
+    if got.dtype == torch.float32:
+        within = bool(diff.max() <= FP32_TOL * max(want.float().abs().max().item(), 1.0))
+    else:
+        within = bool((diff <= KERNEL_ATOL + KERNEL_RTOL * want.float().abs()).all())
     return diff.max().item(), within
+
+
+def tolerance_text(dtype: torch.dtype) -> str:
+    if dtype == torch.float32:
+        return f"fp32_tol={FP32_TOL}*max(|want|,1)"
+    return f"atol={KERNEL_ATOL} rtol={KERNEL_RTOL}"
 
 
 def gpu_name_and_power() -> str:
@@ -265,7 +304,7 @@ def compare_on_path_inputs(name: str, kernel, plain, call: tuple) -> dict:
     plain_ms = cuda_ms(lambda: plain(*args, **kwargs), 5)
     print(f"{name} on the serving path's layer-0 inputs shape={list(args[0].shape)} "
           f"real_keys={'all' if mask is None else int(mask.sum())} max_abs_err={err!r} "
-          f"atol={KERNEL_ATOL} rtol={KERNEL_RTOL} kernel_ms={ms!r} plain_ms={plain_ms!r}")
+          f"{tolerance_text(got.dtype)} kernel_ms={ms!r} plain_ms={plain_ms!r}")
     if not finite:
         fail(f"{name} kernel produced non-finite values on the serving path's inputs")
     if not within:
@@ -494,8 +533,9 @@ def compare_decode_on_path_inputs(name: str, kernel, plain, call: tuple) -> dict
         library_ms, _ = sdpa_decode_ms(q, ck, cv, fk, fv, n)
     stats = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
              **decode_bound(q, ck, n, ks, update), "library_ms": library_ms}
-    print(f"{name} on the path's layer-0 inputs q={list(q.shape)} cache={list(ck.shape)} "
-          f"{ck.dtype} kv_len={n} max_abs_err={err!r} written_rows_equal={str(rows_equal).lower()} "
+    print(f"{name} on the path's layer-0 inputs q={list(q.shape)} {q.dtype} cache={list(ck.shape)} "
+          f"{ck.dtype} kv_len={n} max_abs_err={err!r} {tolerance_text(got.dtype)} "
+          f"written_rows_equal={str(rows_equal).lower()} "
           f"kernel_ms={ms!r} plain_ms={plain_ms!r} bound_ms={stats['bound_ms']!r} "
           f"library_ms={library_ms!r}"
           + (" (no PyTorch call attends over an int8 cache with per-entry scales)"
@@ -748,12 +788,16 @@ def serve_requests(model, rng, reset_counts, read_counts) -> str:
 
 
 def backward_error(got: torch.Tensor, want32: torch.Tensor, ref16: torch.Tensor) -> tuple[float, float, bool]:
-    """(error against fp32, the bf16 plain backward's error, within the
-    BWD_ERR_RATIO / BWD_FLOOR criterion and finite)."""
+    """(error against fp32, the plain backward's error in got's dtype, within
+    the criterion and finite).  bf16: BWD_ERR_RATIO times the bf16 plain
+    backward's error plus BWD_FLOOR of the largest |want|; fp32: FP32_TOL."""
     want32 = want32.float()
     err = (got.float() - want32).abs().max().item()
     ref_err = (ref16.float() - want32).abs().max().item()
-    limit = BWD_ERR_RATIO * ref_err + BWD_FLOOR * want32.abs().max().item()
+    if got.dtype == torch.float32:
+        limit = FP32_TOL * max(want32.abs().max().item(), 1.0)
+    else:
+        limit = BWD_ERR_RATIO * ref_err + BWD_FLOOR * want32.abs().max().item()
     return err, ref_err, bool(torch.isfinite(got).all()) and err <= limit
 
 
@@ -1328,6 +1372,275 @@ def small_model_reference() -> None:
         fail(f"small model's audio embeddings on the card disagree with the CPU: {rel}")
 
 
+def tiny_towers_phase(reset_counts, read_counts) -> dict:
+    """The repo's tiny towers (``tiny_test_config``: head_dim 16 in both
+    towers) on the card, in fp32 and bf16, against the same weights on the
+    CPU: ``generate`` (16 tokens, EOS masked) on the fused and the module
+    decode path with a cache of the model's dtype and an int8 one, then the
+    documented training command, ``+experiments=smoke`` (fp32 tiny towers),
+    for 4 steps.  fp32 must give the CPU's tokens exactly; bf16 audio
+    embeddings must agree within SMALL_MODEL_RTOL.  The inputs each attention
+    kernel got first (per dtype and cache kind; the backward's in training)
+    are kept, and each of those instances is held against its plain version
+    on them and timed beside it."""
+    from tiny_audio_tpu_torch.config import tiny_test_config
+    from tiny_audio_tpu_torch.models.asr import ASRModel
+    from tiny_audio_tpu_torch.ops import attention as attention_dispatch
+    from tiny_audio_tpu_torch.ops import fused_decode as fused_module
+    from tiny_audio_tpu_torch.processing import ASRProcessor
+    from tiny_audio_tpu_torch.train.__main__ import main as train_main
+
+    rng = np.random.default_rng(SEED + 11)
+    audio = [(rng.standard_normal(int(s * 16000)) * 0.1).astype(np.float32) for s in TINY_CLIP_S]
+    first_calls = {}  # (model dtype, cache) -> the first inputs of each kernel
+    for model_dtype in ("float32", "bfloat16"):
+        for kv in ("bfloat16", "int8"):  # "bfloat16": a cache of the model's dtype
+            cfg = tiny_test_config(model_dtype=model_dtype, kv_cache_dtype=kv)
+            models = {"cuda": ASRModel(cfg, seed=SEED, device="cuda"),
+                      "cpu": ASRModel(cfg, seed=SEED, device="cpu")}
+            models["cpu"].load_state_dict(models["cuda"].state_dict())
+            store = first_calls.setdefault((model_dtype, kv), {})
+            embeds, tokens, counts = {}, {}, {}
+            for where, model in models.items():
+                feats = ASRProcessor(model.projector, num_mel_bins=cfg.encoder.num_mel_bins,
+                                     device=model.device).extract_features(audio)
+                args = (feats["input_features"], feats["audio_attention_mask"])
+                with torch.inference_mode():
+                    embeds[where] = model._encode_audio(*args).float().cpu()
+                paths = (("fused", True), ("module", False)) if where == "cuda" else (("cpu", None),)
+                for label, fused in paths:
+                    reset_counts()
+                    with record_first_call(attention_dispatch, "encoder_attention", store), \
+                            record_first_call(attention_dispatch, "prefill_attention", store), \
+                            record_first_call(attention_dispatch, "decode_attention", store), \
+                            record_first_call(fused_module, "decode_attention_update", store):
+                        tokens[label] = model.generate(*args, min_new_tokens=TINY_TOKENS,
+                                                       max_new_tokens=TINY_TOKENS,
+                                                       fused_decode=fused)
+                    torch.cuda.synchronize()
+                    counts[label] = read_counts()
+            rel = ((embeds["cuda"] - embeds["cpu"]).abs().max()
+                   / embeds["cpu"].abs().max()).item()
+            agree = {label: float((tokens[label] == tokens["cpu"]).mean())
+                     for label in ("fused", "module")}
+            print(f"tiny_towers dtype={model_dtype} kv={kv} head_dim=16 tokens={TINY_TOKENS} "
+                  f"clip_s={list(TINY_CLIP_S)} audio_embeds_rel_err={rel!r} "
+                  f"token_agreement_vs_cpu={json.dumps(agree)} "
+                  f"fused_launches={json.dumps(counts['fused'])} "
+                  f"module_launches={json.dumps(counts['module'])}")
+            if tokens["fused"].shape != (len(TINY_CLIP_S), TINY_TOKENS):
+                fail(f"tiny towers {model_dtype}/{kv}: tokens of shape {tokens['fused'].shape}")
+            if model_dtype == "float32" and min(agree.values()) < 1.0:
+                fail(f"tiny towers fp32 kv={kv}: tokens differ from the CPU's: {agree}")
+            if not rel <= (FP32_EMBED_RTOL if model_dtype == "float32" else SMALL_MODEL_RTOL):
+                fail(f"tiny towers {model_dtype} kv={kv}: audio embeddings off the CPU's by {rel}")
+            fused_c, module_c = counts["fused"], counts["module"]
+            if min(fused_c["encoder_attention"], fused_c["prefill_attention"],
+                   fused_c["decode_attention_update"], module_c["decode_attention"]) == 0:
+                fail(f"tiny towers {model_dtype} kv={kv} missed a kernel: fused {fused_c}, "
+                     f"module {module_c}")
+            if any(fused_c[n] or module_c[n] for n in BENCH_VARIANTS):
+                fail(f"tiny towers {model_dtype} kv={kv} launched a bench variant")
+            del models
+    torch.cuda.empty_cache()
+
+    # the documented training command, in process, 4 steps on the card
+    out_dir = tempfile.mkdtemp()
+    backward: dict = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    with record_first_backward(backward):
+        train_main(["+experiments=smoke", f"training.max_steps={TINY_TRAIN_STEPS}",
+                    f"training.eval_steps={TINY_TRAIN_STEPS}", f"run.output_dir={out_dir}"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = read_counts()
+    records = [json.loads(line)
+               for line in (Path(out_dir) / "metrics.jsonl").read_text().splitlines()]
+    losses = [r[key] for r in records for key in r if "loss" in key]
+    shutil.rmtree(out_dir)
+    print(f"tiny_towers train +experiments=smoke steps={TINY_TRAIN_STEPS} device=cuda fp32 "
+          f"wall_s={train_s!r} records={len(records)} losses={json.dumps(losses)} "
+          f"launches={json.dumps(train_counts)}")
+    if not losses or not all(np.isfinite(losses)):
+        fail(f"the smoke training run logged non-finite or no losses: {records}")
+    if min(train_counts["prefill_attention_bwd_dkv"], train_counts["prefill_attention_bwd_dq"],
+           train_counts["prefill_attention"], train_counts["encoder_attention"]) == 0:
+        fail(f"the smoke training run missed a kernel: {train_counts}")
+    if any(train_counts[n] for n in BENCH_VARIANTS):
+        fail("the smoke training run launched a bench variant")
+    check_tiny_instances(first_calls, backward["backward"])
+
+
+def check_tiny_instances(first_calls: dict, backward: tuple) -> None:
+    """The fp32 and bf16 head_dim-16 instances of #1-#4, #2b and #2c held
+    against their plain versions on the inputs the tiny towers gave them
+    (fp32 within FP32_TOL, bf16 within KERNEL_ATOL/RTOL; the rows #4 writes
+    bitwise) and timed beside them; fails the run on a disagreement."""
+    from tiny_audio_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+        decode_attention_update,
+        decode_attention_update_plain,
+    )
+    from tiny_audio_tpu_torch.ops.encoder_attention import (
+        encoder_attention,
+        encoder_attention_plain,
+    )
+    from tiny_audio_tpu_torch.ops.prefill_attention import (
+        prefill_attention,
+        prefill_attention_backward_plain,
+        prefill_attention_bwd_dkv,
+        prefill_attention_bwd_dq,
+        prefill_attention_plain,
+    )
+
+    # the decode path's cache views are inference tensors: the plain append
+    # writes its copy of them in place, as generate does
+    with torch.inference_mode():
+        for (model_dtype, kv), calls in first_calls.items():
+            label = f"tiny_towers {model_dtype} kv={kv}"
+            if kv == "int8":  # the towers' forward does not depend on the cache
+                compare_on_path_inputs(f"{label} encoder_attention", encoder_attention,
+                                       encoder_attention_plain, calls["encoder_attention"])
+                compare_on_path_inputs(f"{label} prefill_attention", prefill_attention,
+                                       prefill_attention_plain, calls["prefill_attention"])
+            compare_decode_on_path_inputs(f"{label} decode_attention", decode_attention,
+                                          decode_attention_plain, calls["decode_attention"])
+            compare_decode_on_path_inputs(f"{label} decode_attention_update",
+                                          decode_attention_update, decode_attention_update_plain,
+                                          calls["decode_attention_update"])
+    q, k, v, mask, dout, m, l, delta = backward
+    r = check_prefill_backward(q, k, v, mask, dout, "the smoke training run's inputs")
+    times = {n: cuda_ms(lambda fn=fn: fn(q, k, v, mask, dout, m, l, delta), 50)
+             for n, fn in (("dkv", prefill_attention_bwd_dkv), ("dq", prefill_attention_bwd_dq))}
+    plain_ms = cuda_ms(lambda: prefill_attention_backward_plain(q, k, v, mask, dout), 20)
+    print(f"tiny_towers prefill backward on the smoke training run's inputs dtype={q.dtype} "
+          f"q={list(q.shape)} k={list(k.shape)} forward_max_abs_err={r['forward']!r} "
+          + " ".join(f"{n}_err={e!r}" for n, (e, _) in r["errs"].items())
+          + f" {tolerance_text(q.dtype)} dkv_ms={times['dkv']!r} dq_ms={times['dq']!r} "
+          f"plain_backward_ms={plain_ms!r}")
+
+
+def encoder_variants_phase(reset_counts, read_counts) -> dict:
+    """Kernel #9a through its entry point, the port's
+    tools/bench_encoder_attention.py at scripts/bench_encoder_attention.py's
+    shape: every mode at hg = 10 and fp32 at hg 4 and 20, each against its
+    plain version (values, and the share of outputs that differ from it and
+    from the other modes' plain versions) and an fp64 oracle on a 4-batch
+    slice, packed2 bitwise shift_post; the modes whose shifts cancel there
+    told apart on stress inputs; then the plain version's time at the full
+    shape (in 4-batch chunks) and the bound."""
+    from tiny_audio_tpu_torch.ops.encoder_attention_variants import (
+        encoder_attention_variant_plain,
+    )
+    from tiny_audio_tpu_torch.tools import bench_encoder_attention as tool
+
+    reset_counts()
+    r = tool.run(reps=VARIANT_REPS, out=lambda line: print(f"bench_encoder_attention {line}"))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    others = {n: c for n, c in counts.items()
+              if n not in ("encoder_attention_variant", "encoder_attention") and c}
+    if counts["encoder_attention_variant"] == 0 or others:
+        fail(f"the #9a phase launches {counts}")
+    for name, v in r["variants"].items():
+        if not (v["finite"] and v["within"]):
+            fail(f"#9a {name} disagrees with its plain version: max error "
+                 f"{v['max_abs_err_vs_plain']}, {v['differ_share_vs_plain']:.2%} of the outputs "
+                 f"differ, nearest other mode {v['nearest_other']}")
+        if not v["max_abs_err_fp64"] <= VARIANT_ORACLE_ATOL:
+            fail(f"#9a {name} is {v['max_abs_err_fp64']} off the fp64 oracle")
+    # the shifts that cancel on the bench's inputs, told apart (a comparison:
+    # its launches are not the phase's)
+    stress = tool.modes_apart(out=lambda line: print(f"bench_encoder_attention {line}"))
+    for mode, a in stress.items():
+        if not a["apart"]:
+            fail(f"#9a {mode} is not told apart on the stress inputs: {a}")
+    hg = tool.HG
+    packed = r["variants"][f"loop-packed2(hg={hg})"]["output"]
+    post = r["variants"][f"loop-shift_post(hg={hg})"]["output"]
+    if not same_bytes(packed, post):
+        fail("#9a packed2 is not bitwise shift_post")
+    q, k, v, mask = r["inputs"]
+    h = tool.H
+
+    def plain_full():
+        for i in range(0, q.shape[0], tool.ORACLE_BATCH):
+            s = slice(i, i + tool.ORACLE_BATCH)
+            encoder_attention_variant_plain(q[s], k[s], v[s], mask[s], h, "fp32")
+
+    plain_ms = cuda_ms(plain_full, 1)
+    b, t, hd = q.shape
+    fp32 = r["variants"][f"loop-fp32(hg={hg})"]
+    stats = {"max_abs_err": max(x["max_abs_err_vs_plain"] for x in r["variants"].values()),
+             "ms": fp32["ms"], "plain_ms": plain_ms,
+             **bound(4 * nbytes(q) + nbytes(mask), 4.0 * b * h * t * t * (hd // h),
+                     BF16_TENSOR_FLOPS),
+             "library_ms": r["yardsticks"]["sdpa (key mask)"]["ms"]}
+    print(f"encoder_attention_variant packed2_equals_shift_post_bitwise=true "
+          f"fp32_hg{hg}_ms={stats['ms']!r} plain_ms={plain_ms!r} bound_ms={stats['bound_ms']!r} "
+          f"bound_by={stats['bound_by']} sdpa_ms={stats['library_ms']!r} "
+          f"kernel1_ms={r['yardsticks']['encoder_attention (#1)']['ms']!r} "
+          f"modes={json.dumps({n: x['ms'] for n, x in r['variants'].items()})} "
+          f"launches={json.dumps(counts)}")
+    del r, q, k, v, mask, packed, post
+    torch.cuda.empty_cache()
+    return {"stats": stats, "launches": counts["encoder_attention_variant"]}
+
+
+def wq_head_variants_phase(reset_counts, read_counts) -> dict:
+    """Kernels #9b-#9d through their entry point, the port's
+    tools/bench_wq_head.py at scripts/bench_wq_head.py's shape, every sweep
+    point: #9c and #9d bitwise their plain versions, #9b within #6's
+    tolerance; then each one's plain time and bound at the script's
+    numerics points, nc = 8192 (#9b) and nt = 2048 (#9c, #9d)."""
+    from tiny_audio_tpu_torch.ops.wq_head import w8a8_matmul_plain
+    from tiny_audio_tpu_torch.ops.wq_matmul import wq_matmul_plain
+    from tiny_audio_tpu_torch.tools import bench_wq_head as tool
+
+    reset_counts()
+    r = tool.run(reps=VARIANT_REPS, out=lambda line: print(f"bench_wq_head {line}"))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    mine = ("wq_matmul_pipe", "a8_matmul", "a8t_matmul")
+    allowed = mine + ("wq_matmul", "w8a8_matmul")  # the script's shipped yardsticks
+    if min(counts[n] for n in mine) == 0 or any(c for n, c in counts.items() if n not in allowed):
+        fail(f"the #9b-#9d phase launches {counts}")
+    for name, p in r["products"].items():
+        if "rule" in p and not (p["finite"] and p["within"]):
+            fail(f"{name} disagrees with its plain version ({p['rule']}): {p['max_abs_err_vs_plain']}")
+    d = r["inputs"]
+    x, w_i8, wt_i8, scale = d["x"], d["w_i8"], d["wt_i8"], d["scale"]
+    x_i8 = torch.empty_like(x, dtype=torch.int8)
+    sx = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
+    out = torch.empty((x.shape[0], scale.shape[0]), dtype=torch.bfloat16, device=x.device)
+    ops = 2.0 * x.shape[0] * x.shape[1] * scale.shape[0]
+    entries = {}
+    for kernel, label, plain, args, moved, peak in (
+            ("wq_matmul_pipe", "pipe nc=8192", wq_matmul_plain, (x, w_i8, scale),
+             nbytes(x, w_i8, scale, out), BF16_TENSOR_FLOPS),
+            ("a8_matmul", "a8 nt=2048", w8a8_matmul_plain, (x, w_i8.T, scale),
+             nbytes(x_i8, sx, w_i8, scale, out), INT8_TENSOR_OPS),
+            ("a8t_matmul", "a8t nt=2048", w8a8_matmul_plain, (x, wt_i8, scale),
+             nbytes(x_i8, sx, wt_i8, scale, out), INT8_TENSOR_OPS)):
+        group = [p for n, p in r["products"].items() if n.split()[0] == label.split()[0]]
+        entries[kernel] = {
+            "max_abs_err": max(p["max_abs_err_vs_plain"] for p in group),
+            "ms": r["products"][label]["ms"], "plain_ms": cuda_ms(lambda: plain(*args), 5),
+            **bound(moved, ops, peak), "library_ms": None}
+    print("wq_head variants at the script's numerics points "
+          + " ".join(f"{n}_ms={e['ms']!r} {n}_plain_ms={e['plain_ms']!r} "
+                     f"{n}_bound_ms={e['bound_ms']!r}" for n, e in entries.items())
+          + f" bf16_linear_ms={r['products']['bf16 dot']['ms']!r} "
+          f"wq_matmul_ms={r['products']['wq shipped (#6)']['ms']!r} "
+          f"w8a8_matmul_ms={r['products']['w8a8 shipped (#5)']['ms']!r} "
+          f"launches={json.dumps(counts)} (no PyTorch call computes these int8 functions)")
+    del r, d, x, w_i8, wt_i8, out
+    torch.cuda.empty_cache()
+    return {"stats": entries, "launches": {n: counts[n] for n in mine}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device; this smoke run measures the GPU and never runs on the CPU")
@@ -1365,7 +1678,6 @@ def main() -> None:
     small_model_reference()
     phase_done()
 
-    # ---- 5. generate at the flagship width, on both decode paths ----
     from tiny_audio_tpu_torch import ASRConfig
     from tiny_audio_tpu_torch.models import asr as asr_module
     from tiny_audio_tpu_torch.models.asr import ASRModel
@@ -1381,6 +1693,7 @@ def main() -> None:
         encoder_attention,
         encoder_attention_plain,
     )
+    from tiny_audio_tpu_torch.ops.encoder_attention_variants import encoder_attention_variant
     from tiny_audio_tpu_torch.ops.encoder_ffn import encoder_ffn
     from tiny_audio_tpu_torch.ops.mel_fused import log_mel_spectrogram_fused
     from tiny_audio_tpu_torch.ops.prefill_attention import (
@@ -1391,6 +1704,7 @@ def main() -> None:
     )
     from tiny_audio_tpu_torch.models import decoder as decoder_module
     from tiny_audio_tpu_torch.ops.wq_head import w8a8_matmul, w8a8_matmul_plain
+    from tiny_audio_tpu_torch.ops.wq_head_variants import a8_matmul, a8t_matmul, wq_matmul_pipe
     from tiny_audio_tpu_torch.ops.wq_matmul import wq_matmul, wq_matmul_plain
     from tiny_audio_tpu_torch.pipeline import ASRPipeline
 
@@ -1401,12 +1715,16 @@ def main() -> None:
                 "prefill_attention_bwd_dkv": prefill_attention_bwd_dkv,
                 "prefill_attention_bwd_dq": prefill_attention_bwd_dq,
                 "log_mel_spectrogram_fused": log_mel_spectrogram_fused,
-                "encoder_ffn": encoder_ffn}
+                "encoder_ffn": encoder_ffn,
+                "encoder_attention_variant": encoder_attention_variant,
+                "wq_matmul_pipe": wq_matmul_pipe, "a8_matmul": a8_matmul,
+                "a8t_matmul": a8t_matmul}
     # the serving paths launch neither int8 product (outside their modes), nor
-    # a backward kernel, nor the fused front end (#7) or encoder FFN (#8),
-    # which only their own entry points reach
+    # a backward kernel, nor the fused front end (#7), the encoder FFN (#8) or
+    # the bench variants (#9a-#9d), which only their own entry points reach
     no_int8 = {"w8a8_matmul": 0, "wq_matmul": 0, "prefill_attention_bwd_dkv": 0,
-               "prefill_attention_bwd_dq": 0, "log_mel_spectrogram_fused": 0, "encoder_ffn": 0}
+               "prefill_attention_bwd_dq": 0, "log_mel_spectrogram_fused": 0, "encoder_ffn": 0,
+               **{name: 0 for name in BENCH_VARIANTS}}
 
     def reset_counts() -> None:
         for fn in wrappers.values():
@@ -1415,6 +1733,11 @@ def main() -> None:
     def read_counts() -> dict:
         return {name: fn.launches for name, fn in wrappers.items()}
 
+    # ---- 4b. the tiny towers on the card: fp32, head_dim 16, training ----
+    tiny_towers_phase(reset_counts, read_counts)
+    phase_done()
+
+    # ---- 5. generate at the flagship width, on both decode paths ----
     t0 = time.perf_counter()
     cfg = ASRConfig(kv_cache_dtype="int8")
     model = ASRModel(cfg, seed=SEED)  # the default device: the card
@@ -1654,8 +1977,15 @@ def main() -> None:
     del layer0_mlp
     phase_done()
 
+    # ---- 13. kernels #9a-#9d through the two bench entry points ----
+    variants_9a = encoder_variants_phase(reset_counts, read_counts)
+    phase_done()
+    variants_9bcd = wq_head_variants_phase(reset_counts, read_counts)
+    phase_done()
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                                                   "msgpack", "tiny_audio_tpu"))
+                                                                   "msgpack", "tiny_audio_tpu",
+                                                                   "scripts"))
     if loaded:
         fail(f"the port imported the JAX side: {loaded[:5]}")
 
@@ -1706,6 +2036,18 @@ def main() -> None:
         {"name": "encoder_ffn", "route": "cuda", "source": "tiny_audio_tpu_torch/csrc/encoder_ffn.cu",
          "replaces": "tiny_audio_tpu/ops/encoder_ffn.py:115",
          "launches": ffn["launches"], **ffn["stats"]},
+        {"name": "encoder_attention_variant", "route": "cuda",
+         "source": "tiny_audio_tpu_torch/csrc/encoder_attention_variants.cu",
+         "replaces": "scripts/bench_encoder_attention.py:209",
+         "launches": variants_9a["launches"], **variants_9a["stats"]},
+        *({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "launches": variants_9bcd["launches"][name], **variants_9bcd["stats"][name]}
+          for name, source, replaces in (
+              ("wq_matmul_pipe", "tiny_audio_tpu_torch/csrc/int8_matmul_variants.cu",
+               "scripts/bench_wq_head.py:95"),
+              ("a8_matmul", "tiny_audio_tpu_torch/csrc/int8_matmul_variants.cu",
+               "scripts/bench_wq_head.py:142"),
+              ("a8t_matmul", int8_source, "scripts/bench_wq_head.py:184"))),
     ]}))
     print(power_line)
     print(json.dumps({"ok": True, "device": {

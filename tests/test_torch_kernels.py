@@ -40,8 +40,22 @@ from tiny_audio_tpu_torch.ops.prefill_attention import (
     prefill_attention_forward,
     prefill_attention_plain,
 )
+from tiny_audio_tpu_torch.ops.encoder_attention_variants import (
+    MODES,
+    SAME_FUNCTION,
+    encoder_attention_variant,
+    encoder_attention_variant_plain,
+)
 from tiny_audio_tpu_torch.ops.wq_head import w8a8_matmul, w8a8_matmul_plain
-from tiny_audio_tpu_torch.ops.wq_matmul import WQ_ATOL, WQ_RTOL, wq_matmul, wq_matmul_plain
+from tiny_audio_tpu_torch.ops.wq_head_variants import a8_matmul, a8t_matmul, wq_matmul_pipe
+from tiny_audio_tpu_torch.ops.wq_matmul import (
+    WQ_ATOL,
+    WQ_RTOL,
+    quantize_weight,
+    wq_matmul,
+    wq_matmul_plain,
+)
+from tiny_audio_tpu_torch.tools import bench_encoder_attention
 
 torch.set_num_threads(1)
 # bf16 kernel vs plain version on the same inputs: both round P and the
@@ -53,6 +67,10 @@ KERNEL_ATOL, KERNEL_RTOL = 1e-2, 2.0**-6
 # magnitude (one bf16 ulp near the top of a binade) for gradients so small
 # that the bf16 plain version happens to round exactly.
 BWD_ERR_RATIO, BWD_FLOOR = 2.0, 2.0**-8
+# An fp32 kernel (CUDA-core FMAs) against its plain version in fp32: sums in
+# other orders and exp2 of the log2-scaled score for exp differ by a few fp32
+# ulps a term; FP32_TOL of the largest |want| (at least 1) bounds a row's sum.
+FP32_TOL = 1e-4
 
 
 def test_cpu_calls_launch_no_kernel():
@@ -98,8 +116,11 @@ def test_cuda_grad_paths_never_fall_back(pretend_cuda):
             fn(z, z, z, None, z, stats, stats, stats)
         with pytest.raises(ValueError, match="delta"):
             fn(z, z, z, None, z, stats, stats, stats[..., :4])
+        with pytest.raises(RuntimeError, match="nvcc not found"):  # the fp32 instance
+            f = z.float()
+            fn(f, f, f, None, f, stats, stats, stats)
         with pytest.raises(ValueError, match="head_dim"):
-            w = z[..., :32].contiguous()
+            w = z[..., :48].contiguous()
             fn(w, w, w, None, w, stats, stats, stats)
     assert prefill_attention.launches == 0
     assert prefill_attention_bwd_dkv.launches == prefill_attention_bwd_dq.launches == 0
@@ -113,10 +134,16 @@ def test_cuda_tensor_never_falls_back(pretend_cuda):
     y = torch.zeros((1, 8, 2, 128), dtype=torch.bfloat16)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         prefill_attention(y, y, y, None)
+    # fp32 and head_dim 16 reach the launch; fp16 and head_dim 48 are refused
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        encoder_attention(x.float(), x.float(), x.float(), None, 8)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        z = y[..., :16].float().contiguous()
+        prefill_attention(z, z, z, None)
     with pytest.raises(TypeError):
-        encoder_attention(x.float(), x.float(), x.float(), None, 2)
+        encoder_attention(x.half(), x.half(), x.half(), None, 2)
     with pytest.raises(ValueError, match="head_dim"):
-        z = y[..., :16].contiguous()
+        z = y[..., :48].contiguous()
         prefill_attention(z, z, z, None)
     with pytest.raises(ValueError, match="contiguous"):
         prefill_attention(y.transpose(1, 2), y.transpose(1, 2), y.transpose(1, 2), None)
@@ -132,12 +159,20 @@ def test_cuda_tensor_never_falls_back(pretend_cuda):
             fn(q, cache, cache, fresh, fresh, 5, scale, scale)
         with pytest.raises(RuntimeError, match="nvcc not found"):
             fn(q, cache.to(torch.bfloat16), cache.to(torch.bfloat16), fresh, fresh, 5)
-        with pytest.raises(TypeError):
+        with pytest.raises(RuntimeError, match="nvcc not found"):  # fp32 over int8
             fn(q.float(), cache, cache, fresh.float(), fresh.float(), 5, scale, scale)
+        with pytest.raises(RuntimeError, match="nvcc not found"):  # fp32 over fp32, D = 16
+            f = lambda t: t[..., :16].float().contiguous()  # noqa: E731
+            fn(f(q), f(cache), f(cache), f(fresh), f(fresh), 5)
+        with pytest.raises(TypeError):
+            fn(q.half(), cache, cache, fresh.half(), fresh.half(), 5, scale, scale)
+        with pytest.raises(TypeError):  # an fp32 model's cache is fp32 or int8, not bf16
+            fn(q.float(), cache.to(torch.bfloat16), cache.to(torch.bfloat16), fresh.float(),
+               fresh.float(), 5)
         with pytest.raises(ValueError, match="head_dim"):
-            fn(q[..., :32].contiguous(), cache[..., :32].contiguous(),
-               cache[..., :32].contiguous(), fresh[..., :32].contiguous(),
-               fresh[..., :32].contiguous(), 5, scale, scale)
+            fn(q[..., :48].contiguous(), cache[..., :48].contiguous(),
+               cache[..., :48].contiguous(), fresh[..., :48].contiguous(),
+               fresh[..., :48].contiguous(), 5, scale, scale)
         with pytest.raises(ValueError, match="query heads per KV head"):  # group 5
             fn(torch.zeros((2, 10, 128), dtype=torch.bfloat16), cache, cache, fresh, fresh,
                5, scale, scale)
@@ -160,6 +195,60 @@ def test_cuda_tensor_never_falls_back(pretend_cuda):
     with pytest.raises(ValueError):
         wq_matmul(x, wt, scale)  # [N, K] is not the [K, N] layout
     assert w8a8_matmul.launches == 0 and wq_matmul.launches == 0
+
+
+def test_bench_variants_never_fall_back(pretend_cuda):
+    """Kernels #9a-#9d on CUDA tensors: the launch is attempted and raises
+    here; shapes and modes the kernels do not take raise first; no launch
+    is counted."""
+    encoder_attention_variant.launches = 0
+    wq_matmul_pipe.launches = a8_matmul.launches = a8t_matmul.launches = 0
+    x = torch.zeros((1, 256, 2 * 64), dtype=torch.bfloat16)
+    for mode in ("fp32", "packed2"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            encoder_attention_variant(x, x, x, None, 2, mode, 2)
+    with pytest.raises(ValueError, match="mode"):
+        encoder_attention_variant(x, x, x, None, 2, "exp2", 2)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        y = x[:, :200].contiguous()
+        encoder_attention_variant(y, y, y, None, 2, "fp32", 2)
+    with pytest.raises(ValueError, match="hg"):
+        encoder_attention_variant(x, x, x, None, 2, "fp32", 3)
+    with pytest.raises(TypeError):
+        encoder_attention_variant(x.float(), x.float(), x.float(), None, 2, "fp32", 2)
+    xb = torch.zeros((4, 64), dtype=torch.bfloat16)
+    w = torch.zeros((64, 256), dtype=torch.int8)
+    scale = torch.ones(256)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        wq_matmul_pipe(xb, w, scale, 256)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        a8_matmul(xb, w, scale, 128)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        a8t_matmul(xb, w.T.contiguous(), scale, 128)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        wq_matmul_pipe(xb, w, scale, 250)
+    with pytest.raises(ValueError, match="rows"):
+        wq_matmul_pipe(torch.zeros((49, 64), dtype=torch.bfloat16), w, scale, 256)
+    with pytest.raises(ValueError):
+        a8_matmul(xb, w.T.contiguous(), scale, 128)  # [N, K] is not #9c's layout
+    with pytest.raises(ValueError, match="multiple of 16"):
+        a8_matmul(xb, w, scale, 120)  # misaligned 16-byte weight loads
+    with pytest.raises(ValueError, match="multiple of 64"):
+        a8t_matmul(xb, w.T.contiguous(), scale, 96)
+    assert encoder_attention_variant.launches == 0
+    assert wq_matmul_pipe.launches == a8_matmul.launches == a8t_matmul.launches == 0
+
+
+def test_stress_inputs_tell_the_plain_shifts_apart():
+    """On scores of std 40 the plain versions of the shifts that cancel on
+    unit-scale scores compute different functions: nomax overflows, qnorm's
+    bound zeros every row; only the reciprocal pairs stay together."""
+    lines = []
+    result = bench_encoder_attention.modes_apart("cpu", out=lines.append)
+    assert set(result) == set(SAME_FUNCTION[0]) and len(lines) == len(result)
+    assert all(r["apart"] and r["own"] == 0.0 for r in result.values()), result
+    assert "nan=0.00%" not in lines[SAME_FUNCTION[0].index("nomax")]
+    assert "zero=100.00%" in lines[SAME_FUNCTION[0].index("qnorm")]
 
 
 def _ffn_operands(m, d, f, dtype=torch.bfloat16, device="cpu", seed=0, requires_grad=False):
@@ -669,3 +758,245 @@ def test_log_mel_kernel_carries_a_gradient_on_card(cuda_device):
     log_mel_spectrogram(ref, 80).backward(dout)
     scale = ref.grad.abs().max().item()
     torch.testing.assert_close(audio.grad, ref.grad, atol=1e-4 * scale, rtol=1e-4)
+
+
+# ------------------------------------- fp32 and head_dim 16 / 32 on the card
+
+
+def _fp32_close(name, got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    limit = FP32_TOL * max(want.float().abs().max().item(), 1.0)
+    assert torch.isfinite(got).all(), name
+    assert err <= limit, f"{name}: error {err} against the fp32 plain version, limit {limit}"
+
+
+# (dtype, head_dim) instances each kernel gained: bf16 at 16 and 32, fp32 at all
+NEW_INSTANCES = [(torch.bfloat16, 16), (torch.bfloat16, 32)] + \
+    [(torch.float32, d) for d in (16, 32, 64, 128, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(dt, d) for dt, d in NEW_INSTANCES if d <= 64])
+def test_encoder_kernel_new_instances_match_plain(cuda_device, dtype, d):
+    """#1 in fp32 and at head_dim 16/32: output in q's dtype; a fully masked
+    row averages the keys uniformly, as the plain version does."""
+    b, t, h = 3, 150, 4
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v = (torch.randn((b, t, h * d), generator=g, device=cuda_device).to(dtype)
+               for _ in range(3))
+    mask = torch.ones((b, t), dtype=torch.int32, device=cuda_device)
+    mask[1, 90:] = 0
+    mask[2] = 0
+    before = encoder_attention.launches
+    got = encoder_attention(q, k, v, mask, h)
+    assert encoder_attention.launches == before + 1 and got.dtype == dtype
+    want = encoder_attention_plain(q, k, v, mask, h)
+    if dtype == torch.float32:
+        _fp32_close("encoder_attention", got, want)
+    else:
+        _close(got, want, torch.ones_like(mask, dtype=torch.bool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("dtype,d", NEW_INSTANCES)
+def test_prefill_kernels_new_instances_match_plain(cuda_device, dtype, d, group):
+    """#2 (serving launch and with statistics), #2b and #2c in fp32 and at
+    head_dim 16/32, every GQA group; fp32 gradients against autograd through
+    the fp32 plain version, bf16 ones by the bf16 criterion above."""
+    b, t, hkv = 2, 131, 2
+    q, k, v, dout, mask = (x.to(dtype) if x.is_floating_point() else x
+                           for x in _prefill_inputs(cuda_device, b, t, group * hkv, hkv, d,
+                                                    group + d))
+    if dtype == torch.float32:  # fp32 values, not bf16 ones widened
+        gen = torch.Generator(device=cuda_device).manual_seed(d * 10 + group)
+        q, k, v, dout = (torch.randn(x.shape, generator=gen, device=cuda_device)
+                         for x in (q, k, v, dout))
+    before = (prefill_attention.launches, prefill_attention_bwd_dkv.launches,
+              prefill_attention_bwd_dq.launches)
+    serve = prefill_attention(q, k, v, mask)
+    out, m, l = prefill_attention_forward(q, k, v, mask)
+    delta = attention_delta(out, dout)
+    dk, dv = prefill_attention_bwd_dkv(q, k, v, mask, dout, m, l, delta)
+    dq = prefill_attention_bwd_dq(q, k, v, mask, dout, m, l, delta)
+    assert (prefill_attention.launches, prefill_attention_bwd_dkv.launches,
+            prefill_attention_bwd_dq.launches) == (before[0] + 2, before[1] + 1, before[2] + 1)
+    want_out = prefill_attention_plain(q, k, v, mask)
+    valid = torch.ones_like(mask, dtype=torch.bool)
+    want = prefill_attention_backward_plain(*(x.float() for x in (q, k, v)), mask, dout.float())
+    if dtype == torch.float32:
+        _fp32_close("forward", serve, want_out)
+        _fp32_close("forward with statistics", out, want_out)
+        for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            _fp32_close(name, got, w)
+    else:
+        _close(serve, want_out, valid)
+        _close(out, want_out, valid)
+        ref = prefill_attention_backward_plain(q, k, v, mask, dout)
+        for name, got, w, r in zip(("dq", "dk", "dv"), (dq, dk, dv), want, ref):
+            _bwd_close(name, got, w, r)
+
+
+@pytest.mark.cuda
+def test_prefill_attention_fp32_autograd_on_card(cuda_device):
+    """An fp32 leaf takes the fp32 instances through PrefillAttention."""
+    b, t, hq, hkv, d = 2, 70, 4, 2, 16
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device=cuda_device)
+                     for shape in ((b, t, hq, d), (b, t, hkv, d), (b, t, hkv, d), (b, t, hq, d)))
+    mask = torch.ones((b, t), dtype=torch.int32, device=cuda_device)
+    mask[1, 50:] = 0
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = prefill_attention_bwd_dq.launches
+    prefill_attention(*leaves, mask).backward(dout)
+    assert prefill_attention_bwd_dq.launches == before + 1
+    want = prefill_attention_backward_plain(q, k, v, mask, dout)
+    for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
+        _fp32_close(name, leaf.grad, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("dtype,d", NEW_INSTANCES)
+def test_decode_kernels_new_instances_match_plain(cuda_device, dtype, d, quantized, group):
+    """#3 and #4 in fp32 (over an fp32 or an int8 cache) and at head_dim
+    16/32, NaN planted at and past kv_len; the appended row is bitwise the
+    plain version's (quantize_kv's bytes and scales, or the fresh row)."""
+    b, s, hkv, kv_len = 2, 96, 2, 77
+    g = torch.Generator(device=cuda_device).manual_seed(group * 1000 + d + 7)
+    randn = lambda *shape: torch.randn(shape, generator=g, device=cuda_device)  # noqa: E731
+    q = (randn(b, group * hkv, d) * 2).to(dtype)
+    fk, fv = (randn(b, hkv, d).to(dtype) for _ in range(2))
+    if quantized:
+        ck, cv = (torch.randint(-127, 128, (b, s, hkv, d), generator=g, device=cuda_device)
+                  .to(torch.int8) for _ in range(2))
+        ks, vs = (randn(b, s, hkv).abs() * 0.02 + 1e-3 for _ in range(2))
+        ks[:, kv_len:] = float("nan")
+        vs[:, kv_len:] = float("nan")
+    else:
+        ck, cv = (randn(b, s, hkv, d).to(dtype) for _ in range(2))
+        ck[:, kv_len:] = float("nan")
+        cv[:, kv_len:] = float("nan")
+        ks = vs = None
+    close = (lambda n, x, y: _fp32_close(n, x, y)) if dtype == torch.float32 else \
+        (lambda n, x, y: torch.testing.assert_close(x.float(), y.float(), atol=KERNEL_ATOL,
+                                                    rtol=KERNEL_RTOL))
+    before = (decode_attention.launches, decode_attention_update.launches)
+    got = decode_attention(q, ck, cv, fk, fv, kv_len, ks, vs)
+    assert got.dtype == dtype
+    close("decode_attention", got, decode_attention_plain(q, ck, cv, fk, fv, kv_len, ks, vs))
+    clone = lambda x: None if x is None else x.clone()  # noqa: E731
+    mine = [clone(x) for x in (ck, cv, ks, vs)]
+    ref = [clone(x) for x in (ck, cv, ks, vs)]
+    got = decode_attention_update(q, mine[0], mine[1], fk, fv, kv_len, mine[2], mine[3])
+    close("decode_attention_update", got, decode_attention_update_plain(
+        q, ref[0], ref[1], fk, fv, kv_len, ref[2], ref[3]))
+    assert (decode_attention.launches, decode_attention_update.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for got_buf, want_buf in zip(mine, ref):
+        if got_buf is not None:
+            assert torch.equal(got_buf.view(torch.uint8), want_buf.view(torch.uint8))
+
+
+# ------------------------------------------------ #9a-#9d, the bench variants
+
+
+def _variant_inputs(device, b, t, h, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn((b, t, h * 64), generator=g, device=device).to(torch.bfloat16)
+               for _ in range(3))
+    mask = torch.ones((b, t), dtype=torch.int32, device=device)
+    mask[0, t - 100:] = 0
+    mask[-1, t // 2:] = 0
+    return q, k, v, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_encoder_attention_variant_kernel_matches_plain(cuda_device, mode):
+    """#9a under every mode against its plain version (the tolerance of
+    tools/bench_encoder_attention.py), at hg 2 and 4; its outputs differ
+    from its own plain version in few elements and from every other mode's
+    (outside its SAME_FUNCTION group) in many."""
+    b, t, h = 2, 512, 4
+    q, k, v, mask = _variant_inputs(cuda_device, b, t, h, MODES.index(mode))
+    plains = {m: encoder_attention_variant_plain(q, k, v, mask, h, m) for m in MODES}
+    want = plains[mode]
+    for hg in (2, 4):
+        before = encoder_attention_variant.launches
+        got = encoder_attention_variant(q, k, v, mask, h, mode, hg)
+        assert encoder_attention_variant.launches == before + 1
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), atol=bench_encoder_attention.ATOL,
+                                   rtol=bench_encoder_attention.RTOL)
+        apart = bench_encoder_attention.apart(got, mode, plains, mask.bool()[..., None],
+                                              SAME_FUNCTION)
+        assert apart["apart"], apart
+
+
+@pytest.mark.cuda
+def test_stress_inputs_tell_the_shifts_apart_on_card(cuda_device):
+    """The modes whose shifts cancel on unit-scale scores, each against
+    every plain version of its group on scores of std 40."""
+    before = encoder_attention_variant.launches
+    result = bench_encoder_attention.modes_apart(cuda_device, out=lambda line: None)
+    assert encoder_attention_variant.launches == before + len(SAME_FUNCTION[0])
+    assert all(r["apart"] for r in result.values()), result
+
+
+@pytest.mark.cuda
+def test_packed2_kernel_is_shift_post_bitwise(cuda_device):
+    """Two heads a block (packed2) do each head's shift_post arithmetic."""
+    q, k, v, mask = _variant_inputs(cuda_device, 2, 768, 6, 3)
+    for hg in (2, 6):
+        packed = encoder_attention_variant(q, k, v, mask, 6, "packed2", hg)
+        assert torch.equal(packed, encoder_attention_variant(q, k, v, mask, 6, "shift_post", hg))
+
+
+@pytest.mark.cuda
+def test_fp32_variant_is_kernel_1s_function(cuda_device):
+    q, k, v, mask = _variant_inputs(cuda_device, 2, 1536, 20, 5)
+    got = encoder_attention_variant(q, k, v, mask, 20, "fp32", 10)
+    _close(got, encoder_attention(q, k, v, mask, 20), torch.ones_like(mask, dtype=torch.bool))
+
+
+# (B, K, N) of the LM head at the bench's batch, a small one, a ragged N
+HEAD_SHAPES = [(48, 1024, 151936), (8, 256, 4096), (5, 64, 1040)]
+
+
+def _head_inputs(device, b, k, n, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn((b, k), generator=g, device=device) * 2).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=g, device=device) * 0.02).to(torch.bfloat16)
+    w_i8, scale = quantize_weight(w)
+    return x, w_i8, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,n", HEAD_SHAPES)
+def test_wq_matmul_pipe_kernel_matches_plain(cuda_device, b, k, n):
+    """#9b within #6's tolerance at each chunk width of the sweep and a
+    narrow one."""
+    x, w_i8, scale = _head_inputs(cuda_device, b, k, n, n)
+    want = wq_matmul_plain(x, w_i8, scale)
+    for nc in (8192, 16384, 512):
+        before = wq_matmul_pipe.launches
+        got = wq_matmul_pipe(x, w_i8, scale, nc)
+        assert wq_matmul_pipe.launches == before + 1 and torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), atol=WQ_ATOL, rtol=WQ_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,n", HEAD_SHAPES + [(64, 1024, 4096)])
+def test_a8_kernels_are_plain_bitwise(cuda_device, b, k, n):
+    """#9c ([K, N] weight) and #9d ([N, K]) equal their plain versions bit
+    for bit: integer sums, the same epilogue order."""
+    x, w_i8, scale = _head_inputs(cuda_device, b, k, n, n + 1)
+    wt_i8 = w_i8.T.contiguous()
+    want = w8a8_matmul_plain(x, wt_i8, scale)  # #5's function
+    for nt in (2048, 4096, 8192, 64):
+        before = (a8_matmul.launches, a8t_matmul.launches)
+        got_c, got_d = a8_matmul(x, w_i8, scale, nt), a8t_matmul(x, wt_i8, scale, nt)
+        assert (a8_matmul.launches, a8t_matmul.launches) == (before[0] + 1, before[1] + 1)
+        assert torch.equal(got_c, want) and torch.equal(got_d, want)

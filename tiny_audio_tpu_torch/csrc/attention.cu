@@ -1,16 +1,17 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 in and out, fp32
-// accumulation, exact online softmax.
+// accumulation, exact online softmax.  (The fp32 instances of the same entry
+// points are in attention_f32.cu.)
 //
 // One templated kernel serves three entry points:
 //
 //   ta_encoder_attention       replaces tiny_audio_tpu/ops/encoder_attention.py
 //                              (_encoder_attention_impl): bidirectional MHA
 //                              over packed heads [B, T, H*D], key-padding
-//                              mask, D = 64.
+//                              mask, D = 16, 32 or 64.
 //   ta_prefill_attention       replaces tiny_audio_tpu/ops/attention.py
 //                              (_flash_call / flash_mha): causal attention
 //                              with native GQA (kv_head = q_head / group),
-//                              key-padding mask, D = 64, 128 or 256.
+//                              key-padding mask, D = 16, 32, 64, 128 or 256.
 //   ta_prefill_attention_fwd_stats
 //                              the same, and also each query row's softmax
 //                              statistics for the backward (attention_bwd.cu):
@@ -309,6 +310,10 @@ int launch_prefill(const void* q, const void* k, const void* v, const void* mask
                    float scale, void* stream) {
   if (T <= 0 || B <= 0 || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   switch (D) {
+    case 16:
+      return launch<16, true, STATS>(q, k, v, mask, out, m_out, l_out, B, T, Hq, Hkv, scale, stream);
+    case 32:
+      return launch<32, true, STATS>(q, k, v, mask, out, m_out, l_out, B, T, Hq, Hkv, scale, stream);
     case 64:
       return launch<64, true, STATS>(q, k, v, mask, out, m_out, l_out, B, T, Hq, Hkv, scale, stream);
     case 128:
@@ -324,18 +329,27 @@ int launch_prefill(const void* q, const void* k, const void* v, const void* mask
 
 extern "C" {
 
-// q/k/v/out: [B, T, H*D] bf16 with D = 64, contiguous, 16-byte aligned;
-// mask: [B, T] int32 or null.  Returns the CUDA error code of the launch (0 = success).
+// q/k/v/out: [B, T, H*D] bf16 with D = 16, 32 or 64, contiguous, 16-byte
+// aligned; mask: [B, T] int32 or null.  Returns the CUDA error code of the
+// launch (0 = success).
 int ta_encoder_attention(const void* q, const void* k, const void* v, const void* mask,
                          void* out, int B, int T, int H, int D, float scale,
                          void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || D != 64) return (int)cudaErrorInvalidValue;
-  return launch<64, false, false>(q, k, v, mask, out, nullptr, nullptr, B, T, H, H, scale,
-                                  stream);
+  if (T <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 16:
+      return launch<16, false, false>(q, k, v, mask, out, nullptr, nullptr, B, T, H, H, scale, stream);
+    case 32:
+      return launch<32, false, false>(q, k, v, mask, out, nullptr, nullptr, B, T, H, H, scale, stream);
+    case 64:
+      return launch<64, false, false>(q, k, v, mask, out, nullptr, nullptr, B, T, H, H, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-// q/out: [B, T, Hq, D]; k/v: [B, T, Hkv, D] (Hq % Hkv == 0, D = 64, 128 or
-// 256); bf16, contiguous, 16-byte aligned; mask: [B, T] int32 or null.  Causal.
+// q/out: [B, T, Hq, D]; k/v: [B, T, Hkv, D] (Hq % Hkv == 0, D = 16, 32, 64,
+// 128 or 256); bf16, contiguous, 16-byte aligned; mask: [B, T] int32 or null.  Causal.
 int ta_prefill_attention(const void* q, const void* k, const void* v, const void* mask,
                          void* out, int B, int T, int Hq, int Hkv, int D, float scale,
                          void* stream) {

@@ -58,10 +58,11 @@
 
 namespace {
 
+using ta::key_state_of;
 using ta::ld32;
 using ta::mma_16816;
+using ta::p_and_ds;
 using ta::pack_bf16;
-using ta::MASK_VALUE;
 
 template <int D>
 struct Tile {
@@ -186,23 +187,6 @@ __device__ __forceinline__ void store_rows(const float* acc, int row, int t4, in
           pack_bf16(x.x * scale, x.y * scale);
     }
   }
-}
-
-// P and dS of one score (see the header); `state` is the key's state.
-__device__ __forceinline__ void p_and_ds(float s, float dp, int state, bool visible,
-                                         float scale_log2, float m, float l, float delta,
-                                         float& p, float& ds) {
-  p = 0.f;
-  ds = 0.f;
-  if (visible && state >= 0) {
-    const float x = state == 0 ? MASK_VALUE : s * scale_log2;
-    p = exp2f(x - m) / l;
-    if (state == 1) ds = p * (dp - delta);
-  }
-}
-
-__device__ __forceinline__ int key_state_of(const int* mask_row, int key, int T) {
-  return key >= T ? -1 : (mask_row == nullptr || mask_row[key] != 0) ? 1 : 0;
 }
 
 template <int D>
@@ -438,8 +422,8 @@ bool valid(const BwdArgs& a) { return a.T > 0 && a.B > 0 && a.Hkv > 0 && a.Hq % 
 
 extern "C" {
 
-// q/dout: [B, T, Hq, D]; k/v: [B, T, Hkv, D] (Hq % Hkv == 0, D = 64, 128 or
-// 256), bf16, contiguous, 16-byte aligned; mask: [B, T] int32 or null;
+// q/dout: [B, T, Hq, D]; k/v: [B, T, Hkv, D] (Hq % Hkv == 0, D = 16, 32, 64,
+// 128 or 256), bf16, contiguous, 16-byte aligned; mask: [B, T] int32 or null;
 // m/l/delta: [B, Hq, T] fp32 (ta_prefill_attention_fwd_stats' m and l, and
 // rowsum(dout * out)); dk/dv: [B, T, Hkv, D] bf16, written whole.
 // Returns the CUDA error code of the launch (0 = success).
@@ -451,6 +435,8 @@ int ta_prefill_attention_bwd_dkv(const void* q, const void* k, const void* v, co
                   (cudaStream_t)stream};
   if (!valid(a)) return (int)cudaErrorInvalidValue;
   switch (D) {
+    case 16: return launch_dkv<16>(a, dk, dv);
+    case 32: return launch_dkv<32>(a, dk, dv);
     case 64: return launch_dkv<64>(a, dk, dv);
     case 128: return launch_dkv<128>(a, dk, dv);
     case 256: return launch_dkv<256>(a, dk, dv);
@@ -467,6 +453,8 @@ int ta_prefill_attention_bwd_dq(const void* q, const void* k, const void* v, con
                   (cudaStream_t)stream};
   if (!valid(a)) return (int)cudaErrorInvalidValue;
   switch (D) {
+    case 16: return launch_dq<16>(a, dq);
+    case 32: return launch_dq<32>(a, dq);
     case 64: return launch_dq<64>(a, dq);
     case 128: return launch_dq<128>(a, dq);
     case 256: return launch_dq<256>(a, dq);

@@ -1,7 +1,8 @@
 // Decode-step attention over the KV cache for Hopper (sm_90a): one query row
 // per head attends over the valid cache prefix [0, kv_len) plus the fresh
-// (not yet cached) row.  bf16 queries and fresh K/V, a cache of int8 with
-// fp32 per-entry scales or of bf16, fp32 arithmetic, bf16 output.
+// (not yet cached) row.  Queries, fresh K/V and the output in bf16 or fp32
+// (the model's dtype), a cache of int8 with fp32 per-entry scales or of the
+// model's dtype, fp32 arithmetic.
 //
 //   ta_decode_attention         replaces tiny_audio_tpu/ops/decode_attention.py
 //                               (decode_attention_tpu): the module decode
@@ -16,7 +17,9 @@
 // Both run one device function for the attention (attend below).
 //
 // Design (simple and exact first):
-//   - head_dim D in {64, 128, 256} (a template parameter) and GQA group
+//   - head_dim D in {16, 32, 64, 128, 256} (a template parameter), the
+//     model's dtype Q (bf16 or fp32) and the cache's (int8 or Q) template
+//     parameters too, and GQA group
 //     Hq / Hkv in {1, 2, 3, 4, 8} (a runtime bound): one block of 8 warps
 //     per (batch row, KV head) holds up to MAX_HEADS = 4 query heads of the
 //     group, which share every K/V row it reads once; a group of 8 takes
@@ -26,7 +29,8 @@
 //   - rows at kv_len and beyond are never read, so NaN or garbage there
 //     cannot reach the output (the Pallas kernel zero-fills those slabs);
 //   - each lane loads 16 bytes of a row (an int8 row of D = 128 is 8 lanes,
-//     4 rows per warp step; a bf16 row 16 lanes, 2 rows), dequantizes in
+//     4 rows per warp step; a bf16 row 16 lanes, 2 rows), or 32 where a row
+//     is wider than a warp's 16-byte loads (fp32 at D = 256), dequantizes in
 //     registers and prefetches its next row before the math;
 //   - scores are q.k * D^-0.5 * k_scale in fp32 (log2 units); an exact
 //     online softmax in fp32 per lane, merged across the rows of a warp with
@@ -66,15 +70,15 @@ constexpr int NUM_THREADS = NUM_WARPS * 32;
 constexpr int MAX_HEADS = 4;  // query heads one block holds
 
 struct Args {
-  const __nv_bfloat16* q;        // [B, Hq, D]
-  void* cache_k;                 // [B, S, Hkv, D] int8 or bf16
+  const void* q;                 // [B, Hq, D] bf16 or fp32 (Q)
+  void* cache_k;                 // [B, S, Hkv, D] int8 or Q
   void* cache_v;
-  float* k_scale;                // [B, S, Hkv] fp32, null for a bf16 cache
+  float* k_scale;                // [B, S, Hkv] fp32, null for a cache of Q
   float* v_scale;
-  const __nv_bfloat16* fresh_k;  // [B, Hkv, D]
-  const __nv_bfloat16* fresh_v;
+  const void* fresh_k;           // [B, Hkv, D] Q
+  const void* fresh_v;
   const int* kv_len;             // device scalar: valid prefix, row of the append
-  __nv_bfloat16* out;            // [B, Hq, D]
+  void* out;                     // [B, Hq, D] Q
   int S;
   int Hkv;
   int group;                     // Hq / Hkv
@@ -84,12 +88,25 @@ struct Args {
 
 __device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(float x) { return x; }
 
-template <typename T, int N>
-__device__ __forceinline__ void unpack(const uint4& raw, float (&x)[N]) {
-  const T* e = reinterpret_cast<const T*>(&raw);
+template <typename Q> __device__ __forceinline__ Q from_float(float x);
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+
+template <typename T, int N, int NV>
+__device__ __forceinline__ void unpack(const uint4 (&raw)[NV], float (&x)[N]) {
+  const T* e = reinterpret_cast<const T*>(raw);
 #pragma unroll
   for (int i = 0; i < N; ++i) x[i] = to_float(e[i]);
+}
+
+template <int NV>
+__device__ __forceinline__ void load_row(const void* p, uint4 (&raw)[NV]) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) raw[i] = reinterpret_cast<const uint4*>(p)[i];
 }
 
 // exp2(m_part - m_total) as a merge weight; a part that saw no row has weight 0.
@@ -99,14 +116,20 @@ __device__ __forceinline__ float merge_weight(float m_part, float m_total) {
 
 // Query heads h0 .. h0 + a.heads - 1 of KV head kvh (heads counted within
 // the group) attend over rows [0, kv_len) of batch row b plus the fresh row.
-template <typename T, int D>
+template <typename Q, typename T, int D>
 __device__ void attend(const Args& a, const int b, const int kvh, const int h0, const int kv_len) {
   constexpr bool QUANT = std::is_same<T, int8_t>::value;
-  constexpr int EPL = 16 / sizeof(T);  // cache elements a lane loads per row
+  // cache elements a lane loads per row: 16 bytes, or a warp's share of a
+  // row that 32 lanes of 16 bytes do not cover
+  constexpr int EPL = 16 / sizeof(T) > D / 32 ? 16 / sizeof(T) : D / 32;
+  constexpr int NV = EPL * sizeof(T) / 16;  // 16-byte loads per lane and row
   constexpr int LPR = D / EPL;         // lanes per row
   constexpr int RPW = 32 / LPR;        // rows per warp step
   constexpr int ROWS_PER_STEP = NUM_WARPS * RPW;
-  constexpr int CPL = D / 32;          // fresh-row columns per lane
+  constexpr int CPL = D >= 32 ? D / 32 : 1;  // fresh-row columns per lane (D < 32: lanes < D)
+  const Q* q_all = static_cast<const Q*>(a.q);
+  const Q* fresh_k = static_cast<const Q*>(a.fresh_k);
+  const Q* fresh_v = static_cast<const Q*>(a.fresh_v);
 
   __shared__ float sm_m[NUM_WARPS][MAX_HEADS];
   __shared__ float sm_l[NUM_WARPS][MAX_HEADS];
@@ -120,7 +143,7 @@ __device__ void attend(const Args& a, const int b, const int kvh, const int h0, 
   const int col0 = (lane % LPR) * EPL;   // this lane's columns
   const int hq = a.Hkv * a.group;
   const int64_t head0 = (int64_t)b * hq + (int64_t)kvh * a.group + h0;
-  const __nv_bfloat16* q_rows = a.q + head0 * D;
+  const Q* q_rows = q_all + head0 * D;
   const int64_t fresh_off = ((int64_t)b * a.Hkv + kvh) * D;
 
   // The fresh row's score per query head: warp g, CPL columns a lane.
@@ -129,7 +152,7 @@ __device__ void attend(const Args& a, const int b, const int kvh, const int h0, 
 #pragma unroll
     for (int e = 0; e < CPL; ++e) {
       const int c = lane * CPL + e;
-      dot += __bfloat162float(q_rows[warp * D + c]) * __bfloat162float(a.fresh_k[fresh_off + c]);
+      if (c < D) dot += to_float(q_rows[warp * D + c]) * to_float(fresh_k[fresh_off + c]);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
@@ -141,7 +164,7 @@ __device__ void attend(const Args& a, const int b, const int kvh, const int h0, 
   for (int g = 0; g < MAX_HEADS; ++g) {
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
-      q[g][e] = g < heads ? __bfloat162float(q_rows[g * D + col0 + e]) : 0.f;
+      q[g][e] = g < heads ? to_float(q_rows[g * D + col0 + e]) : 0.f;
     }
   }
 
@@ -162,12 +185,14 @@ __device__ void attend(const Args& a, const int b, const int kvh, const int h0, 
 
   // The loop bound is uniform across the warp (the shuffles need every
   // lane); a row group past kv_len loads nothing and updates nothing.
-  uint4 k_raw = make_uint4(0u, 0u, 0u, 0u), v_raw = k_raw;
+  uint4 k_raw[NV], v_raw[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) k_raw[i] = v_raw[i] = make_uint4(0u, 0u, 0u, 0u);
   float ks = 1.f, vs = 1.f;
   int row = warp * RPW + sub;
   if (row < kv_len) {
-    k_raw = *reinterpret_cast<const uint4*>(k_head + row * row_stride);
-    v_raw = *reinterpret_cast<const uint4*>(v_head + row * row_stride);
+    load_row(k_head + row * row_stride, k_raw);
+    load_row(v_head + row * row_stride, v_raw);
     if (QUANT) {
       ks = a.k_scale[scale_off + (int64_t)row * a.Hkv];
       vs = a.v_scale[scale_off + (int64_t)row * a.Hkv];
@@ -176,15 +201,15 @@ __device__ void attend(const Args& a, const int b, const int kvh, const int h0, 
   for (int base = warp * RPW; base < kv_len; base += ROWS_PER_STEP, row += ROWS_PER_STEP) {
     const bool valid = row < kv_len;
     float k[EPL], v[EPL];
-    unpack<T, EPL>(k_raw, k);
-    unpack<T, EPL>(v_raw, v);
+    unpack<T, EPL, NV>(k_raw, k);
+    unpack<T, EPL, NV>(v_raw, v);
     const float k_mul = a.scale_log2 * ks;
     const float v_mul = vs;
     // prefetch this lane's next row before the math
     const int next = row + ROWS_PER_STEP;
     if (next < kv_len) {
-      k_raw = *reinterpret_cast<const uint4*>(k_head + next * row_stride);
-      v_raw = *reinterpret_cast<const uint4*>(v_head + next * row_stride);
+      load_row(k_head + next * row_stride, k_raw);
+      load_row(v_head + next * row_stride, v_raw);
       if (QUANT) {
         ks = a.k_scale[scale_off + (int64_t)next * a.Hkv];
         vs = a.v_scale[scale_off + (int64_t)next * a.Hkv];
@@ -258,37 +283,39 @@ __device__ void attend(const Args& a, const int b, const int kvh, const int h0, 
     for (int w = 0; w < NUM_WARPS; ++w) m_all = fmaxf(m_all, sm_m[w][g]);
     const float p_self = exp2f(s_self - m_all);
     float denom = p_self;
-    float out = p_self * __bfloat162float(a.fresh_v[fresh_off + c]);
+    float out = p_self * to_float(fresh_v[fresh_off + c]);
 #pragma unroll
     for (int w = 0; w < NUM_WARPS; ++w) {
       const float wt = merge_weight(sm_m[w][g], m_all);
       denom += sm_l[w][g] * wt;
       out += sm_acc[w][g][c] * wt;
     }
-    a.out[(head0 + g) * D + c] = __float2bfloat16(out / denom);
+    static_cast<Q*>(a.out)[(head0 + g) * D + c] = from_float<Q>(out / denom);
   }
 }
 
-// Row kv_len of one head's K and V: quantized (int8) or copied (bf16); one warp.
-template <typename T, int D>
+// Row kv_len of one head's K and V: quantized (int8) or copied (a cache of
+// Q); one warp.
+template <typename Q, typename T, int D>
 __device__ void append_row(const Args& a, const int b, const int kvh, const int kv_len) {
   constexpr bool QUANT = std::is_same<T, int8_t>::value;
-  constexpr int CPL = D / 32;  // columns per lane
+  constexpr int CPL = D >= 32 ? D / 32 : 1;  // columns per lane (D < 32: lanes < D)
   const int lane = threadIdx.x % 32;
   const int c = lane * CPL;
+  const bool active = c < D;
   const int64_t fresh_off = ((int64_t)b * a.Hkv + kvh) * D + c;
   const int64_t row_off = ((int64_t)b * a.S + kv_len) * a.Hkv * D + (int64_t)kvh * D + c;
   const int64_t scale_at = ((int64_t)b * a.S + kv_len) * a.Hkv + kvh;
 #pragma unroll
   for (int which = 0; which < 2; ++which) {
-    const __nv_bfloat16* src = (which == 0 ? a.fresh_k : a.fresh_v) + fresh_off;
+    const Q* src = static_cast<const Q*>(which == 0 ? a.fresh_k : a.fresh_v) + fresh_off;
     T* dst = static_cast<T*>(which == 0 ? a.cache_k : a.cache_v) + row_off;
     if constexpr (QUANT) {
       float x[CPL];
       float amax = 0.f;
 #pragma unroll
       for (int e = 0; e < CPL; ++e) {
-        x[e] = __bfloat162float(src[e]);
+        x[e] = active ? to_float(src[e]) : 0.f;
         amax = fmaxf(amax, fabsf(x[e]));
       }
 #pragma unroll
@@ -298,25 +325,27 @@ __device__ void append_row(const Args& a, const int b, const int kvh, const int 
       const float scale = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
 #pragma unroll
       for (int e = 0; e < CPL; ++e) {
-        reinterpret_cast<int8_t*>(dst)[e] = static_cast<int8_t>(
-            fminf(fmaxf(rintf(__fdiv_rn(x[e], scale)), -127.f), 127.f));
+        if (active) {
+          reinterpret_cast<int8_t*>(dst)[e] = static_cast<int8_t>(
+              fminf(fmaxf(rintf(__fdiv_rn(x[e], scale)), -127.f), 127.f));
+        }
       }
       if (lane == 0) (which == 0 ? a.k_scale : a.v_scale)[scale_at] = scale;
-    } else {
+    } else if (active) {
 #pragma unroll
       for (int e = 0; e < CPL; ++e) dst[e] = src[e];
     }
   }
 }
 
-template <typename T, int D>
+template <typename Q, typename T, int D>
 __global__ void __launch_bounds__(NUM_THREADS) decode_attention_kernel(Args a) {
   const int kv_len = min(max(*a.kv_len, 0), a.S);
   const int chunks = a.group / a.heads;
-  attend<T, D>(a, blockIdx.y, blockIdx.x / chunks, (blockIdx.x % chunks) * a.heads, kv_len);
+  attend<Q, T, D>(a, blockIdx.y, blockIdx.x / chunks, (blockIdx.x % chunks) * a.heads, kv_len);
 }
 
-template <typename T, int D>
+template <typename Q, typename T, int D>
 __global__ void __launch_bounds__(NUM_THREADS) decode_attention_update_kernel(Args a) {
   const int kv_len = *a.kv_len;
   const int chunks = a.group / a.heads;
@@ -325,21 +354,27 @@ __global__ void __launch_bounds__(NUM_THREADS) decode_attention_update_kernel(Ar
   // one block per KV head appends; a row outside the cache is not written
   // (the wrapper checks a host kv_len)
   if (chunk == 0 && threadIdx.x / 32 == NUM_WARPS - 1 && kv_len >= 0 && kv_len < a.S) {
-    append_row<T, D>(a, blockIdx.y, kvh, kv_len);
+    append_row<Q, T, D>(a, blockIdx.y, kvh, kv_len);
   }
-  attend<T, D>(a, blockIdx.y, kvh, chunk * a.heads, min(max(kv_len, 0), a.S));
+  attend<Q, T, D>(a, blockIdx.y, kvh, chunk * a.heads, min(max(kv_len, 0), a.S));
 }
 
-template <typename T, int D>
+template <typename Q, typename T, int D>
 void launch_typed(bool update, const Args& a, dim3 grid, cudaStream_t s) {
-  if (update) decode_attention_update_kernel<T, D><<<grid, NUM_THREADS, 0, s>>>(a);
-  else decode_attention_kernel<T, D><<<grid, NUM_THREADS, 0, s>>>(a);
+  if (update) decode_attention_update_kernel<Q, T, D><<<grid, NUM_THREADS, 0, s>>>(a);
+  else decode_attention_kernel<Q, T, D><<<grid, NUM_THREADS, 0, s>>>(a);
 }
 
 template <int D>
-void launch_dim(bool update, bool quantized, const Args& a, dim3 grid, cudaStream_t s) {
-  if (quantized) launch_typed<int8_t, D>(update, a, grid, s);
-  else launch_typed<__nv_bfloat16, D>(update, a, grid, s);
+void launch_dim(bool update, bool quantized, bool fp32, const Args& a, dim3 grid,
+                cudaStream_t s) {
+  if (fp32) {
+    if (quantized) launch_typed<float, int8_t, D>(update, a, grid, s);
+    else launch_typed<float, float, D>(update, a, grid, s);
+  } else {
+    if (quantized) launch_typed<__nv_bfloat16, int8_t, D>(update, a, grid, s);
+    else launch_typed<__nv_bfloat16, __nv_bfloat16, D>(update, a, grid, s);
+  }
 }
 
 bool supported_group(int group) {
@@ -348,23 +383,24 @@ bool supported_group(int group) {
 
 int launch(bool update, const void* q, void* cache_k, void* cache_v, void* k_scale,
            void* v_scale, const void* fresh_k, const void* fresh_v, const void* kv_len,
-           void* out, int B, int S, int Hq, int Hkv, int head_dim, int quantized,
+           void* out, int B, int S, int Hq, int Hkv, int head_dim, int quantized, int fp32,
            float scale, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || !supported_group(Hq / Hkv) ||
-      (head_dim != 64 && head_dim != 128 && head_dim != 256) ||
+      (head_dim != 16 && head_dim != 32 && head_dim != 64 && head_dim != 128 &&
+       head_dim != 256) ||
       (quantized && (k_scale == nullptr || v_scale == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   Args a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.q = q;
   a.cache_k = cache_k;
   a.cache_v = cache_v;
   a.k_scale = static_cast<float*>(k_scale);
   a.v_scale = static_cast<float*>(v_scale);
-  a.fresh_k = static_cast<const __nv_bfloat16*>(fresh_k);
-  a.fresh_v = static_cast<const __nv_bfloat16*>(fresh_v);
+  a.fresh_k = fresh_k;
+  a.fresh_v = fresh_v;
   a.kv_len = static_cast<const int*>(kv_len);
-  a.out = static_cast<__nv_bfloat16*>(out);
+  a.out = out;
   a.S = S;
   a.Hkv = Hkv;
   a.group = Hq / Hkv;
@@ -372,9 +408,13 @@ int launch(bool update, const void* q, void* cache_k, void* cache_v, void* k_sca
   a.scale_log2 = scale * 1.4426950408889634f;
   const dim3 grid(Hkv * (a.group / a.heads), B);
   cudaStream_t s = (cudaStream_t)stream;
-  if (head_dim == 64) launch_dim<64>(update, quantized, a, grid, s);
-  else if (head_dim == 128) launch_dim<128>(update, quantized, a, grid, s);
-  else launch_dim<256>(update, quantized, a, grid, s);
+  switch (head_dim) {
+    case 16: launch_dim<16>(update, quantized, fp32, a, grid, s); break;
+    case 32: launch_dim<32>(update, quantized, fp32, a, grid, s); break;
+    case 64: launch_dim<64>(update, quantized, fp32, a, grid, s); break;
+    case 128: launch_dim<128>(update, quantized, fp32, a, grid, s); break;
+    default: launch_dim<256>(update, quantized, fp32, a, grid, s); break;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -382,18 +422,20 @@ int launch(bool update, const void* q, void* cache_k, void* cache_v, void* k_sca
 
 extern "C" {
 
-// q/out: [B, Hq, D] bf16; cache_k/v: [B, S, Hkv, D] int8 (quantized = 1, with
-// k/v_scale [B, S, Hkv] fp32) or bf16 (quantized = 0, scales null); fresh_k/v:
-// [B, Hkv, D] bf16; kv_len: device int32 scalar.  D in {64, 128, 256},
-// Hq / Hkv in {1, 2, 3, 4, 8}; every tensor contiguous and 16-byte aligned.
+// q/out: [B, Hq, D] bf16 (fp32 = 0) or fp32 (fp32 = 1); cache_k/v:
+// [B, S, Hkv, D] int8 (quantized = 1, with k/v_scale [B, S, Hkv] fp32) or
+// q's dtype (quantized = 0, scales null); fresh_k/v: [B, Hkv, D] q's dtype;
+// kv_len: device int32 scalar.  D in {16, 32, 64, 128, 256}, Hq / Hkv in
+// {1, 2, 3, 4, 8}; every tensor contiguous and 16-byte aligned.
 // Returns the launch's CUDA error code.
 int ta_decode_attention(const void* q, const void* cache_k, const void* cache_v,
                         const void* k_scale, const void* v_scale, const void* fresh_k,
                         const void* fresh_v, const void* kv_len, void* out, int B, int S,
-                        int Hq, int Hkv, int D_, int quantized, float scale, void* stream) {
+                        int Hq, int Hkv, int D_, int quantized, int fp32, float scale,
+                        void* stream) {
   return launch(false, q, const_cast<void*>(cache_k), const_cast<void*>(cache_v),
                 const_cast<void*>(k_scale), const_cast<void*>(v_scale), fresh_k, fresh_v,
-                kv_len, out, B, S, Hq, Hkv, D_, quantized, scale, stream);
+                kv_len, out, B, S, Hq, Hkv, D_, quantized, fp32, scale, stream);
 }
 
 // As ta_decode_attention, and writes row kv_len of cache_k/v (and, quantized,
@@ -401,9 +443,9 @@ int ta_decode_attention(const void* q, const void* cache_k, const void* cache_v,
 int ta_decode_attention_update(const void* q, void* cache_k, void* cache_v, void* k_scale,
                                void* v_scale, const void* fresh_k, const void* fresh_v,
                                const void* kv_len, void* out, int B, int S, int Hq, int Hkv,
-                               int D_, int quantized, float scale, void* stream) {
+                               int D_, int quantized, int fp32, float scale, void* stream) {
   return launch(true, q, cache_k, cache_v, k_scale, v_scale, fresh_k, fresh_v, kv_len, out,
-                B, S, Hq, Hkv, D_, quantized, scale, stream);
+                B, S, Hq, Hkv, D_, quantized, fp32, scale, stream);
 }
 
 }  // extern "C"

@@ -13,6 +13,12 @@
 //   ta_wq_matmul    replaces tiny_audio_tpu/ops/wq_matmul.py (wq_matmul):
 //                   out = bf16((x . bf16(w_i8[:, n])) * scale[n]), int8
 //                   converted in registers (exact), fp32 sums; w is [K, N].
+//   ta_a8t_matmul   kernel #9d, replaces scripts/bench_wq_head.py
+//                   (build_a8t(nt), pallas_call :197, body _a8t_kernel
+//                   :174): #5's product on an activation quantized
+//                   beforehand (x_i8, sx), one block per nt output channels;
+//                   #5's tiles with the quantization prologue replaced by a
+//                   copy (the PREQUANT instance of w8a8_matmul_kernel).
 //
 // What bounds them on the H100: at B <= 16 a product reads each weight byte
 // once and does 2 B operations with it, far below the card's ridge, so the
@@ -72,10 +78,14 @@ struct A8Args {
   __nv_bfloat16* out;      // [B, N]
   int B, K, N;
   int rows_per_pass;       // <= MAX_ROWS, limited by shared memory
+  const int8_t* x_i8;      // PREQUANT: [B, K] int8 and sx [B] fp32, quantized
+  const float* sx;         //   beforehand (x unused)
+  int block_tiles;         // > 0: block i takes tiles [i, i + 1) * block_tiles;
+                           // 0: the blocks stride over the tiles
 };
 
 // A lane owns RPL weight rows: a tile is 4 warps x 4 row groups x RPL rows.
-template <int RPL>
+template <int RPL, bool PREQUANT>
 __global__ void __launch_bounds__(A8_THREADS) w8a8_matmul_kernel(A8Args a) {
   constexpr int A8_TILE = A8_WARPS * 4 * RPL;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -88,39 +98,51 @@ __global__ void __launch_bounds__(A8_THREADS) w8a8_matmul_kernel(A8Args a) {
 
   for (int b0 = 0; b0 < a.B; b0 += a.rows_per_pass) {
     const int bc = min(a.rows_per_pass, a.B - b0);
-    // quantize_act, rows b0 .. b0 + bc - 1: amax by one warp per row ...
-    for (int r = warp; r < bc; r += A8_WARPS) {
-      const __nv_bfloat16* xr = a.x + (int64_t)(b0 + r) * K;
-      float m = 0.f;
-      for (int k = lane * 8; k < K; k += 32 * 8) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(xr + k);
+    if constexpr (PREQUANT) {  // x_i8 and sx as given
+      if (threadIdx.x < bc) s_sx[threadIdx.x] = a.sx[b0 + threadIdx.x];
+      for (int i = threadIdx.x * 16; i < bc * K; i += A8_THREADS * 16) {
+        *reinterpret_cast<int4*>(s_x + i) =
+            *reinterpret_cast<const int4*>(a.x_i8 + (int64_t)b0 * K + i);
+      }
+      __syncthreads();
+    } else {
+      // quantize_act, rows b0 .. b0 + bc - 1: amax by one warp per row ...
+      for (int r = warp; r < bc; r += A8_WARPS) {
+        const __nv_bfloat16* xr = a.x + (int64_t)(b0 + r) * K;
+        float m = 0.f;
+        for (int k = lane * 8; k < K; k += 32 * 8) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(xr + k);
+          const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) m = fmaxf(m, fabsf(__bfloat162float(e[i])));
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+        if (lane == 0) s_sx[r] = __fdiv_rn(fmaxf(m, 1e-12f), 127.f);
+      }
+      __syncthreads();
+      // ... then x_i8 = clamp(rint(x / sx)), 8 elements a thread per step
+      for (int i = threadIdx.x * 8; i < bc * K; i += A8_THREADS * 8) {
+        const int r = i / K;
+        const uint4 raw = *reinterpret_cast<const uint4*>(a.x + (int64_t)b0 * K + i);
         const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+        const float sx = s_sx[r];
+        uint2 packed;
+        int8_t* q = reinterpret_cast<int8_t*>(&packed);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) m = fmaxf(m, fabsf(__bfloat162float(e[i])));
+        for (int j = 0; j < 8; ++j) {
+          const int v = __float2int_rn(__fdiv_rn(__bfloat162float(e[j]), sx));
+          q[j] = static_cast<int8_t>(min(max(v, -127), 127));
+        }
+        *reinterpret_cast<uint2*>(s_x + i) = packed;
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      if (lane == 0) s_sx[r] = __fdiv_rn(fmaxf(m, 1e-12f), 127.f);
+      __syncthreads();
     }
-    __syncthreads();
-    // ... then x_i8 = clamp(rint(x / sx)), 8 elements a thread per step
-    for (int i = threadIdx.x * 8; i < bc * K; i += A8_THREADS * 8) {
-      const int r = i / K;
-      const uint4 raw = *reinterpret_cast<const uint4*>(a.x + (int64_t)b0 * K + i);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-      const float sx = s_sx[r];
-      uint2 packed;
-      int8_t* q = reinterpret_cast<int8_t*>(&packed);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int v = __float2int_rn(__fdiv_rn(__bfloat162float(e[j]), sx));
-        q[j] = static_cast<int8_t>(min(max(v, -127), 127));
-      }
-      *reinterpret_cast<uint2*>(s_x + i) = packed;
-    }
-    __syncthreads();
 
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int first = a.block_tiles ? blockIdx.x * a.block_tiles : blockIdx.x;
+    const int last = a.block_tiles ? min(tiles, first + a.block_tiles) : tiles;
+    const int step = a.block_tiles ? 1 : gridDim.x;
+    for (int tile = first; tile < last; tile += step) {
       const int n0 = tile * A8_TILE + warp * 4 * RPL + (lane >> 3) * RPL;
       const int8_t* wrow[RPL];
       bool ok[RPL];
@@ -362,16 +384,16 @@ int launch_wq(const WqArgs& args, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <int RPL>
-int launch_a8(const A8Args& a, int smem, void* stream) {
+template <int RPL, bool PREQUANT>
+int launch_a8(const A8Args& a, int smem, int blocks, void* stream) {
   static int allowed = 0;
-  cudaError_t err = allow_smem(w8a8_matmul_kernel<RPL>, smem, allowed);
+  cudaError_t err = allow_smem(w8a8_matmul_kernel<RPL, PREQUANT>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
-  const int tile = A8_WARPS * 4 * RPL;
-  w8a8_matmul_kernel<RPL><<<grid_for((a.N + tile - 1) / tile), A8_THREADS, smem,
-                            (cudaStream_t)stream>>>(a);
+  w8a8_matmul_kernel<RPL, PREQUANT><<<blocks, A8_THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
+
+int a8_rows(int K) { return std::min(MAX_ROWS, (SMEM_BUDGET - A8_HEADER) / K); }
 
 }  // namespace
 
@@ -383,13 +405,36 @@ extern "C" {
 int ta_w8a8_matmul(const void* x, const void* wt, const void* scale, void* out, int B, int K,
                    int N, void* stream) {
   if (B <= 0 || K <= 0 || N <= 0 || K % 16 != 0) return (int)cudaErrorInvalidValue;
-  const int rows = std::min(MAX_ROWS, (SMEM_BUDGET - A8_HEADER) / K);
+  const int rows = a8_rows(K);
   if (rows < 1) return (int)cudaErrorInvalidValue;
   const int smem = A8_HEADER + rows * K;
   A8Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(wt),
-           static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), B, K, N, rows};
-  if (wide(N, A8_WARPS * 4 * 4)) return launch_a8<4>(a, smem, stream);
-  return launch_a8<1>(a, smem, stream);
+           static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), B, K, N, rows,
+           nullptr, nullptr, 0};
+  constexpr int wide_tile = A8_WARPS * 4 * 4;
+  if (wide(N, wide_tile)) {
+    return launch_a8<4, false>(a, smem, grid_for((N + wide_tile - 1) / wide_tile), stream);
+  }
+  return launch_a8<1, false>(a, smem, grid_for((N + A8_WARPS * 4 - 1) / (A8_WARPS * 4)), stream);
+}
+
+// x_i8 [B, K] int8 and sx [B] fp32 (quantize_act's), wt [N, K] int8, scale
+// [N] fp32 -> out [B, N] bf16; block i computes channels [i nt, (i + 1) nt).
+// K a multiple of 16, nt of 64; x_i8 and wt 16-byte aligned, every tensor
+// contiguous.  Returns the launch's CUDA error code.
+int ta_a8t_matmul(const void* x_i8, const void* sx, const void* wt, const void* scale, void* out,
+                  int B, int K, int N, int nt, void* stream) {
+  constexpr int tile = A8_WARPS * 4 * 4;
+  if (B <= 0 || K <= 0 || N <= 0 || K % 16 != 0 || nt <= 0 || nt % tile != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int rows = a8_rows(K);
+  if (rows < 1) return (int)cudaErrorInvalidValue;
+  const int smem = A8_HEADER + rows * K;
+  A8Args a{nullptr, static_cast<const int8_t*>(wt), static_cast<const float*>(scale),
+           static_cast<__nv_bfloat16*>(out), B, K, N, rows, static_cast<const int8_t*>(x_i8),
+           static_cast<const float*>(sx), nt / tile};
+  return launch_a8<4, true>(a, smem, (N + nt - 1) / nt, stream);
 }
 
 // x [B, K] bf16, w [K, N] int8, scale [N] fp32 -> out [B, N] bf16; every

@@ -1,5 +1,6 @@
-// Helpers shared by the attention kernels (attention.cu, attention_bwd.cu):
-// the bf16 tensor-core product mma.sync.m16n8k16 and its fragment packing.
+// Helpers shared by the attention kernels (attention.cu, attention_bwd.cu,
+// attention_f32.cu): the bf16 tensor-core product mma.sync.m16n8k16 and its
+// fragment packing, and the masking and P / dS formulas of the backward.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t4 = lane % 4), which every
 // kernel relies on:
@@ -40,6 +41,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A key's state: 1 real, 0 padding (scores MASK_VALUE), -1 past T (excluded).
+__device__ __forceinline__ int key_state_of(const int* mask_row, int key, int T) {
+  return key >= T ? -1 : (mask_row == nullptr || mask_row[key] != 0) ? 1 : 0;
+}
+
+// The backward's P and dS of one score s (raw q.k) from the forward's row
+// statistics m (max, log2 units) and l (sum), dP and delta = rowsum(dO * O):
+// P = exp2(s * scale_log2 - m) / l, dS = P * (dP - delta).  A padding key
+// has P > 0 only in a row whose visible keys are all padding, and no dS.
+__device__ __forceinline__ void p_and_ds(float s, float dp, int state, bool visible,
+                                         float scale_log2, float m, float l, float delta,
+                                         float& p, float& ds) {
+  p = 0.f;
+  ds = 0.f;
+  if (visible && state >= 0) {
+    const float x = state == 0 ? MASK_VALUE : s * scale_log2;
+    p = exp2f(x - m) / l;
+    if (state == 1) ds = p * (dp - delta);
+  }
 }
 
 }  // namespace ta

@@ -32,26 +32,32 @@ LIB_NAME = "libta_kernels.so"
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-_DECODE_ARGS = (_PTR,) * 9 + (_INT,) * 6 + (ctypes.c_float, _PTR)
+_DECODE_ARGS = (_PTR,) * 9 + (_INT,) * 7 + (ctypes.c_float, _PTR)
 _MATMUL_ARGS = (_PTR,) * 4 + (_INT,) * 3 + (_PTR,)
 _PREFILL_BWD_ARGS = (_INT,) * 5 + (ctypes.c_float, _PTR)
-# name -> argtypes of the C entry points in csrc/attention.cu,
-# csrc/attention_bwd.cu, csrc/decode_attention.cu, csrc/int8_matmul.cu,
-# csrc/encoder_ffn.cu and csrc/mel.cu
+_ENCODER_ATTENTION_ARGS = (_PTR,) * 5 + (_INT,) * 4 + (ctypes.c_float, _PTR)
+_PREFILL_ARGS = (_PTR,) * 5 + (_INT,) * 5 + (ctypes.c_float, _PTR)
+# name -> argtypes of the C entry points in csrc/*.cu; attention_f32.cu's
+# fp32 instances take their bf16 entry point's arguments
 _SIGNATURES = {
     "ta_encoder_ffn": (_PTR,) * 6 + (_INT,) * 3 + (_PTR,),
     "ta_log_mel": (_PTR,) * 4 + (_INT,) * 4 + (_PTR,),
-    "ta_encoder_attention": (_PTR, _PTR, _PTR, _PTR, _PTR,
-                             _INT, _INT, _INT, _INT, ctypes.c_float, _PTR),
-    "ta_prefill_attention": (_PTR, _PTR, _PTR, _PTR, _PTR,
-                             _INT, _INT, _INT, _INT, _INT, ctypes.c_float, _PTR),
-    "ta_prefill_attention_fwd_stats": (_PTR,) * 7 + _PREFILL_BWD_ARGS,
-    "ta_prefill_attention_bwd_dkv": (_PTR,) * 10 + _PREFILL_BWD_ARGS,
-    "ta_prefill_attention_bwd_dq": (_PTR,) * 9 + _PREFILL_BWD_ARGS,
+    **{name + suffix: argtypes
+       for suffix in ("", "_f32")
+       for name, argtypes in (
+           ("ta_encoder_attention", _ENCODER_ATTENTION_ARGS),
+           ("ta_prefill_attention", _PREFILL_ARGS),
+           ("ta_prefill_attention_fwd_stats", (_PTR,) * 7 + _PREFILL_BWD_ARGS),
+           ("ta_prefill_attention_bwd_dkv", (_PTR,) * 10 + _PREFILL_BWD_ARGS),
+           ("ta_prefill_attention_bwd_dq", (_PTR,) * 9 + _PREFILL_BWD_ARGS))},
     "ta_decode_attention": _DECODE_ARGS,
     "ta_decode_attention_update": _DECODE_ARGS,
     "ta_w8a8_matmul": _MATMUL_ARGS,
     "ta_wq_matmul": _MATMUL_ARGS,
+    "ta_encoder_attention_variant": (_PTR,) * 5 + (_INT,) * 6 + (ctypes.c_float, _PTR),
+    "ta_wq_matmul_pipe": (_PTR,) * 4 + (_INT,) * 4 + (_PTR,),
+    "ta_a8_matmul": (_PTR,) * 5 + (_INT,) * 4 + (_PTR,),
+    "ta_a8t_matmul": (_PTR,) * 5 + (_INT,) * 4 + (_PTR,),
 }
 
 
@@ -129,6 +135,14 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def dtype_entry(name: str, dtype) -> str:
+    """The entry point of attention kernel ``name`` for tensors of ``dtype``:
+    ``name`` itself for bf16, its fp32 instance ``name + "_f32"`` for fp32."""
+    import torch
+
+    return name + "_f32" if dtype == torch.float32 else name
 
 
 def launch(name: str, device, *args) -> None:

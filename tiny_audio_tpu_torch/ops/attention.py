@@ -7,7 +7,7 @@ Port of :mod:`tiny_audio_tpu.ops.attention`; public functions take the
   (:mod:`.encoder_attention`) for CUDA tensors, its plain version for CPU
   tensors; with grad, its backward recomputes the plain version;
 - decoder causal attention over fresh K/V, the prefill and the training
-  forward ([B, ~470-576, 16/8 GQA, 128]; head_dim 64/128/256) -> the causal
+  forward ([B, ~470-576, 16/8 GQA, 128]; head_dim 16-256, bf16 or fp32) -> the causal
   kernel (:mod:`.prefill_attention`) likewise; with grad, the forward keeps
   its softmax statistics and the backward runs the two backward kernels;
 - the decode step (q_len == 1 over the KV cache) with a scalar ``kv_len``

@@ -14,7 +14,8 @@ Replaces the JAX package's two Pallas decode kernels
 
 The kernels (``csrc/decode_attention.cu``) read only the first ``kv_len``
 cache rows, int8 dequantized in registers with the per-entry scales; the
-source's header states the bound.  The JAX package left both kernels off by
+source's header states the bound.  They work in the model's dtype, bf16 or
+fp32: q, the fresh K/V and the output in it, the cache in it or in int8.  The JAX package left both kernels off by
 default because XLA copies a loop-carried cache that a custom call reads; a
 torch cache written in place has no such copy.
 
@@ -32,10 +33,11 @@ import torch
 
 from tiny_audio_tpu_torch import kernels
 
-#: head_dims and GQA groups (query heads per KV head) the kernels take:
-#: Qwen3, Llama-3.2, SmolLM2 and Gemma shapes
-KERNEL_HEAD_DIMS = (64, 128, 256)
+#: head_dims, GQA groups (query heads per KV head) and model dtypes the
+#: kernels take: Qwen3, Llama-3.2, SmolLM2 and Gemma shapes, and the tiny towers
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 KERNEL_GROUPS = (1, 2, 3, 4, 8)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 KvLen = Union[int, torch.Tensor]
 
@@ -141,10 +143,10 @@ def decode_attention_update_plain(
 
 
 def _check_cuda_inputs(q, cache_k, cache_v, fresh_k, fresh_v, k_scale, v_scale) -> None:
-    if q.dtype != torch.bfloat16 or fresh_k.dtype != torch.bfloat16 or fresh_v.dtype != torch.bfloat16:
+    if q.dtype not in KERNEL_DTYPES or fresh_k.dtype != q.dtype or fresh_v.dtype != q.dtype:
         raise TypeError(
-            f"decode attention kernel takes bfloat16 q and fresh K/V, got "
-            f"{q.dtype}, {fresh_k.dtype}, {fresh_v.dtype}"
+            f"decode attention kernel takes q and fresh K/V of one dtype in {KERNEL_DTYPES}, "
+            f"got {q.dtype}, {fresh_k.dtype}, {fresh_v.dtype}"
         )
     if q.ndim != 3 or cache_k.ndim != 4 or cache_k.shape != cache_v.shape:
         raise ValueError(f"need q [B,Hq,D], cache [B,S,Hkv,D]: {q.shape} {cache_k.shape} "
@@ -165,9 +167,9 @@ def _check_cuda_inputs(q, cache_k, cache_v, fresh_k, fresh_v, k_scale, v_scale) 
     quantized = k_scale is not None
     if quantized != (v_scale is not None):
         raise ValueError("pass both k_scale and v_scale, or neither")
-    want_cache = torch.int8 if quantized else torch.bfloat16
+    want_cache = torch.int8 if quantized else q.dtype
     if cache_k.dtype != want_cache or cache_v.dtype != want_cache:
-        raise TypeError(f"{'an int8' if quantized else 'a bf16'} cache is needed, got {cache_k.dtype}")
+        raise TypeError(f"a {want_cache} cache is needed, got {cache_k.dtype}")
     tensors = [("q", q), ("cache_k", cache_k), ("cache_v", cache_v),
                ("fresh_k", fresh_k), ("fresh_v", fresh_v)]
     if quantized:
@@ -204,7 +206,7 @@ def _launch(name: str, q, cache_k, cache_v, fresh_k, fresh_v, kv_len, k_scale, v
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
         k_scale.data_ptr() if quantized else 0, v_scale.data_ptr() if quantized else 0,
         fresh_k.data_ptr(), fresh_v.data_ptr(), kv_len_t.data_ptr(), out.data_ptr(),
-        b, s, hq, hkv, d, int(quantized), d ** -0.5,
+        b, s, hq, hkv, d, int(quantized), int(q.dtype == torch.float32), d ** -0.5,
     )
     return out
 

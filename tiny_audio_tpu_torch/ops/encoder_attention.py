@@ -6,7 +6,10 @@ attention over packed heads ``[B, T, H*D]`` with a ``[B, T]`` key-padding
 mask, as the encoder's q/k/v projections produce them (no transpose).
 
 The kernel (``csrc/attention.cu``, ``ta_encoder_attention``) is a flash
-forward with an exact online softmax.  It does not carry over the TPU
+forward with an exact online softmax, for bf16 at head_dim 16, 32 and 64;
+its fp32 instance (``csrc/attention_f32.cu``, ``ta_encoder_attention_f32``)
+serves an fp32 model on the CUDA cores.  The output is in q's dtype, as the
+JAX kernel's is.  It does not carry over the TPU
 kernel's constant-shift softmax window, which was a workaround for the TPU's
 vector unit, nor its padding of T to a 256 multiple: it masks the ragged edge
 of T = 1500 itself.  It is bound by compute, not memory: the [T, T] scores
@@ -33,7 +36,8 @@ import torch
 from tiny_audio_tpu_torch import kernels
 from tiny_audio_tpu_torch.models.layers import attention as _attention
 
-KERNEL_HEAD_DIM = 64  # the serving path's; the library builds only this one
+KERNEL_HEAD_DIMS = (16, 32, 64)  # the flagship's 64 and the tiny towers' 16
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def encoder_attention_plain(
@@ -53,8 +57,8 @@ def encoder_attention_plain(
 
 
 def _check_cuda_inputs(q, k, v, num_heads: int) -> None:
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"encoder attention kernel takes bfloat16, got {q.dtype}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"encoder attention kernel takes {KERNEL_DTYPES}, got {q.dtype}")
     if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v must share one [B, T, H*D] shape: {q.shape} {k.shape} {v.shape}")
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -65,8 +69,8 @@ def _check_cuda_inputs(q, k, v, num_heads: int) -> None:
     if q.shape[-1] % num_heads:
         raise ValueError(f"{q.shape[-1]} features do not split into {num_heads} heads")
     d = q.shape[-1] // num_heads
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"encoder attention kernel takes head_dim {KERNEL_HEAD_DIM}, got {d}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"encoder attention kernel takes head_dim {KERNEL_HEAD_DIMS}, got {d}")
 
 
 def encoder_attention(
@@ -121,7 +125,7 @@ def _launch(q, k, v, kv_mask, num_heads: int) -> torch.Tensor:
         mask_ptr = kv_mask.data_ptr()
     out = torch.empty_like(q)
     kernels.launch(
-        "ta_encoder_attention", q.device,
+        kernels.dtype_entry("ta_encoder_attention", q.dtype), q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
         b, t, num_heads, d, d ** -0.5,
     )

@@ -11,7 +11,8 @@ repeats the KV heads to the query head count and pads T to a 128 multiple;
 the kernels read q ``[B, T, Hq, D]`` and k/v ``[B, T, Hkv, D]`` as the
 projections produce them (``kv_head = q_head // (Hq // Hkv)``), mask the
 ragged edge themselves and skip key tiles past the diagonal, at head_dim
-64, 128 and 256:
+16, 32, 64, 128 and 256, in bf16 (tensor cores) or fp32 (the ``_f32``
+instances of ``csrc/attention_f32.cu``, fp32 FMAs on the CUDA cores):
 
 - forward (``csrc/attention.cu``): ``ta_prefill_attention`` for serving,
   ``ta_prefill_attention_fwd_stats`` for training, which also writes each
@@ -41,7 +42,8 @@ import torch
 from tiny_audio_tpu_torch import kernels
 from tiny_audio_tpu_torch.models.layers import attention as _attention
 
-KERNEL_HEAD_DIMS = (64, 128, 256)  # the decoders the JAX package supports
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)  # the supported decoders and the tiny towers
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def prefill_attention_plain(
@@ -78,8 +80,8 @@ def prefill_attention_backward_plain(
 
 
 def _check_cuda_inputs(q, k, v) -> None:
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"prefill attention kernel takes bfloat16, got {q.dtype}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"prefill attention kernel takes {KERNEL_DTYPES}, got {q.dtype}")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"need q [B,T,Hq,D], k/v [B,T,Hkv,D]: {q.shape} {k.shape} {v.shape}")
     b, t, hq, d = q.shape
@@ -128,7 +130,7 @@ def prefill_attention_forward(
     out = torch.empty_like(q)
     m = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    kernels.launch("ta_prefill_attention_fwd_stats", q.device,
+    kernels.launch(kernels.dtype_entry("ta_prefill_attention_fwd_stats", q.dtype), q.device,
                    q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
                    m.data_ptr(), l.data_ptr(), *_shape_args(q, k))
     prefill_attention.launches += 1
@@ -152,7 +154,7 @@ def prefill_attention_bwd_dkv(q, k, v, padding_mask, dout, m, l, delta):
     _check_backward_inputs(q, k, v, dout, m, l, delta)
     mask, mask_ptr = _kernel_mask(padding_mask, q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    kernels.launch("ta_prefill_attention_bwd_dkv", q.device,
+    kernels.launch(kernels.dtype_entry("ta_prefill_attention_bwd_dkv", q.dtype), q.device,
                    q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, dout.data_ptr(),
                    m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                    *_shape_args(q, k))
@@ -166,7 +168,7 @@ def prefill_attention_bwd_dq(q, k, v, padding_mask, dout, m, l, delta):
     _check_backward_inputs(q, k, v, dout, m, l, delta)
     mask, mask_ptr = _kernel_mask(padding_mask, q)
     dq = torch.empty_like(q)
-    kernels.launch("ta_prefill_attention_bwd_dq", q.device,
+    kernels.launch(kernels.dtype_entry("ta_prefill_attention_bwd_dq", q.dtype), q.device,
                    q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, dout.data_ptr(),
                    m.data_ptr(), l.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                    *_shape_args(q, k))
@@ -219,7 +221,7 @@ def prefill_attention(
     _check_cuda_inputs(q, k, v)
     mask, mask_ptr = _kernel_mask(padding_mask, q)
     out = torch.empty_like(q)
-    kernels.launch("ta_prefill_attention", q.device,
+    kernels.launch(kernels.dtype_entry("ta_prefill_attention", q.dtype), q.device,
                    q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
                    *_shape_args(q, k))
     prefill_attention.launches += 1
