@@ -4,14 +4,21 @@
     python3 chip_smoke.py
 
 Builds the Hopper kernels from ``tiny_audio_tpu_torch/csrc`` (one ``nvcc`` per
-source, started together), holds each against its plain PyTorch version on
-random inputs (the decode kernels at every GQA group and head_dim they take,
-the int8 products at the flagship's layer and head shapes), then drives the
-port at the flagship width (random weights from seed 0, int8 KV cache):
+source, started together) and shows that #1 and #2 are the Hopper design of
+``csrc/attention_sm90.cu``: for each instance of its kernel, registers,
+shared memory and spills from the ``ptxas -v`` log, and its HGMMA (wgmma)
+and UTMALDG (TMA) instructions counted with ``cuobjdump -sass`` (none may
+be 0).  It holds each kernel against its plain PyTorch version on random
+inputs (the decode kernels at every GQA group and head_dim they take, the
+int8 products at the flagship's layer and head shapes; #2 also at the JAX
+bench's batch of 48, timed beside SDPA), then drives the port at the
+flagship width (random weights from seed 0, int8 KV cache):
 
 - ``ASRModel.generate`` on 4 x 30 s of audio, 128 tokens, on the fused
   decode path (kernel #4 per layer and step, the default on the card) and on
-  the module path (``fused_decode=False``: kernel #3 plus the cache write);
+  the module path (``fused_decode=False``: kernel #3 plus the cache write),
+  with the device milliseconds of encoder + projector and of the prefill
+  in one call (CUDA events);
 - ``ASRPipeline`` on three requests;
 - ``ASRPipeline.transcribe_streaming`` on one 30 s clip, 32 tokens;
 - ``generate`` again under each int8 decode mode (``enable_wq_decode``:
@@ -70,6 +77,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -291,7 +299,9 @@ def record_first_backward(store: dict):
 
 def compare_on_path_inputs(name: str, kernel, plain, call: tuple) -> dict:
     """Kernel vs plain version on the tensors the serving path gave the kernel.
-    Padding query rows are don't-care, as in the random-input comparisons."""
+    Padding query rows are don't-care, as in the random-input comparisons.
+    The kernel's ms is replayed from a CUDA graph (a ~0.02 ms prefill is
+    shorter than its Python call); back-to-back launches are printed too."""
     args, kwargs = call
     mask = args[3] if len(args) > 3 else kwargs.get("kv_mask", kwargs.get("padding_mask"))
     valid = (torch.ones(args[0].shape[:2], dtype=torch.bool, device=args[0].device)
@@ -300,11 +310,13 @@ def compare_on_path_inputs(name: str, kernel, plain, call: tuple) -> dict:
     want = plain(*args, **kwargs)
     err, within = kernel_error(got[valid], want[valid])
     finite = bool(torch.isfinite(got[valid]).all())
-    ms = cuda_ms(lambda: kernel(*args, **kwargs), 20)
+    back_to_back_ms = cuda_ms(lambda: kernel(*args, **kwargs), 20)
+    ms = graph_ms(lambda: kernel(*args, **kwargs), 20)
     plain_ms = cuda_ms(lambda: plain(*args, **kwargs), 5)
     print(f"{name} on the serving path's layer-0 inputs shape={list(args[0].shape)} "
           f"real_keys={'all' if mask is None else int(mask.sum())} max_abs_err={err!r} "
-          f"{tolerance_text(got.dtype)} kernel_ms={ms!r} plain_ms={plain_ms!r}")
+          f"{tolerance_text(got.dtype)} kernel_graph_ms={ms!r} "
+          f"kernel_back_to_back_ms={back_to_back_ms!r} plain_ms={plain_ms!r}")
     if not finite:
         fail(f"{name} kernel produced non-finite values on the serving path's inputs")
     if not within:
@@ -312,10 +324,12 @@ def compare_on_path_inputs(name: str, kernel, plain, call: tuple) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def attention_extras(name: str, call: tuple) -> dict:
-    """Bound and library time of kernel #1 or #2 on the path's inputs.  The
+def attention_extras(name: str, call: tuple, kernel_ms: float) -> dict:
+    """Bound and library time of kernel #1 or #2 on the path's inputs, and a
+    line with the kernel's achieved TFLOP/s and share of its bound.  The
     library call is scaled_dot_product_attention on the same tensors, laid
-    out [B, H, T, D] outside the timed call; the port never calls it."""
+    out [B, H, T, D] outside the timed call, replayed from a CUDA graph as the
+    kernel is; the port never calls it."""
     import torch.nn.functional as F
 
     args, kwargs = call
@@ -337,7 +351,13 @@ def attention_extras(name: str, call: tuple) -> dict:
             qq, kk, vv, is_causal=True, enable_gqa=True)
         flops = 4.0 * b * hq * d * t * (t + 1) / 2  # causal: keys 1..t for query row t
     moved = 2 * nbytes(q) + nbytes(k, v)  # q and the output, k and v
-    return {**bound(moved, flops, BF16_TENSOR_FLOPS), "library_ms": cuda_ms(call_lib, 20)}
+    extras = {**bound(moved, flops, BF16_TENSOR_FLOPS), "library_ms": graph_ms(call_lib, 20)}
+    print(f"{name} rate on the serving path's layer-0 inputs (CUDA graph) kernel_ms={kernel_ms!r} "
+          f"tflops={flops / kernel_ms / 1e9!r} bound_ms={extras['bound_ms']!r} "
+          f"bound_share={extras['bound_ms'] / kernel_ms!r} sdpa_ms={extras['library_ms']!r} "
+          f"sdpa_tflops={flops / extras['library_ms'] / 1e9!r} "
+          f"sdpa_back_to_back_ms={cuda_ms(call_lib, 20)!r}")
+    return extras
 
 
 def compare_encoder_kernel(gen: torch.Generator) -> dict:
@@ -397,6 +417,139 @@ def compare_prefill_kernel(gen: torch.Generator) -> dict:
     if not within:
         fail(f"prefill attention kernel disagrees with its plain version: {err}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+# the Hopper design's kernel template (csrc/attention_sm90.cu) and its
+# instances (head_dim, causal, statistics) behind #1 and #2
+SM90_KERNEL = "attention_fwd_sm90"
+SM90_INSTANCES = {(64, 0, 0), (64, 1, 0), (64, 1, 1), (128, 1, 0), (128, 1, 1)}
+# the flagship prefill at the JAX bench's batch (bench.py: 48 x 30 s)
+BENCH_BATCH = 48
+
+
+def sm90_instance(mangled: str):
+    """(head_dim, causal, stats) of an attention_fwd_sm90 symbol, or None."""
+    found = re.search(SM90_KERNEL + r"ILi(\d+)E.*?Lb([01])ELb([01])E", mangled)
+    return None if found is None else tuple(int(x) for x in found.groups())
+
+
+def hopper_design_facts(log: str) -> None:
+    """What shows that #1 and #2 are the Hopper design: for each instance of
+    attention_fwd_sm90, its registers, static shared memory and spills from
+    the build's ``ptxas -v`` log, its dynamic shared memory, and its HGMMA
+    (wgmma) and UTMALDG (TMA load) instructions counted in the library's
+    SASS with cuobjdump.  Fails if an instance is missing or either count is
+    0, or if ptxas serialized its wgmma."""
+    from tiny_audio_tpu_torch import kernels
+
+    ptxas: dict = {}
+    current = None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = sm90_instance(entry.group(1))
+            continue
+        if current is None:
+            continue
+        if "wgmma" in line and "serialized" in line:
+            fail(f"ptxas serialized the wgmma of {SM90_KERNEL}{current}: {line.strip()}")
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            ptxas.setdefault(current, {})["spill_bytes"] = [int(x) for x in spill.groups()]
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            smem = re.search(r"(\d+) bytes smem", line)
+            ptxas.setdefault(current, {}).update(
+                registers=int(used.group(1)), static_smem_bytes=int(smem.group(1)) if smem else 0)
+            current = None
+    sass = subprocess.run([kernels.cuda_tool("cuobjdump"), "-sass", str(kernels.build()[0])],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts: dict = {}
+    current = None
+    for line in sass.splitlines():
+        header = re.search(r"Function : (\S+)", line)
+        if header:
+            current = sm90_instance(header.group(1))
+            if current is not None:
+                counts[current] = {"HGMMA": 0, "UTMALDG": 0}
+            continue
+        if current is not None:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[current][op] += op in line
+    if set(ptxas) != SM90_INSTANCES or set(counts) != SM90_INSTANCES:
+        fail(f"{SM90_KERNEL} instances: ptxas {sorted(ptxas)}, SASS {sorted(counts)}, "
+             f"expected {sorted(SM90_INSTANCES)}")
+    lib = kernels.library()
+    for inst in sorted(SM90_INSTANCES):
+        d, causal, stats = inst
+        print(f"hopper design {SM90_KERNEL}<D={d}, causal={bool(causal)}, stats={bool(stats)}> "
+              f"ptxas={json.dumps(ptxas[inst])} "
+              f"dynamic_smem_bytes={lib.ta_attention_sm90_smem_bytes(d, causal)} "
+              f"sass_HGMMA={counts[inst]['HGMMA']} sass_UTMALDG={counts[inst]['UTMALDG']}")
+        if not counts[inst]["HGMMA"] or not counts[inst]["UTMALDG"]:
+            fail(f"{SM90_KERNEL}{inst} has no HGMMA or no UTMALDG in its SASS: {counts[inst]}")
+
+
+def prefill_at_bench_batch(gen: torch.Generator) -> None:
+    """Kernel #2 at the JAX bench's batch (B = 48, the flagship's 468-token
+    prompt, one row right-padded) against its plain version, with its time,
+    achieved TFLOP/s, share of its bound and SDPA's time on the same tensors."""
+    import torch.nn.functional as F
+
+    from tiny_audio_tpu_torch.ops.prefill_attention import (
+        prefill_attention,
+        prefill_attention_plain,
+    )
+
+    b, t, hq, hkv, d = BENCH_BATCH, 468, 16, 8, 128
+    q = torch.randn((b, t, hq, d), generator=gen, device="cuda").to(torch.bfloat16) * 2
+    k, v = (torch.randn((b, t, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    mask = torch.ones((b, t), dtype=torch.int32, device="cuda")
+    mask[-1, 400:] = 0
+    got = prefill_attention(q, k, v, mask)
+    err, within = kernel_error(got[mask.bool()], prefill_attention_plain(q, k, v, mask)[mask.bool()])
+    if not within or not bool(torch.isfinite(got[mask.bool()]).all()):
+        fail(f"prefill attention kernel disagrees with its plain version at B={b}: {err}")
+    ms = cuda_ms(lambda: prefill_attention(q, k, v, mask), 20)
+    qq, kk, vv = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                                             enable_gqa=True), 20)
+    flops = 4.0 * b * hq * d * t * (t + 1) / 2
+    lim = bound(2 * nbytes(q) + nbytes(k, v), flops, BF16_TENSOR_FLOPS)
+    print(f"prefill_attention at the bench batch B={b} T={t} Hq={hq} Hkv={hkv} D={d} causal "
+          f"max_abs_err={err!r} kernel_ms={ms!r} tflops={flops / ms / 1e9!r} "
+          f"bound_ms={lim['bound_ms']!r} bound_share={lim['bound_ms'] / ms!r} "
+          f"sdpa_ms={sdpa_ms!r} sdpa_tflops={flops / sdpa_ms / 1e9!r}")
+
+
+@contextlib.contextmanager
+def time_stages(model, store: dict):
+    """CUDA events on the card's stream around the first encoder + projector
+    call and the first prefill (the decoder's first call over more than one
+    position) inside the block; their device milliseconds go into ``store``."""
+    events: dict = {}
+
+    def mark(name: str) -> None:
+        if name not in events:
+            events[name] = torch.cuda.Event(enable_timing=True)
+            events[name].record()
+
+    def prefill(name: str):
+        return lambda module, args, *out: mark(name) if args[0].shape[1] > 1 else None
+
+    hooks = [model.encoder.register_forward_pre_hook(lambda module, args: mark("encoder")),
+             model.projector.register_forward_hook(lambda module, args, out: mark("projector")),
+             model.decoder.register_forward_pre_hook(prefill("prefill")),
+             model.decoder.register_forward_hook(prefill("prefilled"))]
+    try:
+        yield
+    finally:
+        for hook in hooks:
+            hook.remove()
+    torch.cuda.synchronize()
+    store["encoder_projector_ms"] = events["encoder"].elapsed_time(events["projector"])
+    store["prefill_ms"] = events["prefill"].elapsed_time(events["prefilled"])
 
 
 def bound(nbytes: float, flops: float, peak_flops: float) -> dict:
@@ -886,6 +1039,7 @@ def compare_backward_on_path_inputs(call: tuple) -> dict:
     q, k, v, mask, dout, m, l, delta = call
     r = check_prefill_backward(q, k, v, mask, dout, "the training path's inputs")
     fwd_ms = cuda_ms(lambda: prefill_attention_forward(q, k, v, mask), 20)
+    fwd_graph_ms = graph_ms(lambda: prefill_attention_forward(q, k, v, mask), 20)
     dkv_ms = cuda_ms(lambda: prefill_attention_bwd_dkv(q, k, v, mask, dout, m, l, delta), 20)
     dq_ms = cuda_ms(lambda: prefill_attention_bwd_dq(q, k, v, mask, dout, m, l, delta), 20)
     plain_ms = cuda_ms(lambda: prefill_attention_backward_plain(q, k, v, mask, dout), 5)
@@ -909,7 +1063,8 @@ def compare_backward_on_path_inputs(call: tuple) -> dict:
     print(f"prefill backward on the training path's inputs q={list(q.shape)} k={list(k.shape)} "
           f"real_keys={int(mask.sum()) if mask is not None else 'all'} "
           + " ".join(f"{n}_err={e!r} {n}_bf16_plain_err={pe!r}" for n, (e, pe) in r["errs"].items())
-          + f" fwd_stats_ms={fwd_ms!r} dkv_ms={dkv_ms!r} dq_ms={dq_ms!r} "
+          + f" fwd_stats_ms={fwd_ms!r} fwd_stats_graph_ms={fwd_graph_ms!r} "
+          f"dkv_ms={dkv_ms!r} dq_ms={dq_ms!r} "
           f"plain_backward_ms={plain_ms!r} bound_dkv_ms={b_dkv['bound_ms']!r} "
           f"bound_dq_ms={b_dq['bound_ms']!r} bound_backward_2.5x_ms={b_bwd['bound_ms']!r} "
           f"sdpa_backward_ms={sdpa_bwd_ms!r} sdpa_forward_backward_ms={sdpa_fwd_bwd_ms!r}")
@@ -1659,6 +1814,7 @@ def main() -> None:
     ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     print(f"build nvcc_s={nvcc_s!r} total_s={time.perf_counter() - t0!r} "
           f"ptxas={json.dumps(ptxas)}")
+    hopper_design_facts(log)
     phase_done()
 
     # ---- 3, 4. kernels vs their plain versions ----
@@ -1666,6 +1822,8 @@ def main() -> None:
     enc = compare_encoder_kernel(gen)
     phase_done()
     pre = compare_prefill_kernel(gen)
+    phase_done()
+    prefill_at_bench_batch(gen)
     phase_done()
     pre_shapes = compare_prefill_every_shape(gen)
     phase_done()
@@ -1765,6 +1923,7 @@ def main() -> None:
         return tokens, time.perf_counter() - t0, feats
 
     path_inputs: dict = {}
+    stage_ms: dict = {}  # device ms of encoder + projector and of the prefill
     layer0_mlp: dict = {}  # encoder layer 0's MLP input and weights, for kernel #8
     results = {}
     for label, kwargs, kernel_name in (("fused", {}, "decode_attention_update"),
@@ -1786,7 +1945,8 @@ def main() -> None:
         if counts != want:
             fail(f"{label} decode path launches {counts}, expected {want}")
         reset_counts()
-        tokens2, batch_s, _ = run_generate(MAX_NEW, **kwargs)
+        with time_stages(model, stage_ms) if label == "fused" else contextlib.nullcontext():
+            tokens2, batch_s, _ = run_generate(MAX_NEW, **kwargs)
         if read_counts() != want:
             fail(f"{label} decode path's second call launches {read_counts()}, expected {want}")
         if tokens.shape != (BATCH, MAX_NEW):
@@ -1816,6 +1976,9 @@ def main() -> None:
               f"peak_mem_gib={r['peak_gib']!r} launches={json.dumps(r['counts'])} "
               f"deterministic=true encoder_finite=true")
     print("generate fused_vs_module_tokens_identical=true")
+    print(f"generate stages batch={BATCH} clip_s={CLIP_S} (the fused path's second call, "
+          f"CUDA events) encoder_projector_ms={stage_ms['encoder_projector_ms']!r} "
+          f"prefill_ms={stage_ms['prefill_ms']!r}")
     phase_done()
 
     # ---- 5b. kernels vs plain versions on the path's own inputs ----
@@ -1823,10 +1986,12 @@ def main() -> None:
         fail(f"the paths did not reach every kernel's wrapper: {sorted(path_inputs)}")
     enc_path = compare_on_path_inputs("encoder_attention", encoder_attention,
                                       encoder_attention_plain, path_inputs["encoder_attention"])
-    enc_path.update(attention_extras("encoder_attention", path_inputs["encoder_attention"]))
+    enc_path.update(attention_extras("encoder_attention", path_inputs["encoder_attention"],
+                                     enc_path["ms"]))
     pre_path = compare_on_path_inputs("prefill_attention", prefill_attention,
                                       prefill_attention_plain, path_inputs["prefill_attention"])
-    pre_path.update(attention_extras("prefill_attention", path_inputs["prefill_attention"]))
+    pre_path.update(attention_extras("prefill_attention", path_inputs["prefill_attention"],
+                                     pre_path["ms"]))
     dec_path = compare_decode_on_path_inputs("decode_attention", decode_attention,
                                              decode_attention_plain,
                                              path_inputs["decode_attention"])
@@ -1991,7 +2156,7 @@ def main() -> None:
 
     # Times are at the paths' inputs; the error is the larger of the
     # random-input and the path-input comparisons.
-    source = "tiny_audio_tpu_torch/csrc/attention.cu"
+    source = "tiny_audio_tpu_torch/csrc/attention_sm90.cu"
     bwd_source = "tiny_audio_tpu_torch/csrc/attention_bwd.cu"
     decode_source = "tiny_audio_tpu_torch/csrc/decode_attention.cu"
     int8_source = "tiny_audio_tpu_torch/csrc/int8_matmul.cu"

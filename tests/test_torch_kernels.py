@@ -39,6 +39,7 @@ from tiny_audio_tpu_torch.ops.prefill_attention import (
     prefill_attention_bwd_dq,
     prefill_attention_forward,
     prefill_attention_plain,
+    prefill_attention_stats_plain,
 )
 from tiny_audio_tpu_torch.ops.encoder_attention_variants import (
     MODES,
@@ -71,6 +72,15 @@ BWD_ERR_RATIO, BWD_FLOOR = 2.0, 2.0**-8
 # other orders and exp2 of the log2-scaled score for exp differ by a few fp32
 # ulps a term; FP32_TOL of the largest |want| (at least 1) bounds a row's sum.
 FP32_TOL = 1e-4
+# The forward's row statistics against prefill_attention_stats_plain (fp32
+# from the same bf16 inputs): m is one score, the same bf16 products summed
+# in fp32 in another order, a few fp32 ulps of sum |q_i k_i| (<= ~1e-4 in
+# log2 units here; a padding row's MASK_VALUE within STATS_RTOL); l is an
+# fp32 sum of at most 1,500 terms <= 1 in another order (n 2^-24 < 1e-4).
+STATS_M_ATOL, STATS_RTOL = 1e-3, 1e-4
+# Sequence lengths at the Hopper design's edges: its 64-row warpgroup tiles,
+# its 128-key stages and 64-column swizzle boxes, and the paths' ragged T.
+EDGE_T = (1, 63, 64, 65, 127, 128, 129, 468, 1500)
 
 
 def test_cpu_calls_launch_no_kernel():
@@ -79,6 +89,32 @@ def test_cpu_calls_launch_no_kernel():
     tattn.encoder_self_attention(x, x, x, torch.ones((1, 8), dtype=torch.int32))
     tattn.causal_self_attention(x, x, x, torch.ones((1, 8), dtype=torch.int32))
     assert encoder_attention.launches == 0 and prefill_attention.launches == 0
+
+
+def test_prefill_stats_plain_reproduce_the_plain_output():
+    """m and l of prefill_attention_stats_plain rebuild the plain forward:
+    out = sum_k exp2(x_k - m) v_k / l, with padding keys inside a row.  In a
+    row of padding the kernels weight the visible keys uniformly: m is
+    MASK_VALUE and l counts them (the plain forward, whose causal mask also
+    scores MASK_VALUE, averages all T keys there: such rows are don't-care)."""
+    gen = torch.Generator().manual_seed(4)
+    b, t, hq, hkv, d = 2, 37, 4, 2, 16
+    q, k, v = (torch.randn(shape, generator=gen) for shape in
+               ((b, t, hq, d), (b, t, hkv, d), (b, t, hkv, d)))
+    mask = torch.ones((b, t), dtype=torch.int32)
+    mask[0, 5:9] = 0
+    mask[1] = 0
+    m, l = prefill_attention_stats_plain(q, k, mask)
+    assert m.shape == l.shape == (b, hq, t) and m.dtype == l.dtype == torch.float32
+    assert (m[1] < -1e38).all() and torch.equal(l[1], torch.arange(1, t + 1.0).expand(hq, t))
+    kk = k.repeat_interleave(hq // hkv, dim=2)
+    x = torch.einsum("bqhd,bkhd->bhqk", q, kk) * (d ** -0.5 * 1.4426950408889634)
+    x = x.masked_fill(~mask.bool()[:, None, None, :], -0.7 * torch.finfo(torch.float32).max)
+    x = x.masked_fill(~torch.ones((t, t), dtype=torch.bool).tril(), float("-inf"))
+    p = torch.exp2(x - m[..., None]) / l[..., None]
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.repeat_interleave(hq // hkv, dim=2))
+    torch.testing.assert_close(out[0], prefill_attention_plain(q, k, v, mask)[0],
+                               atol=1e-5, rtol=1e-5)
 
 
 @pytest.fixture
@@ -350,13 +386,19 @@ def _close(got, want, valid):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,h,d", [(2, 1500, 20, 64), (4, 1500, 20, 64), (1, 77, 2, 64), (3, 64, 4, 64)])
+@pytest.mark.parametrize("b,t,h,d", [(2, 1500, 20, 64), (4, 1500, 20, 64), (1, 77, 2, 64), (3, 64, 4, 64)]
+                         + [(2, t, 2, 64) for t in EDGE_T if t != 1500])
 def test_encoder_kernel_matches_plain(cuda_device, b, t, h, d):
+    """#1 at the flagship's head_dim (the Hopper design): right padding in
+    the last row, padding inside a 128-key tile of the first, no mask, and a
+    row of padding keys; T at the design's tile and box edges."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v = (torch.randn((b, t, h * d), generator=g, device=cuda_device)
                .to(torch.bfloat16) for _ in range(3))
     mask = torch.ones((b, t), dtype=torch.int32, device=cuda_device)
     mask[-1, t // 2:] = 0
+    if b > 1:
+        mask[0, 5:9] = 0
     before = encoder_attention.launches
     got = encoder_attention(q, k, v, mask, h)
     assert encoder_attention.launches == before + 1
@@ -372,20 +414,37 @@ def test_encoder_kernel_matches_plain(cuda_device, b, t, h, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,hq,hkv,d", [(2, 468, 16, 8, 128), (4, 468, 16, 8, 128), (1, 130, 4, 4, 128), (2, 64, 8, 2, 128),
-                                         (2, 200, 9, 3, 64), (1, 67, 8, 1, 64), (2, 150, 8, 2, 256), (1, 33, 4, 4, 256)])
+                                         (2, 200, 9, 3, 64), (1, 67, 8, 1, 64), (2, 150, 8, 2, 256), (1, 33, 4, 4, 256)]
+                         + [(2, t, 4, 2, 128) for t in EDGE_T]
+                         + [(2, t, 2 * group, 2, 128) for t in (129, 468) for group in (1, 8)]
+                         + [(2, t, 4, 2, 64) for t in (1, 64, 65, 129)])
 def test_prefill_kernel_matches_plain(cuda_device, b, t, hq, hkv, d):
+    """#2, the serving launch and the forward with statistics (m and l
+    against prefill_attention_stats_plain): right padding in the last row
+    (all of it when T <= 30), padding inside a 128-key tile of the first, and
+    no mask; T at the Hopper design's tile and box edges, GQA groups 1, 2, 8."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
     q = torch.randn((b, t, hq, d), generator=g, device=cuda_device).to(torch.bfloat16)
     k, v = (torch.randn((b, t, hkv, d), generator=g, device=cuda_device)
             .to(torch.bfloat16) for _ in range(2))
     mask = torch.ones((b, t), dtype=torch.int32, device=cuda_device)
     mask[-1, t - 30:] = 0
+    if b > 1:
+        mask[0, 5:9] = 0
     before = prefill_attention.launches
     got = prefill_attention(q, k, v, mask)
     assert prefill_attention.launches == before + 1
     _close(got, prefill_attention_plain(q, k, v, mask), mask.bool())
     _close(prefill_attention(q, k, v, None), prefill_attention_plain(q, k, v, None),
            torch.ones_like(mask, dtype=torch.bool))
+    out, m, l = prefill_attention_forward(q, k, v, mask)
+    _close(out, prefill_attention_plain(q, k, v, mask), mask.bool())
+    _stats_close(m, l, *prefill_attention_stats_plain(q, k, mask))
+
+
+def _stats_close(m, l, want_m, want_l):
+    torch.testing.assert_close(m, want_m, atol=STATS_M_ATOL, rtol=STATS_RTOL)
+    torch.testing.assert_close(l, want_l, atol=0.0, rtol=STATS_RTOL)
 
 
 def _prefill_inputs(device, b, t, hq, hkv, d, seed):
@@ -421,6 +480,7 @@ def test_prefill_backward_kernels_match_plain(cuda_device, group, d):
               prefill_attention_bwd_dq.launches)
     out, m, l = prefill_attention_forward(q, k, v, mask)
     _close(out, prefill_attention_plain(q, k, v, mask), torch.ones_like(mask, dtype=torch.bool))
+    _stats_close(m, l, *prefill_attention_stats_plain(q, k, mask))
     delta = attention_delta(out, dout)
     dk, dv = prefill_attention_bwd_dkv(q, k, v, mask, dout, m, l, delta)
     dq = prefill_attention_bwd_dq(q, k, v, mask, dout, m, l, delta)

@@ -1,8 +1,9 @@
-// Flash-attention forward for Hopper (sm_90a): bf16 in and out, fp32
-// accumulation, exact online softmax.  (The fp32 instances of the same entry
+// Flash-attention forward, bf16 in and out, fp32 accumulation, exact online
+// softmax: the entry points, and the mma.sync template that serves the head
+// sizes the Hopper design does not.  (The fp32 instances of the same entry
 // points are in attention_f32.cu.)
 //
-// One templated kernel serves three entry points:
+// Three entry points:
 //
 //   ta_encoder_attention       replaces tiny_audio_tpu/ops/encoder_attention.py
 //                              (_encoder_attention_impl): bidirectional MHA
@@ -22,12 +23,19 @@
 //                              m = MASK_VALUE, where m + log2(l) would round
 //                              back to m and lose l.
 //
+// The entry points pick the design by head_dim:
+//   - D = 64 and 128 (the flagship's encoder and decoder): attention_sm90.cu,
+//     TMA stages, wgmma products, a producer warp and a consumer warpgroup
+//     a block; its header has the design and what bounds it;
+//   - D = 16, 32 and 256 (the tiny towers, 256-wide decoders): the template
+//     below.
+//
 // The packed encoder layout [B, T, H*D] is the same memory as [B, T, H, D],
 // so both read q as [B, T, Hq, D] and k/v as [B, T, Hkv, D] straight from
 // the projections: no transpose, no padding copy, no repeated KV heads.
 //
-// Design (simple and exact first; wgmma, TMA and warp specialisation come
-// later):
+// The template below (simple and exact; the Hopper design replaced it at
+// D = 64 and 128):
 //   - one block of 4 warps per (64-row q tile, q head, batch row); each warp
 //     owns 16 query rows; up to D = 128 it keeps its Q fragments in
 //     registers, at D = 256 (64 more registers) it reloads them from L1/L2
@@ -38,9 +46,8 @@
 //   - S = Q K^T and O += P V run on the tensor cores with
 //     mma.sync.m16n8k16 (bf16 x bf16 -> fp32); the S accumulator fragment is
 //     reused as the A fragment of P, so P never leaves registers;
-//   - online softmax in fp32 in the log2 domain; the ragged edge (T is no
-//     tile multiple: 1500 frames) is masked in the kernel; causal blocks
-//     stop at the diagonal.
+//   - online softmax in fp32 in the log2 domain; the ragged edge is masked
+//     in the kernel; causal blocks stop at the diagonal.
 //
 // Masking follows the plain version (models/layers.attention): a key whose
 // padding-mask entry is 0 scores MASK_VALUE (-0.7 * FLT_MAX), not -inf, so a
@@ -48,15 +55,12 @@
 // T (and, for the causal kernel, past the query) are excluded entirely.
 //
 // What bounds it on the H100: per (batch, head) attention does 4*T*T*D
-// FLOPs over 8*T*D bytes of q, k, v and out, T/2 FLOP/byte -- 750 for the
-// encoder's 1500 frames, ~234 for a ~468-token prefill -- at or above the
-// card's ~295 FLOP/byte bf16 ridge.  So it is bound by compute: the
-// tensor-core issue rate (mma.sync reaches only part of the wgmma peak) and
-// the softmax's exp/max work per score, which at D = 64 is large next to the
-// 2*D FLOPs of the products per score.  Device-memory traffic stays at the
-// inputs and output because the [T, T] score matrix never leaves the SM:
-// scores and probabilities live in registers, a 16x64 slice per warp at a
-// time; K/V tiles are re-read once per 64-row q tile, mostly from L2.
+// FLOPs over 8*T*D bytes of q, k, v and out, T/2 FLOP/byte, at or above the
+// card's ~295 FLOP/byte bf16 ridge for the path's lengths.  So it is bound
+// by compute: the tensor-core issue rate (mma.sync reaches only part of the
+// wgmma peak) and the softmax's exp/max work per score.  Device-memory
+// traffic stays at the inputs and output because the [T, T] score matrix
+// never leaves the SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,6 +68,14 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+
+namespace ta {
+// attention_sm90.cu: the bf16 forward at D = 64 (bidirectional or causal) and
+// D = 128 (causal), with or without the statistics.
+int attention_fwd_sm90(const void* q, const void* k, const void* v, const void* mask, void* out,
+                       void* m_out, void* l_out, int B, int T, int Hq, int Hkv, int D,
+                       bool causal, bool stats, float scale, void* stream);
+}  // namespace ta
 
 namespace {
 
@@ -315,9 +327,9 @@ int launch_prefill(const void* q, const void* k, const void* v, const void* mask
     case 32:
       return launch<32, true, STATS>(q, k, v, mask, out, m_out, l_out, B, T, Hq, Hkv, scale, stream);
     case 64:
-      return launch<64, true, STATS>(q, k, v, mask, out, m_out, l_out, B, T, Hq, Hkv, scale, stream);
     case 128:
-      return launch<128, true, STATS>(q, k, v, mask, out, m_out, l_out, B, T, Hq, Hkv, scale, stream);
+      return ta::attention_fwd_sm90(q, k, v, mask, out, m_out, l_out, B, T, Hq, Hkv, D, true,
+                                    STATS, scale, stream);
     case 256:
       return launch<256, true, STATS>(q, k, v, mask, out, m_out, l_out, B, T, Hq, Hkv, scale, stream);
     default:
@@ -342,7 +354,8 @@ int ta_encoder_attention(const void* q, const void* k, const void* v, const void
     case 32:
       return launch<32, false, false>(q, k, v, mask, out, nullptr, nullptr, B, T, H, H, scale, stream);
     case 64:
-      return launch<64, false, false>(q, k, v, mask, out, nullptr, nullptr, B, T, H, H, scale, stream);
+      return ta::attention_fwd_sm90(q, k, v, mask, out, nullptr, nullptr, B, T, H, H, 64, false,
+                                    false, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

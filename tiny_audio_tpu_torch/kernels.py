@@ -58,6 +58,7 @@ _SIGNATURES = {
     "ta_wq_matmul_pipe": (_PTR,) * 4 + (_INT,) * 4 + (_PTR,),
     "ta_a8_matmul": (_PTR,) * 5 + (_INT,) * 4 + (_PTR,),
     "ta_a8t_matmul": (_PTR,) * 5 + (_INT,) * 4 + (_PTR,),
+    "ta_attention_sm90_smem_bytes": (_INT, _INT),
 }
 
 
@@ -73,15 +74,17 @@ def _build_key() -> str:
     return h.hexdigest()[:16]
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """Path of the CUDA toolkit's program ``name`` (``nvcc``, ``cuobjdump``):
+    on PATH, else under ``$CUDA_HOME/bin``."""
+    found = shutil.which(name)
     if found:
         return found
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    candidate = Path(cuda_home) / "bin" / "nvcc"
+    candidate = Path(cuda_home) / "bin" / name
     if candidate.exists():
         return str(candidate)
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    raise RuntimeError(f"{name} not found (set CUDA_HOME or put it on PATH)")
 
 
 @functools.cache
@@ -93,7 +96,7 @@ def build() -> tuple[Path, float, str]:
     log_path = out_dir / "build.log"
     if lib.exists():
         return lib, 0.0, log_path.read_text() if log_path.exists() else ""
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     out_dir.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=out_dir))
     t0 = time.perf_counter()

@@ -5,15 +5,22 @@ the TPU kernel behind ``encoder_attention_tpu``: bidirectional multi-head
 attention over packed heads ``[B, T, H*D]`` with a ``[B, T]`` key-padding
 mask, as the encoder's q/k/v projections produce them (no transpose).
 
-The kernel (``csrc/attention.cu``, ``ta_encoder_attention``) is a flash
-forward with an exact online softmax, for bf16 at head_dim 16, 32 and 64;
-its fp32 instance (``csrc/attention_f32.cu``, ``ta_encoder_attention_f32``)
-serves an fp32 model on the CUDA cores.  The output is in q's dtype, as the
-JAX kernel's is.  It does not carry over the TPU
-kernel's constant-shift softmax window, which was a workaround for the TPU's
-vector unit, nor its padding of T to a 256 multiple: it masks the ragged edge
-of T = 1500 itself.  It is bound by compute, not memory: the [T, T] scores
-stay on the SM (the source's header has the numbers).
+The kernel (entry point ``ta_encoder_attention`` in ``csrc/attention.cu``) is
+a flash forward with an exact online softmax.  At the flagship's head_dim 64
+in bf16 it is the Hopper design of ``csrc/attention_sm90.cu``: a producer
+warp streams 128-key K/V tiles by TMA into a two-stage ring of swizzled
+shared memory, a consumer warpgroup of 64 query rows runs S = Q K^T and
+O += P V as ``wgmma`` (P from registers, V read transposed through its
+descriptor), the per-key mask runs only on tiles that hold a padding key or
+the ragged end, and two blocks share an SM.  At head_dim 16 and 32 it is the
+``mma.sync`` template of ``csrc/attention.cu``; the fp32 instance
+(``csrc/attention_f32.cu``, ``ta_encoder_attention_f32``) serves an fp32
+model on the CUDA cores.  The output is in q's dtype, as the JAX kernel's
+is.  It does not carry over the TPU kernel's constant-shift softmax window,
+which was a workaround for the TPU's vector unit, nor its padding of T to a
+256 multiple: it masks the ragged edge of T = 1500 itself.  It is bound by
+compute, not memory: the [T, T] scores stay on the SM (the sources' headers
+have the numbers).
 
 Gradient: as the JAX package's custom VJP recomputes through the naive
 formula (``tiny_audio_tpu/ops/encoder_attention.py:141-155``), the backward

@@ -14,10 +14,18 @@ ragged edge themselves and skip key tiles past the diagonal, at head_dim
 16, 32, 64, 128 and 256, in bf16 (tensor cores) or fp32 (the ``_f32``
 instances of ``csrc/attention_f32.cu``, fp32 FMAs on the CUDA cores):
 
-- forward (``csrc/attention.cu``): ``ta_prefill_attention`` for serving,
-  ``ta_prefill_attention_fwd_stats`` for training, which also writes each
-  row's softmax max ``m`` and sum ``l`` ``[B, Hq, T]`` fp32, kept apart so a
-  row whose visible keys are all padding keeps its ``l``;
+- forward (entry points in ``csrc/attention.cu``): ``ta_prefill_attention``
+  for serving, ``ta_prefill_attention_fwd_stats`` for training, which also
+  writes each row's softmax max ``m`` and sum ``l`` ``[B, Hq, T]`` fp32, kept
+  apart so a row whose visible keys are all padding keeps its ``l``
+  (:func:`prefill_attention_stats_plain` is their plain version).  In bf16
+  at head_dim 64 and 128 (the flagship's decoder) both run the Hopper design
+  of ``csrc/attention_sm90.cu``: 64 query rows a block (one consumer
+  warpgroup, two blocks an SM), 64-key K/V tiles streamed by TMA into a
+  two-stage ring, ``wgmma`` products with P kept in registers, the per-key
+  mask only on the diagonal, ragged and padded tiles, and the heaviest
+  (last) query tiles scheduled first; at head_dim 16, 32 and 256 the
+  ``mma.sync`` template of ``csrc/attention.cu``;
 - backward (``csrc/attention_bwd.cu``): ``ta_prefill_attention_bwd_dkv``
   (dK, dV, the GQA group summed in the kernel) and
   ``ta_prefill_attention_bwd_dq``, after ``delta = rowsum(dO * O)`` in
@@ -40,8 +48,10 @@ from typing import Optional
 import torch
 
 from tiny_audio_tpu_torch import kernels
+from tiny_audio_tpu_torch.models.layers import MASK_VALUE
 from tiny_audio_tpu_torch.models.layers import attention as _attention
 
+_LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)  # the supported decoders and the tiny towers
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -61,6 +71,26 @@ def prefill_attention_plain(
     else:
         mask = causal.expand(q.shape[0], 1, t, t)
     return _attention(q, k, v, mask=mask)
+
+
+def prefill_attention_stats_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    padding_mask: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The row statistics of the forward with statistics, in fp32: ``m``
+    [B, Hq, T], each row's max score in log2 units (scale applied; a padding
+    key scores ``MASK_VALUE``, keys past the diagonal are excluded), and
+    ``l`` [B, Hq, T], the sum of ``exp2(score - m)`` over the row's keys."""
+    b, t, hq, d = q.shape
+    kk = k.float().repeat_interleave(hq // k.shape[2], dim=2)
+    x = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * (d ** -0.5 * _LOG2E)
+    if padding_mask is not None:
+        x = x.masked_fill(~padding_mask.to(torch.bool)[:, None, None, :], MASK_VALUE)
+    causal = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+    x = x.masked_fill(~causal, float("-inf"))
+    m = x.amax(-1)
+    return m, torch.exp2(x - m[..., None]).sum(-1)
 
 
 def prefill_attention_backward_plain(
