@@ -5,10 +5,11 @@
 
 Builds the Hopper kernels from ``tiny_audio_tpu_torch/csrc`` (one ``nvcc`` per
 source, started together) and shows that #1 and #2 are the Hopper design of
-``csrc/attention_sm90.cu``: for each instance of its kernel, registers,
-shared memory and spills from the ``ptxas -v`` log, and its HGMMA (wgmma)
-and UTMALDG (TMA) instructions counted with ``cuobjdump -sass`` (none may
-be 0).  It holds each kernel against its plain PyTorch version on random
+``csrc/attention_sm90.cu`` and #2b and #2c that of
+``csrc/attention_bwd_sm90.cu``: for each instance of their kernels,
+registers, shared memory and spills from the ``ptxas -v`` log (no spill),
+and its HGMMA (wgmma), UTMALDG (TMA) and USETMAXREG instructions counted
+with ``cuobjdump -sass`` (neither of the first two may be 0).  It holds each kernel against its plain PyTorch version on random
 inputs (the decode kernels at every GQA group and head_dim they take, the
 int8 products at the flagship's layer and head shapes; #2 also at the JAX
 bench's batch of 48, timed beside SDPA), then drives the port at the
@@ -208,14 +209,15 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int) -> float:
+def graph_ms(fn, iters: int, stream=None) -> float:
     """Mean device milliseconds of ``fn`` replayed from a CUDA graph of
-    ``iters`` calls: the launches leave the host out, so a kernel shorter
-    than its Python call is timed itself, not the host's call rate."""
+    ``iters`` calls (captured on ``stream``, or a stream of its own): the
+    launches leave the host out, so a kernel shorter than its Python call is
+    timed itself, not the host's call rate."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -419,29 +421,52 @@ def compare_prefill_kernel(gen: torch.Generator) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-# the Hopper design's kernel template (csrc/attention_sm90.cu) and its
-# instances (head_dim, causal, statistics) behind #1 and #2
+# the Hopper design's kernel templates and their instances: the forward
+# (csrc/attention_sm90.cu; head_dim, causal, statistics) behind #1 and #2,
+# the backward (csrc/attention_bwd_sm90.cu; head_dim) behind #2b and #2c
 SM90_KERNEL = "attention_fwd_sm90"
-SM90_INSTANCES = {(64, 0, 0), (64, 1, 0), (64, 1, 1), (128, 1, 0), (128, 1, 1)}
+SM90_BWD_KERNELS = ("attention_bwd_dkv_sm90", "attention_bwd_dq_sm90")
+SM90_INSTANCES = {(SM90_KERNEL, 64, 0, 0), (SM90_KERNEL, 64, 1, 0), (SM90_KERNEL, 64, 1, 1),
+                  (SM90_KERNEL, 128, 1, 0), (SM90_KERNEL, 128, 1, 1),
+                  *((name, d) for name in SM90_BWD_KERNELS for d in (64, 128))}
 # the flagship prefill at the JAX bench's batch (bench.py: 48 x 30 s)
 BENCH_BATCH = 48
 
 
 def sm90_instance(mangled: str):
-    """(head_dim, causal, stats) of an attention_fwd_sm90 symbol, or None."""
+    """The instance of the Hopper design a kernel symbol names:
+    (attention_fwd_sm90, head_dim, causal, stats) or (attention_bwd_*_sm90,
+    head_dim); None for any other kernel."""
     found = re.search(SM90_KERNEL + r"ILi(\d+)E.*?Lb([01])ELb([01])E", mangled)
-    return None if found is None else tuple(int(x) for x in found.groups())
+    if found:
+        return (SM90_KERNEL, *(int(x) for x in found.groups()))
+    found = re.search(r"(" + "|".join(SM90_BWD_KERNELS) + r")ILi(\d+)E", mangled)
+    return None if found is None else (found.group(1), int(found.group(2)))
+
+
+def instance_text(inst: tuple) -> str:
+    if inst[0] == SM90_KERNEL:
+        return f"{SM90_KERNEL}<D={inst[1]}, causal={bool(inst[2])}, stats={bool(inst[3])}>"
+    return f"{inst[0]}<D={inst[1]}>"
 
 
 def hopper_design_facts(log: str) -> None:
-    """What shows that #1 and #2 are the Hopper design: for each instance of
-    attention_fwd_sm90, its registers, static shared memory and spills from
-    the build's ``ptxas -v`` log, its dynamic shared memory, and its HGMMA
-    (wgmma) and UTMALDG (TMA load) instructions counted in the library's
-    SASS with cuobjdump.  Fails if an instance is missing or either count is
-    0, or if ptxas serialized its wgmma."""
+    """What shows that #1, #2, #2b and #2c are the Hopper design: for each
+    instance of attention_fwd_sm90, attention_bwd_dkv_sm90 and
+    attention_bwd_dq_sm90, its registers, static shared memory and spills
+    from the build's ``ptxas -v`` log, its dynamic shared memory, and its
+    HGMMA (wgmma), UTMALDG (TMA load) and USETMAXREG instructions counted in
+    the library's SASS with cuobjdump.  Fails before any launch if an
+    instance is missing, spills, or has no HGMMA or no UTMALDG, if ptxas
+    serialized a wgmma or ignored a setmaxnreg, or if dkv's entry registers
+    are not the count its setmaxnreg balances."""
     from tiny_audio_tpu_torch import kernels
 
+    for line in log.splitlines():
+        if "wgmma" in line and "serialized" in line:
+            fail(f"ptxas serialized a wgmma: {line.strip()}")
+        if "C7508" in line or ("setmaxnreg" in line and "ignored" in line):
+            fail(f"ptxas ignored a setmaxnreg: {line.strip()}")
     ptxas: dict = {}
     current = None
     for line in log.splitlines():
@@ -451,8 +476,6 @@ def hopper_design_facts(log: str) -> None:
             continue
         if current is None:
             continue
-        if "wgmma" in line and "serialized" in line:
-            fail(f"ptxas serialized the wgmma of {SM90_KERNEL}{current}: {line.strip()}")
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill:
             ptxas.setdefault(current, {})["spill_bytes"] = [int(x) for x in spill.groups()]
@@ -464,6 +487,7 @@ def hopper_design_facts(log: str) -> None:
             current = None
     sass = subprocess.run([kernels.cuda_tool("cuobjdump"), "-sass", str(kernels.build()[0])],
                           capture_output=True, text=True, timeout=300, check=True).stdout
+    ops = ("HGMMA", "UTMALDG", "USETMAXREG")
     counts: dict = {}
     current = None
     for line in sass.splitlines():
@@ -471,23 +495,36 @@ def hopper_design_facts(log: str) -> None:
         if header:
             current = sm90_instance(header.group(1))
             if current is not None:
-                counts[current] = {"HGMMA": 0, "UTMALDG": 0}
+                counts[current] = dict.fromkeys(ops, 0)
             continue
         if current is not None:
-            for op in ("HGMMA", "UTMALDG"):
-                counts[current][op] += op in line
+            for op in ops:
+                counts[current][op] += re.search(r"\b" + op + r"\b", line) is not None
     if set(ptxas) != SM90_INSTANCES or set(counts) != SM90_INSTANCES:
-        fail(f"{SM90_KERNEL} instances: ptxas {sorted(ptxas)}, SASS {sorted(counts)}, "
+        fail(f"Hopper design instances: ptxas {sorted(ptxas)}, SASS {sorted(counts)}, "
              f"expected {sorted(SM90_INSTANCES)}")
     lib = kernels.library()
+    # dkv's registers at entry, which its setmaxnreg balances: with fewer, a
+    # consumer's setmaxnreg.inc could wait forever (the launch refuses such a
+    # build; the run stops here, before any launch)
+    dkv_entry_registers = lib.ta_attention_bwd_sm90_dkv_entry_registers()
     for inst in sorted(SM90_INSTANCES):
-        d, causal, stats = inst
-        print(f"hopper design {SM90_KERNEL}<D={d}, causal={bool(causal)}, stats={bool(stats)}> "
-              f"ptxas={json.dumps(ptxas[inst])} "
-              f"dynamic_smem_bytes={lib.ta_attention_sm90_smem_bytes(d, causal)} "
-              f"sass_HGMMA={counts[inst]['HGMMA']} sass_UTMALDG={counts[inst]['UTMALDG']}")
+        if inst[0] == SM90_KERNEL:
+            smem = lib.ta_attention_sm90_smem_bytes(inst[1], inst[2])
+        else:
+            smem = lib.ta_attention_bwd_sm90_smem_bytes(inst[1], inst[0] == SM90_BWD_KERNELS[0])
+        print(f"hopper design {instance_text(inst)} ptxas={json.dumps(ptxas[inst])} "
+              f"dynamic_smem_bytes={smem} "
+              + " ".join(f"sass_{op}={counts[inst][op]}" for op in ops))
         if not counts[inst]["HGMMA"] or not counts[inst]["UTMALDG"]:
-            fail(f"{SM90_KERNEL}{inst} has no HGMMA or no UTMALDG in its SASS: {counts[inst]}")
+            fail(f"{instance_text(inst)} has no HGMMA or no UTMALDG in its SASS: {counts[inst]}")
+        if ptxas[inst].get("spill_bytes", [0, 0]) != [0, 0]:
+            fail(f"{instance_text(inst)} spills: {ptxas[inst]}")
+        if inst[0] == SM90_BWD_KERNELS[0] and (
+                ptxas[inst]["registers"] != dkv_entry_registers or not counts[inst]["USETMAXREG"]):
+            fail(f"{instance_text(inst)} enters with {ptxas[inst]['registers']} registers and "
+                 f"{counts[inst]['USETMAXREG']} USETMAXREG; its setmaxnreg balances "
+                 f"{dkv_entry_registers}")
 
 
 def prefill_at_bench_batch(gen: torch.Generator) -> None:
@@ -1019,17 +1056,54 @@ def compare_prefill_every_shape(gen: torch.Generator) -> dict:
     return worst
 
 
+def sdpa_backward_graph_ms(q, k, v, dout) -> dict:
+    """Device ms of scaled_dot_product_attention's backward (a yardstick the
+    port never calls: one autograd call computing dq, dk and dv, causal, GQA,
+    without the padding mask, which SDPA's causal path does not take) for
+    each non-math backend that takes these inputs, pinned with
+    ``sdpa_kernel``: back to back, and captured in a CUDA graph.  The forward
+    runs on the capture stream, so the autograd backward it records does
+    too."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qq, kk, vv = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    dd = dout.transpose(1, 2).contiguous()
+    params = torch.backends.cuda.SDPAParams(qq, kk, vv, None, 0.0, True, True)
+    usable = {SDPBackend.FLASH_ATTENTION: torch.backends.cuda.can_use_flash_attention,
+              SDPBackend.CUDNN_ATTENTION: torch.backends.cuda.can_use_cudnn_attention,
+              SDPBackend.EFFICIENT_ATTENTION: torch.backends.cuda.can_use_efficient_attention}
+    times = {}
+    for backend, can_use in usable.items():
+        if not can_use(params, False):
+            continue
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with sdpa_kernel(backend), torch.cuda.stream(stream):
+            out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True, enable_gqa=True)
+        torch.cuda.current_stream().wait_stream(stream)
+
+        def backward(out=out):
+            return torch.autograd.grad(out, (qq, kk, vv), dd, retain_graph=True)
+
+        times[backend.name] = {"ms": cuda_ms(backward, 20),
+                               "graph_ms": graph_ms(backward, 20, stream=stream)}
+    if not times:
+        fail("no fused SDPA backend takes the training path's attention: no yardstick")
+    return times
+
+
 def compare_backward_on_path_inputs(call: tuple) -> dict:
     """The backward kernels on the tensors the training path gave them first
     (the backward's first call: the last layer), against the plain backward,
     with times: the forward with statistics (on the same layer's inputs),
-    each backward kernel, the plain backward (bf16 autograd), the bound, and
-    scaled_dot_product_attention's backward on the same shapes (a yardstick
-    the port never calls; one autograd call computing dq, dk and dv, without
-    the padding mask, which SDPA's causal path does not take)."""
-    import torch.nn.functional as F
-
+    each backward kernel, ``attention_delta`` and the port's whole backward
+    (``attention_delta`` + dkv + dq) back to back and from a CUDA graph, the plain backward (bf16
+    autograd), the bound, and SDPA's backward per pinned backend
+    (:func:`sdpa_backward_graph_ms`); the library time is the fastest
+    backend's from a CUDA graph, as the kernels' times."""
     from tiny_audio_tpu_torch.ops.prefill_attention import (
+        attention_delta,
         prefill_attention_backward_plain,
         prefill_attention_bwd_dkv,
         prefill_attention_bwd_dq,
@@ -1037,21 +1111,28 @@ def compare_backward_on_path_inputs(call: tuple) -> dict:
     )
 
     q, k, v, mask, dout, m, l, delta = call
+    out = prefill_attention_forward(q, k, v, mask)[0]
     r = check_prefill_backward(q, k, v, mask, dout, "the training path's inputs")
     fwd_ms = cuda_ms(lambda: prefill_attention_forward(q, k, v, mask), 20)
     fwd_graph_ms = graph_ms(lambda: prefill_attention_forward(q, k, v, mask), 20)
-    dkv_ms = cuda_ms(lambda: prefill_attention_bwd_dkv(q, k, v, mask, dout, m, l, delta), 20)
-    dq_ms = cuda_ms(lambda: prefill_attention_bwd_dq(q, k, v, mask, dout, m, l, delta), 20)
+
+    def dkv():
+        return prefill_attention_bwd_dkv(q, k, v, mask, dout, m, l, delta)
+
+    def dq():
+        return prefill_attention_bwd_dq(q, k, v, mask, dout, m, l, delta)
+
+    def whole():
+        d = attention_delta(out, dout)
+        return (prefill_attention_bwd_dkv(q, k, v, mask, dout, m, l, d),
+                prefill_attention_bwd_dq(q, k, v, mask, dout, m, l, d))
+
+    times = {name: {"ms": cuda_ms(fn, 20), "graph_ms": graph_ms(fn, 20)}
+             for name, fn in (("dkv", dkv), ("dq", dq), ("delta", lambda: attention_delta(out, dout)),
+                              ("backward", whole))}
     plain_ms = cuda_ms(lambda: prefill_attention_backward_plain(q, k, v, mask, dout), 5)
-    qq, kk, vv = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
-    dd = dout.transpose(1, 2).contiguous()
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True, enable_gqa=True)
-
-    sdpa_fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qq, kk, vv), dd), 20)
-    out = sdpa()
-    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), dd, retain_graph=True), 20)
+    sdpa = sdpa_backward_graph_ms(q, k, v, dout)
+    fastest = min(sdpa, key=lambda name: sdpa[name]["graph_ms"])
     b, t, hq, d = q.shape
     fwd_flops = 4.0 * b * hq * d * t * (t + 1) / 2  # causal: keys 1..t for query row t
     inputs = nbytes(q, k, v, mask, dout, m, l, delta)
@@ -1060,19 +1141,26 @@ def compare_backward_on_path_inputs(call: tuple) -> dict:
     b_dkv = bound(inputs + nbytes(k, v), 2.0 * fwd_flops, BF16_TENSOR_FLOPS)
     b_dq = bound(inputs + nbytes(q), 1.5 * fwd_flops, BF16_TENSOR_FLOPS)
     b_bwd = bound(inputs + nbytes(q, k, v), 2.5 * fwd_flops, BF16_TENSOR_FLOPS)
+    flops = {"dkv": 2.0 * fwd_flops, "dq": 1.5 * fwd_flops, "delta": 0.0,
+             "backward": 3.5 * fwd_flops}
     print(f"prefill backward on the training path's inputs q={list(q.shape)} k={list(k.shape)} "
           f"real_keys={int(mask.sum()) if mask is not None else 'all'} "
           + " ".join(f"{n}_err={e!r} {n}_bf16_plain_err={pe!r}" for n, (e, pe) in r["errs"].items())
           + f" fwd_stats_ms={fwd_ms!r} fwd_stats_graph_ms={fwd_graph_ms!r} "
-          f"dkv_ms={dkv_ms!r} dq_ms={dq_ms!r} "
-          f"plain_backward_ms={plain_ms!r} bound_dkv_ms={b_dkv['bound_ms']!r} "
+          + " ".join(f"{n}_ms={x['ms']!r} {n}_graph_ms={x['graph_ms']!r} "
+                     f"{n}_graph_tflops={flops[n] / x['graph_ms'] / 1e9!r}"
+                     for n, x in times.items())
+          + f" plain_backward_ms={plain_ms!r} bound_dkv_ms={b_dkv['bound_ms']!r} "
           f"bound_dq_ms={b_dq['bound_ms']!r} bound_backward_2.5x_ms={b_bwd['bound_ms']!r} "
-          f"sdpa_backward_ms={sdpa_bwd_ms!r} sdpa_forward_backward_ms={sdpa_fwd_bwd_ms!r}")
+          + " ".join(f"sdpa_{n}_backward_ms={x['ms']!r} sdpa_{n}_backward_graph_ms={x['graph_ms']!r}"
+                     for n, x in sdpa.items())
+          + f" library=sdpa_{fastest}_backward_graph")
+    library_ms = sdpa[fastest]["graph_ms"]
     return {
-        "prefill_attention_bwd_dkv": {"max_abs_err": r["dkv"], "ms": dkv_ms, "plain_ms": plain_ms,
-                                      **b_dkv, "library_ms": sdpa_bwd_ms},
-        "prefill_attention_bwd_dq": {"max_abs_err": r["dq"], "ms": dq_ms, "plain_ms": plain_ms,
-                                     **b_dq, "library_ms": sdpa_bwd_ms},
+        "prefill_attention_bwd_dkv": {"max_abs_err": r["dkv"], "ms": times["dkv"]["graph_ms"],
+                                      "plain_ms": plain_ms, **b_dkv, "library_ms": library_ms},
+        "prefill_attention_bwd_dq": {"max_abs_err": r["dq"], "ms": times["dq"]["graph_ms"],
+                                     "plain_ms": plain_ms, **b_dq, "library_ms": library_ms},
         "fwd_stats_ms": fwd_ms,
     }
 
@@ -2157,7 +2245,8 @@ def main() -> None:
     # Times are at the paths' inputs; the error is the larger of the
     # random-input and the path-input comparisons.
     source = "tiny_audio_tpu_torch/csrc/attention_sm90.cu"
-    bwd_source = "tiny_audio_tpu_torch/csrc/attention_bwd.cu"
+    # the training path's head_dim (128) runs the Hopper backward (64 and 128)
+    bwd_source = "tiny_audio_tpu_torch/csrc/attention_bwd_sm90.cu"
     decode_source = "tiny_audio_tpu_torch/csrc/decode_attention.cu"
     int8_source = "tiny_audio_tpu_torch/csrc/int8_matmul.cu"
     launches = {**results["fused"]["counts"],

@@ -68,6 +68,10 @@ KERNEL_ATOL, KERNEL_RTOL = 1e-2, 2.0**-6
 # magnitude (one bf16 ulp near the top of a binade) for gradients so small
 # that the bf16 plain version happens to round exactly.
 BWD_ERR_RATIO, BWD_FLOOR = 2.0, 2.0**-8
+# Where the exact gradient is 0 by cancellation (one key: dS = dP - delta),
+# the residue of dP - delta, each an fp32 sum of the same D products taken in
+# another order: 2**-20 of |delta| is 8 ulps at the top of its binade.
+DS_RESIDUE = 2.0**-20
 # An fp32 kernel (CUDA-core FMAs) against its plain version in fp32: sums in
 # other orders and exp2 of the log2-scaled score for exp differ by a few fp32
 # ulps a term; FP32_TOL of the largest |want| (at least 1) bounds a row's sum.
@@ -470,12 +474,18 @@ def _bwd_close(name, got, want32, ref16):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("group,d", [(g, d) for g in (1, 2, 3, 4, 8) for d in (64, 128, 256)])
-def test_prefill_backward_kernels_match_plain(cuda_device, group, d):
+@pytest.mark.parametrize(
+    "group,d,t",
+    [(g, d, 131) for g in (1, 2, 3, 4, 8) for d in (64, 128, 256)]
+    # the Hopper design's tile edges (64-row tiles, 128-key dkv blocks)
+    + [(g, d, t) for g in (1, 2, 8) for d in (64, 128) for t in (1, 63, 64, 65, 512)])
+def test_prefill_backward_kernels_match_plain(cuda_device, group, d, t):
     """dkv and dq at every (GQA group, head_dim), ragged T, padding keys
-    inside and at the end of a row, against the plain backward."""
-    b, t, hkv = 2, 131, 2
-    q, k, v, dout, mask = _prefill_inputs(cuda_device, b, t, group * hkv, hkv, d, group + d)
+    inside and at the end of a row, against the plain backward; at head_dim
+    64 and 128 also at T on and around the tile edges."""
+    b, hkv = 2, 2
+    seed = group + d + (t != 131) * t  # the T = 131 cases keep their seed
+    q, k, v, dout, mask = _prefill_inputs(cuda_device, b, t, group * hkv, hkv, d, seed)
     before = (prefill_attention.launches, prefill_attention_bwd_dkv.launches,
               prefill_attention_bwd_dq.launches)
     out, m, l = prefill_attention_forward(q, k, v, mask)
@@ -489,12 +499,26 @@ def test_prefill_backward_kernels_match_plain(cuda_device, group, d):
     want = prefill_attention_backward_plain(*(x.float() for x in (q, k, v)), mask, dout.float())
     ref = prefill_attention_backward_plain(q, k, v, mask, dout)
     for name, got, w, r in zip(("dq", "dk", "dv"), (dq, dk, dv), want, ref):
+        if t == 1 and name != "dv":
+            # One key: P = 1 and dS = dP - delta, which the plain backward
+            # cancels to exactly 0.  The kernels take delta from
+            # attention_delta, a torch sum of the D products dO * O that the
+            # tensor cores sum in another order for dP, so dS is a residue of
+            # a few fp32 ulps of delta: |dS| <= DS_RESIDUE * |delta|, times
+            # scale, the other operand and, for dk, the group's heads.
+            other = k if name == "dq" else q
+            limit = (d ** -0.5 * DS_RESIDUE * delta.abs().max().item()
+                     * other.float().abs().max().item() * (1 if name == "dq" else group))
+            assert torch.isfinite(got).all(), name
+            assert got.float().abs().max().item() <= limit, f"{name} at T = 1: {got.abs().max()}"
+            continue
         _bwd_close(name, got, w, r)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("checkpointed", [False, True])
-def test_prefill_attention_autograd_on_card(cuda_device, checkpointed):
+def test_prefill_attention_autograd_on_card(cuda_device, checkpointed, d):
     """Gradients through prefill_attention launch the forward with
     statistics and both backward kernels, also when torch.utils.checkpoint
     recomputes the forward.  Batch row 1 is all padding: every query sees
@@ -506,7 +530,7 @@ def test_prefill_attention_autograd_on_card(cuda_device, checkpointed):
     backward's P would be 1, not 1 / (r + 1), in that row."""
     from torch.utils.checkpoint import checkpoint
 
-    b, t, hq, hkv, d = 3, 96, 16, 8, 128
+    b, t, hq, hkv = 3, 96, 16, 8
     q, k, v, dout, mask = _prefill_inputs(cuda_device, b, t, hq, hkv, d, 5)
     mask[1] = 0
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]

@@ -54,20 +54,27 @@ def _jax_batch(jm, rows):
 # ------------------------------------------------------------- attention
 
 
-def test_prefill_backward_plain_matches_jax_grad():
-    """Autograd through the plain prefill attention against jax.grad of the
-    JAX causal_self_attention (the naive path on the CPU): GQA group 3, a
-    right-padded row and padding inside a row."""
+@pytest.mark.parametrize("t,hq,hkv,d", [
+    (21, 6, 2, 16),
+    # the widths of the Hopper backward kernels, GQA group 2, past one 64-row tile
+    (70, 4, 2, 64),
+    (70, 4, 2, 128),
+])
+def test_prefill_backward_plain_matches_jax_grad(t, hq, hkv, d):
+    """Autograd through the plain prefill attention (the backward kernels'
+    oracle) against jax.grad of the JAX causal_self_attention (the naive
+    path on the CPU): GQA groups 3 and 2, a right-padded row and padding
+    inside a row."""
     from tiny_audio_tpu.ops.attention import causal_self_attention
     from tiny_audio_tpu_torch.ops.prefill_attention import prefill_attention_backward_plain
 
     rng = np.random.default_rng(0)
-    b, t, hq, hkv, d = 2, 21, 6, 2, 16
+    b = 2
     q = rng.standard_normal((b, t, hq, d)).astype(np.float32)
     k, v = (rng.standard_normal((b, t, hkv, d)).astype(np.float32) for _ in range(2))
     dout = rng.standard_normal((b, t, hq, d)).astype(np.float32)
     mask = np.ones((b, t), np.int32)
-    mask[1, 15:] = 0
+    mask[1, t * 5 // 7:] = 0  # from key 15 at T = 21
     mask[0, 3:6] = 0
 
     def loss(q, k, v):

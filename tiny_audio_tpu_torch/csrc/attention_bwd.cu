@@ -21,7 +21,13 @@
 // in a row whose visible keys are all padding, where it takes a share of dV
 // but, its score being a constant, no dS (no dQ or dK).
 //
-// Design (simple and exact first, like the forward):
+// Which design serves which head_dim:
+//   - bf16 at D = 64 and 128 (the flagship's decoder): the Hopper design of
+//     attention_bwd_sm90.cu (TMA, wgmma, accumulators in registers);
+//   - bf16 at D = 16, 32 and 256: the mma.sync template below;
+//   - fp32 at every head_dim: attention_f32.cu.
+//
+// The mma.sync template (simple and exact first, like the forward's):
 //   - dkv: one block per (key tile, KV head, batch row); each warp owns 16
 //     keys.  It loops over the query heads of its GQA group and over the
 //     query tiles from the diagonal on, recomputing S^T = K Q^T and
@@ -41,13 +47,16 @@
 //     accumulator fragments are repacked as the A operand of the next
 //     product.
 //
-// What bounds it on the H100: the backward does 2.5x the forward's FLOPs
-// (recomputing S, plus dP, dV, dK, dQ: 5 products of 2*D per score against
-// the forward's 2) over ~2x its bytes, so it is bound by compute like the
-// forward, and here more so by the mma.sync issue rate and the shared-memory
-// traffic of the accumulators; dkv and dq each recompute S and dP, 7 products
-// per score in all.  wgmma, register accumulators and one fused pass are
-// later work.
+// What bounds it on the H100.  On the training path's inputs (B = 6, T = 512,
+// 16/8 heads of 128; chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W) this
+// template took 0.504 ms (dkv) and 0.338 ms (dq) at D = 128, 3.0% and 4.5%
+// of their 0.0152 ms byte bound (26 and 29 TFLOP/s), not the tensor cores'
+// rate: every tile reads and writes its fp32 accumulators in shared memory,
+// one 128-thread block fits an SM, and the loads are synchronous, with the
+// transposed copies stored one bf16 at a time (16-way bank conflicts at
+// D = 128).  The Hopper design, which removes each of those, runs 9x and 7x
+// faster there (attention_bwd_sm90.cu's header).  At D = 16, 32 and 256 this
+// template stays; it is not timed at a training shape there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -420,6 +429,20 @@ bool valid(const BwdArgs& a) { return a.T > 0 && a.B > 0 && a.Hkv > 0 && a.Hq % 
 
 }  // namespace
 
+namespace ta {
+
+// attention_bwd_sm90.cu: the bf16 backward at D = 64 and 128.
+int attention_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* mask,
+                           const void* dout, const void* m, const void* l, const void* delta,
+                           void* dk, void* dv, int B, int T, int Hq, int Hkv, int D, float scale,
+                           void* stream);
+int attention_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* mask,
+                          const void* dout, const void* m, const void* l, const void* delta,
+                          void* dq, int B, int T, int Hq, int Hkv, int D, float scale,
+                          void* stream);
+
+}  // namespace ta
+
 extern "C" {
 
 // q/dout: [B, T, Hq, D]; k/v: [B, T, Hkv, D] (Hq % Hkv == 0, D = 16, 32, 64,
@@ -437,8 +460,10 @@ int ta_prefill_attention_bwd_dkv(const void* q, const void* k, const void* v, co
   switch (D) {
     case 16: return launch_dkv<16>(a, dk, dv);
     case 32: return launch_dkv<32>(a, dk, dv);
-    case 64: return launch_dkv<64>(a, dk, dv);
-    case 128: return launch_dkv<128>(a, dk, dv);
+    case 64:
+    case 128:
+      return ta::attention_bwd_dkv_sm90(q, k, v, mask, dout, m, l, delta, dk, dv, B, T, Hq, Hkv,
+                                        D, scale, stream);
     case 256: return launch_dkv<256>(a, dk, dv);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -455,8 +480,10 @@ int ta_prefill_attention_bwd_dq(const void* q, const void* k, const void* v, con
   switch (D) {
     case 16: return launch_dq<16>(a, dq);
     case 32: return launch_dq<32>(a, dq);
-    case 64: return launch_dq<64>(a, dq);
-    case 128: return launch_dq<128>(a, dq);
+    case 64:
+    case 128:
+      return ta::attention_bwd_dq_sm90(q, k, v, mask, dout, m, l, delta, dq, B, T, Hq, Hkv, D,
+                                       scale, stream);
     case 256: return launch_dq<256>(a, dq);
     default: return (int)cudaErrorInvalidValue;
   }

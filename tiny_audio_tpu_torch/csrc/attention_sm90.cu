@@ -65,8 +65,9 @@ using ta::MASK_VALUE;
 using ta::pack_bf16;
 namespace sm90 = ta::sm90;
 
-constexpr int BOX_COLS = 64;           // bf16 columns of a TMA box: one 128-byte swizzle row
-constexpr int ROW_BYTES = 128;
+using sm90::BOX_COLS;
+using sm90::make_map;
+using sm90::ROW_BYTES;
 constexpr int STAGES = 2;              // the K/V ring
 constexpr int BLOCK_Q = 64;            // query rows a block: one consumer warpgroup
 constexpr int NUM_THREADS = 128 + 32;  // the consumer warpgroup and the producer warp
@@ -159,26 +160,13 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
     for (int t = 0; t < n_tiles; ++t) {
       const int s = t % STAGES;
       const int k0 = t * BLOCK_K;
-      // a bit a key: real (attended), valid (< T); one vote for the tile
-      uint32_t real[WORDS], valid[WORDS];
-      bool all_real = true;
-#pragma unroll
-      for (int w = 0; w < WORDS; ++w) {
-        const int key = k0 + 32 * w + lane;
-        const bool in = key < T;
-        valid[w] = __ballot_sync(0xffffffffu, in);
-        real[w] = __ballot_sync(0xffffffffu, in && (mask_row == nullptr || mask_row[key] != 0));
-        all_real = all_real && real[w] == 0xffffffffu;
-      }
+      uint32_t words[KEY_WORDS];
+      sm90::key_words<WORDS>(mask_row, k0, T, lane, words);
       if (lane == 0) {
         sm90::mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
         uint32_t* kw = keys + s * KEY_WORDS;
 #pragma unroll
-        for (int w = 0; w < WORDS; ++w) {
-          kw[w] = real[w];
-          kw[WORDS + w] = valid[w];
-        }
-        kw[2 * WORDS] = all_real ? 0u : 1u;
+        for (int w = 0; w < KEY_WORDS; ++w) kw[w] = words[w];
         sm90::mbar_arrive_expect_tx(&full[s], 2 * S::KV_BYTES);
         uint8_t* k_st = smem + S::K_OFF + s * S::KV_BYTES;
         uint8_t* v_st = smem + S::V_OFF + s * S::KV_BYTES;
@@ -353,42 +341,6 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess) {
-      return nullptr;
-    }
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
-}
-
-// x [B, T, H, D] bf16 as the 4-D map (D, H, T, B), boxes of [rows][64] with
-// the 128-byte swizzle; rows past T read as zeros.
-bool make_map(CUtensorMap* map, const void* x, int B, int T, int H, int D, int rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)T * H * D * 2};  // bytes, dims 1..3
-  const cuuint32_t box[4] = {BOX_COLS, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D, int BLOCK_K, bool CAUSAL, bool STATS>

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the kernels written for this card:
-// mbarriers, TMA tile loads into 128-byte-swizzled shared memory, the wgmma
-// shared-memory descriptor, and the warpgroup products m64nNk16 (bf16 in,
-// fp32 accumulators) with A in shared memory (SS) or in registers (RS).
+// mbarriers, TMA tile loads into 128-byte-swizzled shared memory and the
+// host-side tensor maps they read, the wgmma shared-memory descriptor, the
+// warpgroup products m64nNk16 (bf16 in, fp32 accumulators) with A in shared
+// memory (SS) or in registers (RS), and setmaxnreg.
 //
 // Shared-memory tiles.  A TMA box of [rows][64] bf16 (128 bytes a row) lands
 // with CU_TENSOR_MAP_SWIZZLE_128B as 8-row, 1,024-byte atoms in which the
@@ -28,10 +29,14 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace ta {
 namespace sm90 {
+
+constexpr int BOX_COLS = 64;   // bf16 columns of a TMA box: one 128-byte swizzle row
+constexpr int ROW_BYTES = 128;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -141,6 +146,32 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
   for (int i = 0; i < N; ++i) fence_operand(d[i]);
 }
 
+// The same for the RS product's A fragments, which the tensor cores read
+// until the wgmma_wait that retires the product.
+template <int M>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
+}
+
+// ---- setmaxnreg: a warpgroup gives registers back to the block's pool
+// (dec) or takes them from it (inc); all four warps execute it.  ptxas
+// honours it only where each role's code is one branch that never rejoins
+// the other's (otherwise warning C7508).
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // d (+)= A B for a 64 x N x 16 step, A and B in shared memory.  scale_d = 0
 // overwrites d.  TRANS_B = 1 reads B MN-major (see the header).
 template <int N, int TRANS_B>
@@ -227,6 +258,65 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
   }
+}
+
+// ---- the key states a producer warp hands its consumers for the keys
+// k0 .. k0 + 32 WORDS - 1: a bit a key in words[w] (real: below T and
+// attended) and in words[WORDS + w] (valid: below T), and words[2 WORDS] = 1
+// unless every key is real, i.e. the tile needs the per-element mask.  Every
+// lane of the warp votes; mask_row (1 = real) may be null.
+
+template <int WORDS>
+__device__ __forceinline__ void key_words(const int* mask_row, int k0, int T, int lane,
+                                          uint32_t (&words)[2 * WORDS + 1]) {
+  bool all_real = true;
+#pragma unroll
+  for (int w = 0; w < WORDS; ++w) {
+    const int key = k0 + 32 * w + lane;
+    const bool in = key < T;
+    words[WORDS + w] = __ballot_sync(0xffffffffu, in);
+    words[w] = __ballot_sync(0xffffffffu, in && (mask_row == nullptr || mask_row[key] != 0));
+    all_real = all_real && words[w] == 0xffffffffu;
+  }
+  words[2 * WORDS] = all_real ? 0u : 1u;
+}
+
+// ---- host: tensor maps
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      return nullptr;
+    }
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// x [B, T, H, D] bf16 as the 4-D map (D, H, T, B), boxes of [rows][64] with
+// the 128-byte swizzle; rows past T read as zeros.
+inline bool make_map(CUtensorMap* map, const void* x, int B, int T, int H, int D, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)T * H * D * 2};  // bytes, dims 1..3
+  const cuuint32_t box[4] = {BOX_COLS, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

@@ -59,6 +59,8 @@ _SIGNATURES = {
     "ta_a8_matmul": (_PTR,) * 5 + (_INT,) * 4 + (_PTR,),
     "ta_a8t_matmul": (_PTR,) * 5 + (_INT,) * 4 + (_PTR,),
     "ta_attention_sm90_smem_bytes": (_INT, _INT),
+    "ta_attention_bwd_sm90_smem_bytes": (_INT, _INT),
+    "ta_attention_bwd_sm90_dkv_entry_registers": (),
 }
 
 

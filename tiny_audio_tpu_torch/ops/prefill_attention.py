@@ -26,12 +26,30 @@ instances of ``csrc/attention_f32.cu``, fp32 FMAs on the CUDA cores):
   mask only on the diagonal, ragged and padded tiles, and the heaviest
   (last) query tiles scheduled first; at head_dim 16, 32 and 256 the
   ``mma.sync`` template of ``csrc/attention.cu``;
-- backward (``csrc/attention_bwd.cu``): ``ta_prefill_attention_bwd_dkv``
-  (dK, dV, the GQA group summed in the kernel) and
-  ``ta_prefill_attention_bwd_dq``, after ``delta = rowsum(dO * O)`` in
-  torch, as the library computes it outside Pallas too.
+- backward (entry points in ``csrc/attention_bwd.cu``):
+  ``ta_prefill_attention_bwd_dkv`` (dK, dV, the GQA group summed in the
+  kernel, no atomics) and ``ta_prefill_attention_bwd_dq``, after
+  ``delta = rowsum(dO * O)`` in torch, as the library computes it outside
+  Pallas too.  In bf16 at head_dim 64 and 128 both run the Hopper design of
+  ``csrc/attention_bwd_sm90.cu``: the block's K and V (dkv) or Q and dO
+  (dq) loaded once by TMA, the other pair streamed through a two-stage
+  ring, ``wgmma`` products with every accumulator in registers (dkv: two
+  consumer warpgroups of 64 keys, ``setmaxnreg`` moving registers from the
+  producer to them; dq: one of 64 query rows), P and dS formed in registers
+  as the next product's operand, the per-element mask only on the
+  diagonal, padded and ragged tiles, and the heaviest tiles first; at
+  head_dim 16, 32 and 256 the ``mma.sync`` template of
+  ``csrc/attention_bwd.cu``.
 
-All are bound by compute (the sources' headers have the numbers).
+None reaches its bound (the larger of its bytes over 3.35 TB/s and its
+FLOPs over 989 TFLOP/s; the two nearly meet at training shapes).  On the
+training path's inputs (B = 6, T = 512, 16/8 heads of 128; NVIDIA H100
+80GB HBM3 at 700 W, CUDA graph, ``chip_smoke.py``; PERF.md section 6)
+dkv takes 0.05623 ms, 27% of its 0.01521 ms bound (229.6 TFLOP/s), and dq
+0.04637 ms, 33% (208.8 TFLOP/s), against 3.0% and 4.5% for the
+``mma.sync`` design at the same shape; the sources' headers say what each
+leaves serial.  ``attention_delta``'s torch chain (casts, product, sum,
+transpose) takes 0.08330 ms there, longer than either kernel.
 
 On a CPU tensor :func:`prefill_attention` runs :func:`prefill_attention_plain`
 (autograd differentiates it); on a CUDA tensor it launches the kernels or
