@@ -48,6 +48,18 @@ flagship width (random weights from seed 0, int8 KV cache):
   what that script prints (fused and unfused cuBLAS times and TFLOP/s, both
   errors against fp64 on 4,096 rows) and the gradient through ``EncoderFFN``.
 
+The decode kernels #3 and #4 (``csrc/decode_attention.cu``, a split over the
+cache rows merged inside the launch): the registers, shared memory and
+spills of each of their 40 instances (none over an int8 or bf16 cache at
+head_dim <= 128 may spill); each kernel against its plain version and the
+split's oracle at B = 1, 4 and 48 at the edges of the split, NaN planted past
+kv_len, the appended rows bitwise, repeated runs bitwise; a CUDA graph with a
+device kv_len advanced between replays bitwise equal to eager calls; the
+merge counters zero after each phase; and their times from a CUDA graph
+over cold layer views (B = 4, 48, 1) beside their bound, the previous
+design's times and SDPA on a bf16 cache.  ``torch._weight_int8pack_mm``, one call
+computing #6's function, is timed beside #6 at its head shape.
+
 Before the paths, the prefill kernel's forward (serving and with saved
 statistics) and its two backward kernels are held against their plain
 versions at every (GQA group, head_dim) pair the decoders take, and the
@@ -98,6 +110,29 @@ MAX_NEW = 128
 REQUEST_SECONDS = (5, 12, 30)
 STREAM_TOKENS = 32
 DECODE_KV_LENS = (1, 255, 256, 468, 595)
+# The decode kernels' timed points (B, kv_len) at S = 608: the path's batch
+# (its first and last step), the JAX bench's batch and a stream.  Each graph
+# cycles through at least DECODE_LAYERS cache views, and through as many as
+# make the prefixes read twice the L2.
+DECODE_GRAPH_POINTS = ((4, 468), (4, 595), (48, 468), (48, 595), (1, 468))
+DECODE_GRAPH_S = 608
+DECODE_LAYERS = 28
+L2_BYTES = 50e6
+# The previous design of #3 and #4 (one block per KV head and batch row, a
+# one-row prefetch a thread), timed by decode_graph_times on that tree:
+# (cache, B, kv_len) -> (#3 ms, #4 ms); NVIDIA H100 80GB HBM3, 700.00 W.
+PREVIOUS_DECODE_GRAPH_MS = {
+    ("int8", 4, 468): (0.013656952551433019, 0.01372228633789789),
+    ("int8", 4, 595): (0.016341714631943477, 0.016884952783584595),
+    ("int8", 48, 468): (0.04284609499431792, 0.04284323680968512),
+    ("int8", 48, 595): (0.05152933370499384, 0.05138990424928211),
+    ("int8", 1, 468): (0.013757175869411893, 0.013878850375904757),
+    ("bf16", 4, 468): (0.017679047016870408, 0.017631618749527705),
+    ("bf16", 4, 595): (0.02149771366800581, 0.021488191116423833),
+    ("bf16", 48, 468): (0.044431047780173163, 0.04468361820493426),
+    ("bf16", 48, 595): (0.054499240148635136, 0.05471866471426828),
+    ("bf16", 1, 468): (0.017548376659177384, 0.017560150638316414),
+}
 TRAIN_BATCH = 6  # configs/training/production.yaml's per_device_batch_size
 TRAIN_CLIP_S = (10.0, 30.0)
 TRAIN_STEPS = 10  # stage 1 on one repeated batch
@@ -450,6 +485,68 @@ def instance_text(inst: tuple) -> str:
     return f"{inst[0]}<D={inst[1]}>"
 
 
+def ptxas_facts(log: str, instance) -> dict:
+    """Registers, static shared memory and spilled bytes from the build's
+    ``ptxas -v`` log for each kernel that ``instance(mangled name)`` names
+    (it returns None for the others)."""
+    ptxas: dict = {}
+    current = None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = instance(entry.group(1))
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            ptxas.setdefault(current, {})["spill_bytes"] = [int(x) for x in spill.groups()]
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            smem = re.search(r"(\d+) bytes smem", line)
+            ptxas.setdefault(current, {}).update(
+                registers=int(used.group(1)), static_smem_bytes=int(smem.group(1)) if smem else 0)
+            current = None
+    return ptxas
+
+
+# #3 and #4: decode_kernel<model dtype, cache dtype, head_dim, update> of
+# csrc/decode_attention.cu, one instance per combination the kernels take
+DECODE_INSTANCES = {(q, c, d, u) for q in ("bf16", "fp32") for c in ("int8", q)
+                    for d in (16, 32, 64, 128, 256) for u in (0, 1)}
+
+
+def decode_instance(mangled: str):
+    """(model dtype, cache dtype, head_dim, update) of a decode_kernel
+    symbol, None for any other kernel (the second of two bf16 arguments is
+    mangled as a substitution, S<n>_)."""
+    found = re.search(r"decode_kernelI(13__nv_bfloat16|f)(a|f|13__nv_bfloat16|S\d*_)"
+                      r"Li(\d+)ELb([01])E", mangled)
+    if found is None:
+        return None
+    q = "fp32" if found.group(1) == "f" else "bf16"
+    cache = {"a": "int8", "f": "fp32"}.get(found.group(2), "bf16")
+    return (q, cache, int(found.group(3)), int(found.group(4)))
+
+
+def decode_design_facts(log: str) -> None:
+    """Registers, static shared memory and spills of every instance of #3
+    and #4 (``ptxas -v``).  Fails before any launch if an instance is
+    missing, or if one over an int8 or bf16 cache at head_dim <= 128 spills."""
+    ptxas = ptxas_facts(log, decode_instance)
+    if set(ptxas) != DECODE_INSTANCES:
+        fail(f"decode kernel instances: ptxas {sorted(ptxas)}, expected {sorted(DECODE_INSTANCES)}")
+    spilling = []
+    for inst in sorted(DECODE_INSTANCES):
+        q, cache, d, update = inst
+        print(f"decode design decode_kernel<Q={q}, cache={cache}, D={d}, update={update}> "
+              f"ptxas={json.dumps(ptxas[inst])}")
+        if cache in ("int8", "bf16") and d <= 128 and ptxas[inst].get("spill_bytes") != [0, 0]:
+            spilling.append(inst)
+    if spilling:
+        fail(f"decode_kernel instances spill: {spilling}")
+
+
 def hopper_design_facts(log: str) -> None:
     """What shows that #1, #2, #2b and #2c are the Hopper design: for each
     instance of attention_fwd_sm90, attention_bwd_dkv_sm90 and
@@ -467,24 +564,7 @@ def hopper_design_facts(log: str) -> None:
             fail(f"ptxas serialized a wgmma: {line.strip()}")
         if "C7508" in line or ("setmaxnreg" in line and "ignored" in line):
             fail(f"ptxas ignored a setmaxnreg: {line.strip()}")
-    ptxas: dict = {}
-    current = None
-    for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '([^']+)'", line)
-        if entry:
-            current = sm90_instance(entry.group(1))
-            continue
-        if current is None:
-            continue
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if spill:
-            ptxas.setdefault(current, {})["spill_bytes"] = [int(x) for x in spill.groups()]
-        used = re.search(r"Used (\d+) registers", line)
-        if used:
-            smem = re.search(r"(\d+) bytes smem", line)
-            ptxas.setdefault(current, {}).update(
-                registers=int(used.group(1)), static_smem_bytes=int(smem.group(1)) if smem else 0)
-            current = None
+    ptxas = ptxas_facts(log, sm90_instance)
     sass = subprocess.run([kernels.cuda_tool("cuobjdump"), "-sass", str(kernels.build()[0])],
                           capture_output=True, text=True, timeout=300, check=True).stdout
     ops = ("HGMMA", "UTMALDG", "USETMAXREG")
@@ -633,70 +713,310 @@ def sdpa_decode_ms(q, cache_k, cache_v, fresh_k, fresh_v, kv_len: int) -> tuple[
     return cuda_ms(call, 20), call()[:, :, 0]
 
 
+def rotation_graph_ms(call, views: int, reps: int = 2) -> float:
+    """Mean device milliseconds of ``call(i)`` over a CUDA graph that cycles
+    ``reps`` times through views ``i = 0 .. views - 1`` (each call's inputs
+    are then cold in L2 when the views outgrow it), replayed 3 times."""
+    for i in range(views):  # warm up, outside the capture
+        call(i)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            for i in range(views):
+                call(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * reps * views)
+
+
+def decode_graph_times(gen: torch.Generator) -> dict:
+    """Kernels #3 and #4 from a CUDA graph at a cold L2, at every point of
+    DECODE_GRAPH_POINTS, over an int8 and a bf16 cache: ``kv_len`` is a
+    device tensor, and each graph cycles through the layer views of one
+    ``[L, B, S, Hkv, D]`` cache as the fused step reads them (L = 28, or
+    more where 28 prefixes fit twice in L2).  Beside each time: its bound,
+    the previous design's graph time, and on the bf16 cache SDPA over the same
+    rotation (the prefix and the fresh row laid out [B, Hkv, T, D] outside
+    the timed call).  Returns {(cache, B, kv_len): stats of both kernels}."""
+    import torch.nn.functional as F
+
+    from tiny_audio_tpu_torch.ops.decode_attention import decode_attention, decode_attention_update
+
+    s, hq, hkv, d = DECODE_GRAPH_S, 16, 8, 128
+    results = {}
+    for quantized in (True, False):
+        cache = "int8" if quantized else "bf16"
+        for b in dict.fromkeys(b for b, _ in DECODE_GRAPH_POINTS):
+            kv_lens = [n for bb, n in DECODE_GRAPH_POINTS if bb == b]
+            row = hkv * d * (1 if quantized else 2) + (hkv * 4 if quantized else 0)
+            views = max(DECODE_LAYERS, -(-int(2 * L2_BYTES) // (2 * b * min(kv_lens) * row)))
+            shape = (views, b, s, hkv, d)
+            if quantized:
+                ck, cv = (torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                        dtype=torch.int8) for _ in range(2))
+                ks, vs = (torch.rand(shape[:-1], generator=gen, device="cuda") * 0.02 + 1e-3
+                          for _ in range(2))
+            else:
+                ck, cv = (torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+                          .normal_(generator=gen) for _ in range(2))
+                ks = vs = None
+            q = (torch.randn((b, hq, d), generator=gen, device="cuda") * 2).to(torch.bfloat16)
+            fk, fv = (torch.randn((b, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+                      for _ in range(2))
+            layer = lambda x, i: None if x is None else x[i]  # noqa: E731
+            for kv_len in kv_lens:
+                kv_t = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+                args = lambda i: (q, ck[i], cv[i], fk, fv, kv_t, layer(ks, i), layer(vs, i))  # noqa: E731
+                ms3 = rotation_graph_ms(lambda i: decode_attention(*args(i)), views)
+                ms4 = rotation_graph_ms(lambda i: decode_attention_update(*args(i)), views)
+                bound3 = decode_bound(q, ck[0], kv_len, layer(ks, 0), False)["bound_ms"]
+                bound4 = decode_bound(q, ck[0], kv_len, layer(ks, 0), True)["bound_ms"]
+                library_ms = lib_err = None
+                if not quantized:
+                    cat = lambda x, f, i: torch.cat(  # noqa: E731
+                        [x[i, :, :kv_len], f[:, None]], dim=1).transpose(1, 2).contiguous()
+                    kk = [cat(ck, fk, i) for i in range(views)]
+                    vv = [cat(cv, fv, i) for i in range(views)]
+                    qq = q[:, :, None]
+                    sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+                        qq, kk[i], vv[i], enable_gqa=True)
+                    library_ms = rotation_graph_ms(sdpa, views)
+                    lib_err = (decode_attention(*args(1)).float()
+                               - sdpa(1)[:, :, 0].float()).abs().max().item()
+                    del kk, vv
+                previous = PREVIOUS_DECODE_GRAPH_MS.get((cache, b, kv_len), (None, None))
+                print(f"decode graph cache={cache} B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
+                      f"kv_len={kv_len} views={views} decode_attention_ms={ms3!r} "
+                      f"decode_attention_update_ms={ms4!r} bound_ms={bound3!r} "
+                      f"update_bound_ms={bound4!r} previous_design_ms={previous[0]!r} "
+                      f"previous_design_update_ms={previous[1]!r} library_ms={library_ms!r}"
+                      + (f" (SDPA over the same rotation) kernel_vs_sdpa_max_abs_err={lib_err!r}"
+                         if not quantized else
+                         " (no PyTorch call attends over an int8 cache with per-entry scales)"))
+                results[(cache, b, kv_len)] = {
+                    "decode_attention": {"ms": ms3, "bound_ms": bound3, "library_ms": library_ms},
+                    "decode_attention_update": {"ms": ms4, "bound_ms": bound4,
+                                                "library_ms": library_ms}}
+            del ck, cv, ks, vs
+            torch.cuda.empty_cache()
+    check_decode_counters()
+    return results
+
+
+def int8pack_head_times(gen: torch.Generator) -> None:
+    """``torch._weight_int8pack_mm``, the one PyTorch call computing kernel
+    #6's function (weight-only int8, per-output-channel scales; the call
+    takes its weight [N, K] and its scales in x's dtype, both made outside
+    the timed call), at #6's head shape (K 1,024 -> N 151,936), B = 4 and
+    48, from a CUDA graph beside #6 from a graph, with its largest
+    difference from #6.  A yardstick only: the port never calls it."""
+    import torch.nn.functional as F
+
+    from tiny_audio_tpu_torch.ops.wq_matmul import NT, quantize_weight, wq_matmul
+
+    k, n = INT8_SHAPES["head"]
+    w = (torch.randn((k, n), generator=gen, device="cuda") * 0.03).to(torch.bfloat16)
+    wi, si = quantize_weight(w)
+    w_nk, s_lib = wi.T.contiguous(), si.to(torch.bfloat16)
+    pad = -n % NT  # the head as the wq collections pad it
+    wi_pad, si_pad = F.pad(wi, (0, pad)), F.pad(si, (0, pad))
+    for b in (BATCH, BENCH_BATCH):
+        x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
+        kernel_ms = graph_ms(lambda: wq_matmul(x, wi_pad, si_pad), 20)
+        try:
+            got = torch._weight_int8pack_mm(x, w_nk, s_lib)
+        except (RuntimeError, NotImplementedError) as e:
+            print(f"int8pack head K={k} N={n} B={b} wq_graph_ms={kernel_ms!r} library_ms=None "
+                  f"(torch {torch.__version__} has no CUDA kernel for _weight_int8pack_mm: "
+                  f"{str(e).splitlines()[0]})")
+            continue
+        err = (got.float() - wq_matmul(x, wi_pad, si_pad)[:, :n].float()).abs().max().item()
+        lib_ms = graph_ms(lambda: torch._weight_int8pack_mm(x, w_nk, s_lib), 20)
+        print(f"int8pack head K={k} N={n} B={b} wq_graph_ms={kernel_ms!r} library_ms={lib_ms!r} "
+              f"(torch._weight_int8pack_mm, CUDA graph) max_abs_err_vs_wq={err!r}")
+        if not bool(torch.isfinite(got).all()):
+            fail(f"torch._weight_int8pack_mm gave non-finite values at B={b}")
+
+
 def compare_decode_kernels(gen: torch.Generator) -> dict:
-    """Kernels #3 and #4 against their plain versions at the path's shapes,
-    int8 and bf16 caches, NaN planted in every cache row at and past kv_len."""
+    """Kernels #3 and #4 against their plain versions and the split's oracle
+    (``decode_attention_split_plain``) at the path's shape, int8 and bf16
+    caches, B = 1, 4 and 48, at DECODE_KV_LENS and at the edges of the split
+    each batch takes (kv_len 0, 1, R - 1, R, R + 1, S - 1), NaN planted in
+    every cache row at and past kv_len; the rows #4 writes bitwise the plain
+    version's, and two more runs of each kernel bitwise the first.
+
+    The kernels compute in fp32 from the bf16 inputs, so the plain version
+    they are held to is ``decode_attention_plain`` on fp32 copies of those
+    inputs (no rounding but the output's).  The bf16 plain version rounds
+    P x v_scale to bf16 before the product; where large terms cancel that
+    alone moves an output past KERNEL_ATOL (an int8 cache at B = 48: kernel
+    and fp32 oracle 0.00778, bf16 plain -0.00577), so it is required only at
+    the points it was before (B = 4, DECODE_KV_LENS) and printed elsewhere."""
     from tiny_audio_tpu_torch.ops.decode_attention import (
         decode_attention,
         decode_attention_plain,
+        decode_attention_split_plain,
         decode_attention_update,
         decode_attention_update_plain,
+        split_plan,
     )
 
-    b, s, hq, hkv, d = BATCH, 608, 16, 8, 128
+    s, hq, hkv, d = 608, 16, 8, 128
     errs = {"decode_attention": 0.0, "decode_attention_update": 0.0}
-    for quantized in (True, False):
-        for kv_len in DECODE_KV_LENS:
+    for b in (1, BATCH, BENCH_BATCH):
+        rows = split_plan(b, s, hkv, hq // hkv, d, torch.int8).rows
+        kv_lens = sorted(n for n in {*DECODE_KV_LENS, 0, 1, rows - 1, rows, rows + 1, s - 1}
+                         if n < s)
+        for quantized in (True, False):
+            for kv_len in kv_lens:
+                randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+                q = (randn(b, hq, d) * 2).to(torch.bfloat16)
+                fk, fv = (randn(b, hkv, d).to(torch.bfloat16) for _ in range(2))
+                if quantized:
+                    ck, cv = (torch.randint(-127, 128, (b, s, hkv, d), generator=gen,
+                                            device="cuda").to(torch.int8) for _ in range(2))
+                    ks, vs = (randn(b, s, hkv).abs() * 0.02 + 1e-3 for _ in range(2))
+                    ks[:, kv_len:] = float("nan")  # the int8 rows past kv_len: NaN scales
+                    vs[:, kv_len:] = float("nan")
+                else:
+                    ck, cv = (randn(b, s, hkv, d).to(torch.bfloat16) for _ in range(2))
+                    ck[:, kv_len:] = float("nan")
+                    cv[:, kv_len:] = float("nan")
+                    ks = vs = None
+                got = decode_attention(q, ck, cv, fk, fv, kv_len, ks, vs)
+                want = decode_attention_plain(q, ck, cv, fk, fv, kv_len, ks, vs)
+                exact = decode_attention_plain(q.float(), *(x if x.dtype == torch.int8
+                                                            else x.float() for x in (ck, cv)),
+                                               fk.float(), fv.float(), kv_len, ks, vs)
+                err3, ok3 = kernel_error(got, exact)
+                err3_bf16, ok3_bf16 = kernel_error(got, want)
+                err_split, ok_split = kernel_error(
+                    got, decode_attention_split_plain(q, ck, cv, fk, fv, kv_len, ks, vs))
+                repeat = all(same_bytes(got, decode_attention(q, ck, cv, fk, fv, kv_len, ks, vs))
+                             for _ in range(2))
+                finite = bool(torch.isfinite(got).all())
+                # #4: the same attention, and the written row equal to the plain one's
+                bufs = [x.clone() if x is not None else None for x in (ck, cv, ks, vs)]
+                ref = [x.clone() if x is not None else None for x in (ck, cv, ks, vs)]
+                upd = lambda: decode_attention_update(  # noqa: E731
+                    q, bufs[0], bufs[1], fk, fv, kv_len, bufs[2], bufs[3])
+                got4 = upd()
+                want4 = decode_attention_update_plain(q, ref[0], ref[1], fk, fv, kv_len,
+                                                      ref[2], ref[3])
+                err4, ok4 = kernel_error(got4, exact)  # the attention reads rows < kv_len
+                err4_bf16, ok4_bf16 = kernel_error(got4, want4)
+                rows_equal = all(same_bytes(x, y) for x, y in zip(bufs, ref) if x is not None)
+                repeat = repeat and all(same_bytes(got4, upd()) for _ in range(2))
+                rows_equal = rows_equal and all(same_bytes(x, y) for x, y in zip(bufs, ref)
+                                                if x is not None)
+                finite = finite and bool(torch.isfinite(got4).all())
+                line = (f"decode kernels B={b} S={s} Hq={hq} Hkv={hkv} D={d} rows_per_split={rows} "
+                        f"cache={'int8' if quantized else 'bf16'} kv_len={kv_len} nan_tail=true "
+                        f"decode_attention_max_abs_err={err3!r} "
+                        f"decode_attention_update_max_abs_err={err4!r} "
+                        f"split_oracle_max_abs_err={err_split!r} "
+                        f"bf16_plain_max_abs_err={max(err3_bf16, err4_bf16)!r} "
+                        f"bf16_plain_within={str(ok3_bf16 and ok4_bf16).lower()} "
+                        f"written_rows_equal={str(rows_equal).lower()} "
+                        f"three_runs_bitwise_equal={str(repeat).lower()} "
+                        f"atol={KERNEL_ATOL} rtol={KERNEL_RTOL}")
+                if kv_len == 468 and b == BATCH:  # the first decode step's prefix
+                    # back to back: the wrapper's call rate, not the kernel's time
+                    ms3 = cuda_ms(lambda: decode_attention(q, ck, cv, fk, fv, kv_len, ks, vs), 50)
+                    line += f" decode_attention_back_to_back_ms={ms3!r}"
+                print(line)
+                if not finite:
+                    fail(f"decode kernels gave non-finite values (B={b}, kv_len={kv_len}, "
+                         f"quantized={quantized})")
+                legacy = b == BATCH and kv_len in DECODE_KV_LENS
+                if not (ok3 and ok4 and ok_split and (ok3_bf16 and ok4_bf16 or not legacy)):
+                    worst = ((got.float() - exact.float()).abs()
+                             - KERNEL_RTOL * exact.float().abs()).flatten().argmax().item()
+                    fail(f"decode kernels disagree with their plain versions (B={b}, "
+                         f"kv_len={kv_len}, quantized={quantized}): {err3} {err4} {err_split} "
+                         f"{err3_bf16} {err4_bf16}; worst element {worst}: kernel "
+                         f"{got.flatten()[worst].item()!r} fp32 plain "
+                         f"{exact.flatten()[worst].item()!r} bf16 plain "
+                         f"{want.flatten()[worst].item()!r}")
+                if not rows_equal:
+                    fail(f"decode_attention_update wrote other bytes than its plain version "
+                         f"(B={b}, kv_len={kv_len}, quantized={quantized})")
+                if not repeat:
+                    fail(f"decode kernels gave other bits on a repeated run (B={b}, "
+                         f"kv_len={kv_len}, quantized={quantized})")
+                errs["decode_attention"] = max(errs["decode_attention"], err3)
+                errs["decode_attention_update"] = max(errs["decode_attention_update"], err4)
+    decode_graph_replay(gen)
+    return errs
+
+
+def decode_graph_replay(gen: torch.Generator) -> None:
+    """#4 then #3 captured once in a CUDA graph, with a device kv_len that the
+    graph advances after them (468 -> 469 -> 470, #4 appending each time), at
+    B = 1, 4 and 48 over both caches: every replay's outputs and the caches
+    at the end bitwise those of the same calls made eagerly; then the merge
+    counters all zero."""
+    from tiny_audio_tpu_torch.ops.decode_attention import decode_attention, decode_attention_update
+
+    s, hq, hkv, d, start = 608, 16, 8, 128, 468
+    for b in (1, BATCH, BENCH_BATCH):
+        for quantized in (True, False):
             randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
             q = (randn(b, hq, d) * 2).to(torch.bfloat16)
             fk, fv = (randn(b, hkv, d).to(torch.bfloat16) for _ in range(2))
             if quantized:
-                ck, cv = (torch.randint(-127, 128, (b, s, hkv, d), generator=gen, device="cuda")
-                          .to(torch.int8) for _ in range(2))
-                ks, vs = (randn(b, s, hkv).abs() * 0.02 + 1e-3 for _ in range(2))
-                ks[:, kv_len:] = float("nan")  # the int8 rows past kv_len: NaN scales
-                vs[:, kv_len:] = float("nan")
+                cache = [torch.randint(-127, 128, (b, s, hkv, d), generator=gen, device="cuda")
+                         .to(torch.int8) for _ in range(2)]
+                cache += [randn(b, s, hkv).abs() * 0.02 + 1e-3 for _ in range(2)]
             else:
-                ck, cv = (randn(b, s, hkv, d).to(torch.bfloat16) for _ in range(2))
-                ck[:, kv_len:] = float("nan")
-                cv[:, kv_len:] = float("nan")
-                ks = vs = None
-            got = decode_attention(q, ck, cv, fk, fv, kv_len, ks, vs)
-            want = decode_attention_plain(q, ck, cv, fk, fv, kv_len, ks, vs)
-            err3, ok3 = kernel_error(got, want)
-            finite = bool(torch.isfinite(got).all())
-            # #4: the same attention, and the written row equal to the plain one's
-            bufs = [x.clone() if x is not None else None for x in (ck, cv, ks, vs)]
-            ref = [x.clone() if x is not None else None for x in (ck, cv, ks, vs)]
-            got4 = decode_attention_update(q, bufs[0], bufs[1], fk, fv, kv_len, bufs[2], bufs[3])
-            want4 = decode_attention_update_plain(q, ref[0], ref[1], fk, fv, kv_len, ref[2], ref[3])
-            err4, ok4 = kernel_error(got4, want4)
-            rows_equal = all(same_bytes(x, y) for x, y in zip(bufs, ref) if x is not None)
-            finite = finite and bool(torch.isfinite(got4).all())
-            line = (f"decode kernels B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
-                    f"cache={'int8' if quantized else 'bf16'} kv_len={kv_len} nan_tail=true "
-                    f"decode_attention_max_abs_err={err3!r} decode_attention_update_max_abs_err={err4!r} "
-                    f"written_rows_equal={str(rows_equal).lower()} atol={KERNEL_ATOL} rtol={KERNEL_RTOL}")
-            if kv_len == 468:  # the first decode step's prefix at the flagship prompt
-                ms3 = cuda_ms(lambda: decode_attention(q, ck, cv, fk, fv, kv_len, ks, vs), 50)
-                ms4 = cuda_ms(lambda: decode_attention_update(
-                    q, bufs[0], bufs[1], fk, fv, kv_len, bufs[2], bufs[3]), 50)
-                line += f" decode_attention_ms={ms3!r} decode_attention_update_ms={ms4!r}"
-                if not quantized:
-                    lib_ms, lib_out = sdpa_decode_ms(q, ck, cv, fk, fv, kv_len)
-                    lib_err, _ = kernel_error(got, lib_out)
-                    line += f" sdpa_ms={lib_ms!r} kernel_vs_sdpa_max_abs_err={lib_err!r}"
-            print(line)
-            if not finite:
-                fail(f"decode kernels gave non-finite values (kv_len={kv_len}, quantized={quantized})")
-            if not (ok3 and ok4):
-                fail(f"decode kernels disagree with their plain versions: {err3} {err4}")
-            if not rows_equal:
-                fail(f"decode_attention_update wrote other bytes than its plain version "
-                     f"(kv_len={kv_len}, quantized={quantized})")
-            errs["decode_attention"] = max(errs["decode_attention"], err3)
-            errs["decode_attention_update"] = max(errs["decode_attention_update"], err4)
-    return errs
+                cache = [randn(b, s, hkv, d).to(torch.bfloat16) for _ in range(2)] + [None, None]
+            graph_bufs, eager_bufs, warm = ([x if x is None else x.clone() for x in cache]
+                                            for _ in range(3))
+            kv_t = torch.tensor(start, dtype=torch.int32, device="cuda")
+            decode_attention_update(q, *warm[:2], fk, fv, kv_t, *warm[2:])  # outside the capture
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out4 = decode_attention_update(q, *graph_bufs[:2], fk, fv, kv_t, *graph_bufs[2:])
+                out3 = decode_attention(q, *graph_bufs[:2], fk, fv, kv_t, *graph_bufs[2:])
+                kv_t.add_(1)
+            equal = True
+            for step in range(3):
+                graph.replay()
+                want4 = decode_attention_update(q, *eager_bufs[:2], fk, fv, start + step,
+                                                *eager_bufs[2:])
+                want3 = decode_attention(q, *eager_bufs[:2], fk, fv, start + step,
+                                         *eager_bufs[2:])
+                equal = equal and same_bytes(out4, want4) and same_bytes(out3, want3)
+            equal = equal and int(kv_t) == start + 3 and all(
+                same_bytes(x, y) for x, y in zip(graph_bufs, eager_bufs) if x is not None)
+            print(f"decode graph replay B={b} cache={'int8' if quantized else 'bf16'} "
+                  f"kv_len={start}->{start + 2} (advanced on the device) "
+                  f"replays_bitwise_equal_to_eager={str(equal).lower()}")
+            if not equal:
+                fail(f"decode kernels replayed from a CUDA graph differ from eager calls "
+                     f"(B={b}, quantized={quantized})")
+    check_decode_counters()
+
+
+def check_decode_counters() -> None:
+    """The decode kernels' merge counters are all zero between launches."""
+    from tiny_audio_tpu_torch.ops.decode_attention import counter_buffers
+
+    torch.cuda.synchronize()
+    counters = torch.cat(counter_buffers(torch.device("cuda", torch.cuda.current_device())))
+    print(f"decode merge counters={counters.numel()} all_zero={str(not counters.any()).lower()}")
+    if counters.any():
+        fail(f"decode merge counters left non-zero: {counters.nonzero().flatten().tolist()[:8]}")
 
 
 def compare_decode_on_path_inputs(name: str, kernel, plain, call: tuple) -> dict:
@@ -726,7 +1046,7 @@ def compare_decode_on_path_inputs(name: str, kernel, plain, call: tuple) -> dict
     print(f"{name} on the path's layer-0 inputs q={list(q.shape)} {q.dtype} cache={list(ck.shape)} "
           f"{ck.dtype} kv_len={n} max_abs_err={err!r} {tolerance_text(got.dtype)} "
           f"written_rows_equal={str(rows_equal).lower()} "
-          f"kernel_ms={ms!r} plain_ms={plain_ms!r} bound_ms={stats['bound_ms']!r} "
+          f"kernel_back_to_back_ms={ms!r} plain_ms={plain_ms!r} bound_ms={stats['bound_ms']!r} "
           f"library_ms={library_ms!r}"
           + (" (no PyTorch call attends over an int8 cache with per-entry scales)"
              if ks is not None else ""))
@@ -1903,10 +2223,11 @@ def main() -> None:
     print(f"build nvcc_s={nvcc_s!r} total_s={time.perf_counter() - t0!r} "
           f"ptxas={json.dumps(ptxas)}")
     hopper_design_facts(log)
+    decode_design_facts(log)
     phase_done()
 
-    # ---- 3, 4. kernels vs their plain versions ----
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # ---- 3, 4. kernels vs their plain versions ----
     enc = compare_encoder_kernel(gen)
     phase_done()
     pre = compare_prefill_kernel(gen)
@@ -1918,6 +2239,10 @@ def main() -> None:
     dec = compare_decode_kernels(gen)
     phase_done()
     dec_shapes = compare_decode_every_shape(gen)
+    phase_done()
+    dec_graph = decode_graph_times(gen)
+    phase_done()
+    int8pack_head_times(gen)
     phase_done()
     int8_errs = compare_int8_matmuls(gen)
     phase_done()
@@ -2242,8 +2567,9 @@ def main() -> None:
     if loaded:
         fail(f"the port imported the JAX side: {loaded[:5]}")
 
-    # Times are at the paths' inputs; the error is the larger of the
-    # random-input and the path-input comparisons.
+    # Times are at the paths' inputs (#3 and #4: from a CUDA graph over 28
+    # cold layer views at the path's shape, B = 4, kv_len 468, int8); the
+    # error is the larger of the random-input and the path-input comparisons.
     source = "tiny_audio_tpu_torch/csrc/attention_sm90.cu"
     # the training path's head_dim (128) runs the Hopper backward (64 and 128)
     bwd_source = "tiny_audio_tpu_torch/csrc/attention_bwd_sm90.cu"
@@ -2264,11 +2590,13 @@ def main() -> None:
         {"name": "decode_attention", "route": "cuda", "source": decode_source,
          "replaces": "tiny_audio_tpu/ops/decode_attention.py:152",
          "launches": launches["decode_attention"], **dec_path,
+         "ms": dec_graph[("int8", BATCH, 468)]["decode_attention"]["ms"],
          "max_abs_err": max(dec["decode_attention"], dec_shapes["decode_attention"],
                             dec_path["max_abs_err"])},
         {"name": "decode_attention_update", "route": "cuda", "source": decode_source,
          "replaces": "tiny_audio_tpu/ops/decode_attention.py:428",
          "launches": launches["decode_attention_update"], **upd_path,
+         "ms": dec_graph[("int8", BATCH, 468)]["decode_attention_update"]["ms"],
          "max_abs_err": max(dec["decode_attention_update"], dec_shapes["decode_attention_update"],
                             upd_path["max_abs_err"])},
         {"name": "w8a8_matmul", "route": "cuda", "source": int8_source,

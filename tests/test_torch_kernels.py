@@ -12,11 +12,15 @@ import torch
 
 from tiny_audio_tpu_torch import kernels
 from tiny_audio_tpu_torch.ops import attention as tattn
+from tiny_audio_tpu_torch.ops import decode_attention as decode_ops
 from tiny_audio_tpu_torch.ops.decode_attention import (
+    counter_buffers,
     decode_attention,
     decode_attention_plain,
+    decode_attention_split_plain,
     decode_attention_update,
     decode_attention_update_plain,
+    split_plan,
 )
 from tiny_audio_tpu_torch.ops.encoder_attention import (
     encoder_attention,
@@ -594,11 +598,31 @@ def _decode_inputs(device, b, s, hkv, quantized, seed):
     return q, ck, cv, fresh_k, fresh_v, ks, vs
 
 
+def _split_kv_lens(b, s, hkv, group, d, dtype):
+    """kv_len at the edges of the split the decode kernels take at this
+    shape: none, one row, either side of the first split's end, the last row."""
+    rows = split_plan(b, s, hkv, group, d, dtype).rows
+    return sorted(n for n in {0, 1, rows - 1, rows, rows + 1, s - 1} if n < s)
+
+
+def _counters_zero(device):
+    torch.cuda.synchronize()
+    return not any(buf.any() for buf in counter_buffers(device))
+
+
+# (B, kv_len) of the path's shape (S 608, Hkv 8, group 2, D 128): a stream,
+# the path's batch and the JAX bench's, each at the split's edges and at the
+# path's steps
+DECODE_POINTS = sorted({(b, n) for b in (1, 4, 48)
+                        for n in (*_split_kv_lens(b, 608, 8, 2, 128, torch.int8),
+                                  255, 256, 468, 595)})
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quantized", [True, False])
-@pytest.mark.parametrize("kv_len", [1, 255, 256, 468, 595])
-def test_decode_kernel_matches_plain(cuda_device, quantized, kv_len):
-    b, s, hkv = 4, 608, 8
+@pytest.mark.parametrize("b,kv_len", DECODE_POINTS)
+def test_decode_kernel_matches_plain(cuda_device, quantized, b, kv_len):
+    s, hkv = 608, 8
     q, ck, cv, fk, fv, ks, vs = _decode_inputs(cuda_device, b, s, hkv, quantized, kv_len)
     if not quantized:  # rows past kv_len are never read
         ck[:, kv_len:] = float("nan")
@@ -608,21 +632,26 @@ def test_decode_kernel_matches_plain(cuda_device, quantized, kv_len):
         vs[:, kv_len:] = float("nan")
     before = decode_attention.launches
     got = decode_attention(q, ck, cv, fk, fv, kv_len, ks, vs)
-    # the same launch with kv_len as a device scalar
-    got_t = decode_attention(q, ck, cv, fk, fv,
-                             torch.tensor(kv_len, dtype=torch.int32, device=cuda_device), ks, vs)
-    assert decode_attention.launches == before + 2
+    # the same launch with kv_len as a device scalar, and twice more: the
+    # splits merge in split order, so every run gives the same bits
+    kv_t = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+    again = [decode_attention(q, ck, cv, fk, fv, kv_t, ks, vs) for _ in range(3)]
+    assert decode_attention.launches == before + 4
     want = decode_attention_plain(q, ck, cv, fk, fv, kv_len, ks, vs)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-    assert torch.equal(got, got_t)
+    torch.testing.assert_close(got.float(), decode_attention_split_plain(
+        q, ck, cv, fk, fv, kv_len, ks, vs).float(), atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    assert all(torch.equal(got, x) for x in again)
+    assert _counters_zero(q.device)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quantized", [True, False])
-@pytest.mark.parametrize("kv_len", [1, 256, 595])
-def test_decode_update_kernel_matches_plain(cuda_device, quantized, kv_len):
-    b, s, hkv = 4, 608, 8
+@pytest.mark.parametrize("b,kv_len", sorted({(b, n) for b in (1, 4, 48) for n in (
+    *_split_kv_lens(b, 608, 8, 2, 128, torch.int8), 256, 595)}))
+def test_decode_update_kernel_matches_plain(cuda_device, quantized, b, kv_len):
+    s, hkv = 608, 8
     q, ck, cv, fk, fv, ks, vs = _decode_inputs(cuda_device, b, s, hkv, quantized, 7 + kv_len)
     clone = lambda x: None if x is None else x.clone()  # noqa: E731
     mine = [clone(x) for x in (ck, cv, ks, vs)]
@@ -636,43 +665,146 @@ def test_decode_update_kernel_matches_plain(cuda_device, quantized, kv_len):
     for got_buf, want_buf in zip(mine, ref):
         if got_buf is not None:
             assert torch.equal(got_buf, want_buf)
+    # appending the same row again writes the same bytes and gives the same bits
+    again = [decode_attention_update(q, mine[0], mine[1], fk, fv, kv_len, mine[2], mine[3])
+             for _ in range(2)]
+    assert all(torch.equal(got, x) for x in again)
+    for got_buf, want_buf in zip(mine, ref):
+        if got_buf is not None:
+            assert torch.equal(got_buf, want_buf)
+    assert _counters_zero(q.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("b", [1, 4, 48])
+def test_decode_kernels_graph_replay_advances_kv_len(cuda_device, quantized, b):
+    """#4 then #3 captured once in a CUDA graph with a device kv_len that the
+    graph advances (468 -> 469 -> 470, #4 appending each time): each replay
+    gives the bits of the same calls made eagerly, and the caches end equal."""
+    s, hkv, start = 608, 8, 468
+    q, ck, cv, fk, fv, ks, vs = _decode_inputs(cuda_device, b, s, hkv, quantized, 31 + b)
+    clone = lambda x: None if x is None else x.clone()  # noqa: E731
+    graph_bufs = [clone(x) for x in (ck, cv, ks, vs)]
+    eager_bufs = [clone(x) for x in (ck, cv, ks, vs)]
+    kv_t = torch.tensor(start, dtype=torch.int32, device=cuda_device)
+    warm = [clone(x) for x in (ck, cv, ks, vs)]  # a first call outside the capture
+    decode_attention_update(q, warm[0], warm[1], fk, fv, kv_t, warm[2], warm[3])
+    decode_attention(q, warm[0], warm[1], fk, fv, kv_t, warm[2], warm[3])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out4 = decode_attention_update(q, graph_bufs[0], graph_bufs[1], fk, fv, kv_t,
+                                       graph_bufs[2], graph_bufs[3])
+        out3 = decode_attention(q, graph_bufs[0], graph_bufs[1], fk, fv, kv_t,
+                                graph_bufs[2], graph_bufs[3])
+        kv_t.add_(1)
+    for step in range(3):
+        graph.replay()
+        want4 = decode_attention_update(q, eager_bufs[0], eager_bufs[1], fk, fv, start + step,
+                                        eager_bufs[2], eager_bufs[3])
+        want3 = decode_attention(q, eager_bufs[0], eager_bufs[1], fk, fv, start + step,
+                                 eager_bufs[2], eager_bufs[3])
+        torch.cuda.synchronize()
+        assert torch.equal(out4, want4) and torch.equal(out3, want3), step
+    assert int(kv_t) == start + 3
+    for got_buf, want_buf in zip(graph_bufs, eager_bufs):
+        if got_buf is not None:
+            assert torch.equal(got_buf.view(torch.uint8), want_buf.view(torch.uint8))
+    assert _counters_zero(q.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+def test_decode_graph_survives_a_larger_grid(cuda_device, quantized, monkeypatch):
+    """A graph captured at B = 1 keeps its merge counters' address: a later
+    call at B = 48 that needs more counters (the first buffer made as small
+    as B = 1's grid) gets a new buffer and frees none, so the graph, replayed
+    after the freed memory would have been reused, still gives the eager
+    calls' bits and leaves every counter zero."""
+    monkeypatch.setattr(decode_ops, "_counters", {})
+    monkeypatch.setattr(decode_ops, "COUNTERS_MIN", 1)
+    s, hkv, kv_len = 608, 8, 468
+    q, ck, cv, fk, fv, ks, vs = _decode_inputs(cuda_device, 1, s, hkv, quantized, 5)
+    kv_t = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+    decode_attention(q, ck, cv, fk, fv, kv_t, ks, vs)  # a first call outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, ck, cv, fk, fv, kv_t, ks, vs)
+    big = _decode_inputs(cuda_device, 48, s, hkv, quantized, 6)
+    decode_attention(big[0], *big[1:5], kv_len, *big[5:])
+    assert len(counter_buffers(q.device)) == 2
+    # small allocations that would take a freed counter buffer's memory
+    filler = [torch.full((64,), 7, dtype=torch.int32, device=cuda_device) for _ in range(64)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, decode_attention(q, ck, cv, fk, fv, kv_len, ks, vs))
+    assert all(int(x[0]) == 7 for x in filler)
+    assert _counters_zero(q.device)
+
+
+def _decode_shape_check(device, b, group, d, dtype, quantized, seed, close):
+    """#3 and #4 at one (B, group, head_dim, dtype, cache) over S = 96 rows,
+    at kv_len 77 and the split's edges, NaN planted at and past kv_len; the
+    appended row bitwise the plain version's, a second run bitwise the
+    first, the merge counters zero afterwards."""
+    s, hkv = 96, 2
+    g = torch.Generator(device=device).manual_seed(seed)
+    randn = lambda *shape: torch.randn(shape, generator=g, device=device)  # noqa: E731
+    q = (randn(b, group * hkv, d) * 2).to(dtype)
+    fk, fv = (randn(b, hkv, d).to(dtype) for _ in range(2))
+    if quantized:
+        ck0, cv0 = (torch.randint(-127, 128, (b, s, hkv, d), generator=g, device=device)
+                    .to(torch.int8) for _ in range(2))
+        ks0, vs0 = (randn(b, s, hkv).abs() * 0.02 + 1e-3 for _ in range(2))
+    else:
+        ck0, cv0 = (randn(b, s, hkv, d).to(dtype) for _ in range(2))
+        ks0 = vs0 = None
+    clone = lambda x: None if x is None else x.clone()  # noqa: E731
+    for kv_len in sorted({77, *_split_kv_lens(b, s, hkv, group, d, ck0.dtype)}):
+        ck, cv, ks, vs = (clone(x) for x in (ck0, cv0, ks0, vs0))
+        if quantized:
+            ks[:, kv_len:] = float("nan")
+            vs[:, kv_len:] = float("nan")
+        else:
+            ck[:, kv_len:] = float("nan")
+            cv[:, kv_len:] = float("nan")
+        before = (decode_attention.launches, decode_attention_update.launches)
+        got = decode_attention(q, ck, cv, fk, fv, kv_len, ks, vs)
+        assert got.dtype == dtype and torch.isfinite(got).all(), kv_len
+        close("decode_attention", got, decode_attention_plain(q, ck, cv, fk, fv, kv_len, ks, vs))
+        assert torch.equal(got, decode_attention(q, ck, cv, fk, fv, kv_len, ks, vs)), kv_len
+        mine = [clone(x) for x in (ck, cv, ks, vs)]
+        ref = [clone(x) for x in (ck, cv, ks, vs)]
+        got = decode_attention_update(q, mine[0], mine[1], fk, fv, kv_len, mine[2], mine[3])
+        close("decode_attention_update", got, decode_attention_update_plain(
+            q, ref[0], ref[1], fk, fv, kv_len, ref[2], ref[3]))
+        assert (decode_attention.launches, decode_attention_update.launches) == \
+            (before[0] + 2, before[1] + 1)
+        for got_buf, want_buf in zip(mine, ref):
+            if got_buf is not None:
+                assert torch.equal(got_buf.view(torch.uint8), want_buf.view(torch.uint8)), kv_len
+    assert _counters_zero(q.device)
+
+
+def _bf16_close(name, got, want):
+    torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_ATOL, rtol=KERNEL_RTOL,
+                               msg=lambda m: f"{name}: {m}")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("group,d", [(g, d) for g in (1, 2, 3, 4, 8) for d in (64, 128, 256)])
 @pytest.mark.parametrize("quantized", [True, False])
-def test_decode_kernels_every_group_and_head_dim(cuda_device, group, d, quantized):
+@pytest.mark.parametrize("b", [1, 2, 48])
+def test_decode_kernels_every_group_and_head_dim(cuda_device, group, d, quantized, b):
     """Both decode kernels at every (GQA group, head_dim) they take, NaN
-    planted at and past kv_len; the appended row is bitwise quantize_kv's."""
-    b, s, hkv, kv_len = 2, 96, 2, 77
-    g = torch.Generator(device=cuda_device).manual_seed(group * 1000 + d)
-    randn = lambda *shape: torch.randn(shape, generator=g, device=cuda_device)  # noqa: E731
-    q = (randn(b, group * hkv, d) * 2).to(torch.bfloat16)
-    fk, fv = (randn(b, hkv, d).to(torch.bfloat16) for _ in range(2))
-    if quantized:
-        ck, cv = (torch.randint(-127, 128, (b, s, hkv, d), generator=g, device=cuda_device)
-                  .to(torch.int8) for _ in range(2))
-        ks, vs = (randn(b, s, hkv).abs() * 0.02 + 1e-3 for _ in range(2))
-        ks[:, kv_len:] = float("nan")
-        vs[:, kv_len:] = float("nan")
-    else:
-        ck, cv = (randn(b, s, hkv, d).to(torch.bfloat16) for _ in range(2))
-        ck[:, kv_len:] = float("nan")
-        cv[:, kv_len:] = float("nan")
-        ks = vs = None
-    got = decode_attention(q, ck, cv, fk, fv, kv_len, ks, vs)
-    want = decode_attention_plain(q, ck, cv, fk, fv, kv_len, ks, vs)
-    assert torch.isfinite(got).all()
-    torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-    clone = lambda x: None if x is None else x.clone()  # noqa: E731
-    mine = [clone(x) for x in (ck, cv, ks, vs)]
-    ref = [clone(x) for x in (ck, cv, ks, vs)]
-    got = decode_attention_update(q, mine[0], mine[1], fk, fv, kv_len, mine[2], mine[3])
-    want = decode_attention_update_plain(q, ref[0], ref[1], fk, fv, kv_len, ref[2], ref[3])
-    torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-    for got_buf, want_buf in zip(mine, ref):
-        if got_buf is not None:
-            assert torch.equal(got_buf.view(torch.uint8), want_buf.view(torch.uint8))
+    planted at and past kv_len, at the split's edges; the appended row is
+    bitwise quantize_kv's."""
+    # B = 2 keeps the seed these cases had with one batch size
+    _decode_shape_check(cuda_device, b, group, d, torch.bfloat16, quantized,
+                        group * 1000 + d + (b != 2) * b, _bf16_close)
 
 
 # the decode step's products: the flagship's layer projections and its head,
@@ -943,44 +1075,15 @@ def test_prefill_attention_fp32_autograd_on_card(cuda_device):
 @pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("quantized", [True, False])
 @pytest.mark.parametrize("dtype,d", NEW_INSTANCES)
-def test_decode_kernels_new_instances_match_plain(cuda_device, dtype, d, quantized, group):
+@pytest.mark.parametrize("b", [1, 2, 48])
+def test_decode_kernels_new_instances_match_plain(cuda_device, dtype, d, quantized, group, b):
     """#3 and #4 in fp32 (over an fp32 or an int8 cache) and at head_dim
-    16/32, NaN planted at and past kv_len; the appended row is bitwise the
-    plain version's (quantize_kv's bytes and scales, or the fresh row)."""
-    b, s, hkv, kv_len = 2, 96, 2, 77
-    g = torch.Generator(device=cuda_device).manual_seed(group * 1000 + d + 7)
-    randn = lambda *shape: torch.randn(shape, generator=g, device=cuda_device)  # noqa: E731
-    q = (randn(b, group * hkv, d) * 2).to(dtype)
-    fk, fv = (randn(b, hkv, d).to(dtype) for _ in range(2))
-    if quantized:
-        ck, cv = (torch.randint(-127, 128, (b, s, hkv, d), generator=g, device=cuda_device)
-                  .to(torch.int8) for _ in range(2))
-        ks, vs = (randn(b, s, hkv).abs() * 0.02 + 1e-3 for _ in range(2))
-        ks[:, kv_len:] = float("nan")
-        vs[:, kv_len:] = float("nan")
-    else:
-        ck, cv = (randn(b, s, hkv, d).to(dtype) for _ in range(2))
-        ck[:, kv_len:] = float("nan")
-        cv[:, kv_len:] = float("nan")
-        ks = vs = None
-    close = (lambda n, x, y: _fp32_close(n, x, y)) if dtype == torch.float32 else \
-        (lambda n, x, y: torch.testing.assert_close(x.float(), y.float(), atol=KERNEL_ATOL,
-                                                    rtol=KERNEL_RTOL))
-    before = (decode_attention.launches, decode_attention_update.launches)
-    got = decode_attention(q, ck, cv, fk, fv, kv_len, ks, vs)
-    assert got.dtype == dtype
-    close("decode_attention", got, decode_attention_plain(q, ck, cv, fk, fv, kv_len, ks, vs))
-    clone = lambda x: None if x is None else x.clone()  # noqa: E731
-    mine = [clone(x) for x in (ck, cv, ks, vs)]
-    ref = [clone(x) for x in (ck, cv, ks, vs)]
-    got = decode_attention_update(q, mine[0], mine[1], fk, fv, kv_len, mine[2], mine[3])
-    close("decode_attention_update", got, decode_attention_update_plain(
-        q, ref[0], ref[1], fk, fv, kv_len, ref[2], ref[3]))
-    assert (decode_attention.launches, decode_attention_update.launches) == \
-        (before[0] + 1, before[1] + 1)
-    for got_buf, want_buf in zip(mine, ref):
-        if got_buf is not None:
-            assert torch.equal(got_buf.view(torch.uint8), want_buf.view(torch.uint8))
+    16/32, NaN planted at and past kv_len, at the split's edges; the
+    appended row is bitwise the plain version's (quantize_kv's bytes and
+    scales, or the fresh row)."""
+    close = _fp32_close if dtype == torch.float32 else _bf16_close
+    _decode_shape_check(cuda_device, b, group, d, dtype, quantized,
+                        group * 1000 + d + 7 + (b != 2) * b, close)
 
 
 # ------------------------------------------------ #9a-#9d, the bench variants

@@ -49,6 +49,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -68,13 +69,9 @@ constexpr int SWP = SW + 16;        // stage row pitch in bytes (16-byte copies;
 constexpr int KS = 512;             // rows of K per stage
 constexpr int MAX_MT = 3;           // m16 tiles of x: B <= 48
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n"); }
+using ta::sm90::cp_async_16_zfill;
+using ta::sm90::cp_async_commit;
+using ta::sm90::cp_async_wait;
 
 struct PipeArgs {
   const __nv_bfloat16* x;  // [B, K]
@@ -95,7 +92,7 @@ __device__ __forceinline__ void fetch_stage(const PipeArgs& a, int c_begin, int 
     const int col = (j % (SW / 16)) * 16;
     const bool valid = k0 + row < a.K && c0 + col < a.N;
     const int8_t* src = valid ? a.w + (int64_t)(k0 + row) * a.N + c0 + col : a.w;
-    cp_async16(buf + row * SWP + col, src, valid);
+    cp_async_16_zfill(buf + row * SWP + col, src, valid);
   }
 }
 
@@ -130,7 +127,7 @@ __global__ void __launch_bounds__(PIPE_THREADS) wq_matmul_pipe_kernel(PipeArgs a
   for (int i = 0; i < stages; ++i) {
     if (i + 1 < stages) fetch_stage(a, c_begin, k_stages, i + 1, stage + ((i + 1) & 1) * KS * SWP);
     cp_async_commit();  // (an empty group at the end keeps the count uniform)
-    cp_async_wait_one();  // stage i has landed
+    cp_async_wait<1>();  // stage i has landed
     __syncthreads();
     const int kst = i % k_stages;
     if (kst == 0) {

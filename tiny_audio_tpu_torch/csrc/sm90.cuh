@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the kernels written for this card:
-// mbarriers, TMA tile loads into 128-byte-swizzled shared memory and the
-// host-side tensor maps they read, the wgmma shared-memory descriptor, the
-// warpgroup products m64nNk16 (bf16 in, fp32 accumulators) with A in shared
-// memory (SS) or in registers (RS), and setmaxnreg.
+// mbarriers, cp.async copies of 4 or 16 bytes a thread, TMA tile loads into
+// 128-byte-swizzled shared memory and the host-side tensor maps they read,
+// the wgmma shared-memory descriptor, the warpgroup products m64nNk16 (bf16
+// in, fp32 accumulators) with A in shared memory (SS) or in registers (RS),
+// and setmaxnreg.
 //
 // Shared-memory tiles.  A TMA box of [rows][64] bf16 (128 bytes a row) lands
 // with CU_TENSOR_MAP_SWIZZLE_128B as 8-row, 1,024-byte atoms in which the
@@ -81,6 +82,38 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// ---- cp.async: a thread's copy of 16 bytes (bypassing L1) or 4 bytes (the
+// 4- and 8-byte forms go through L1) into shared memory; completion is
+// counted in the thread's commit groups.
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// 16 bytes where `valid`, else 16 zero bytes (src is not read then, but must
+// be a mapped address).
+__device__ __forceinline__ void cp_async_16_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- TMA: a box of the tensor map at the given coordinates (innermost

@@ -32,7 +32,7 @@ LIB_NAME = "libta_kernels.so"
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-_DECODE_ARGS = (_PTR,) * 9 + (_INT,) * 7 + (ctypes.c_float, _PTR)
+_DECODE_ARGS = (_PTR,) * 11 + (_INT,) * 8 + (ctypes.c_float, _PTR)
 _MATMUL_ARGS = (_PTR,) * 4 + (_INT,) * 3 + (_PTR,)
 _PREFILL_BWD_ARGS = (_INT,) * 5 + (ctypes.c_float, _PTR)
 _ENCODER_ATTENTION_ARGS = (_PTR,) * 5 + (_INT,) * 4 + (ctypes.c_float, _PTR)
