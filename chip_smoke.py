@@ -60,6 +60,20 @@ over cold layer views (B = 4, 48, 1) beside their bound, the previous
 design's times and SDPA on a bf16 cache.  ``torch._weight_int8pack_mm``, one call
 computing #6's function, is timed beside #6 at its head shape.
 
+The int8 products #5 and #6 (``csrc/int8_matmul.cu``, a split over K merged
+inside the launch): the registers, shared memory and spills of the 18
+instances of ``split_matmul_kernel`` (none may spill); each product against
+its plain version at the flagship's layer and head shapes, B = 4, 16 and 48
+(#5 bitwise, #6 within ``WQ_ATOL``/``WQ_RTOL``); the instance each path
+shape takes at B = 4 and 48 (the split design, or the run fails), three runs
+bitwise, a CUDA graph replay bitwise equal to eager calls, zero merge
+counters; their times from a CUDA graph cycling through 28 copies of each
+weight (every read cold in L2) beside bf16 ``F.linear`` and the previous
+design's times (``PREVIOUS_INT8_GRAPH_MS``); and, under ``enable_wq_decode``
+and ``enable_w8a8_decode``, the int8 products of one decode step (7 x 28
+layers and the head, the model's own ``wq``) from one CUDA graph, beside the
+same products as bf16 ``F.linear``.
+
 Before the paths, the prefill kernel's forward (serving and with saved
 statistics) and its two backward kernels are held against their plain
 versions at every (GQA group, head_dim) pair the decoders take, and the
@@ -158,7 +172,50 @@ DECODE_SHAPES = [(g, d) for g in (1, 2, 3, 4, 8) for d in (16, 32, 64, 128, 256)
 INT8_SHAPES = {"q_proj": (1024, 2048), "k_proj|v_proj": (1024, 1024), "o_proj": (2048, 1024),
                "gate_proj|up_proj": (1024, 3072), "down_proj": (3072, 1024),
                "head": (1024, 151936)}
-INT8_BATCHES = (4, 16)
+INT8_BATCHES = (4, 16, 48)
+# the batches of the cold-L2 timings (the path's and the JAX bench's), and
+# the distinct weight copies a timed graph cycles through (a decode step
+# streams its 28 layers' weights, so no product finds its weight in L2)
+INT8_GRAPH_BATCHES = (4, 48)
+INT8_VIEWS = 28
+# The previous design of #5 and #6 (the first design's CUDA-core tiles, no split over
+# K), timed by int8_graph_times and int8_step_times on that tree:
+# (kernel, shape or "step", B) -> ms; NVIDIA H100 80GB HBM3, 700.00 W.  The
+# same run's token agreement with bf16 under each int8 mode (fused path):
+# #5 is bitwise its plain version in both designs, so the W8A8 modes' must
+# not move.
+PREVIOUS_TOKEN_AGREEMENT = {"enable_wq_decode": 0.859375, "enable_w8a8_head": 0.814453125,
+                            "enable_w8a8_decode": 0.888671875}
+PREVIOUS_INT8_GRAPH_MS = {
+    ('wq_matmul', 'q_proj', 4): 0.024147998718988328,
+    ('w8a8_matmul', 'q_proj', 4): 0.011286666705494835,
+    ('wq_matmul', 'q_proj', 48): 0.053851808820452006,
+    ('w8a8_matmul', 'q_proj', 48): 0.04995238213312058,
+    ('wq_matmul', 'k_proj|v_proj', 4): 0.018239238432475498,
+    ('w8a8_matmul', 'k_proj|v_proj', 4): 0.009347047834169297,
+    ('wq_matmul', 'k_proj|v_proj', 48): 0.048164379029046925,
+    ('w8a8_matmul', 'k_proj|v_proj', 48): 0.048051431065513975,
+    ('wq_matmul', 'o_proj', 4): 0.04158095234916324,
+    ('w8a8_matmul', 'o_proj', 4): 0.018957714239756267,
+    ('wq_matmul', 'o_proj', 48): 0.10259847413925897,
+    ('w8a8_matmul', 'o_proj', 48): 0.09818019185747419,
+    ('wq_matmul', 'gate_proj|up_proj', 4): 0.02333638072013855,
+    ('w8a8_matmul', 'gate_proj|up_proj', 4): 0.011419809290340968,
+    ('wq_matmul', 'gate_proj|up_proj', 48): 0.05315428688412621,
+    ('w8a8_matmul', 'gate_proj|up_proj', 48): 0.051603998456682475,
+    ('wq_matmul', 'down_proj', 4): 0.06078533331553141,
+    ('w8a8_matmul', 'down_proj', 4): 0.02692685808454241,
+    ('wq_matmul', 'down_proj', 48): 0.15052552450270879,
+    ('w8a8_matmul', 'down_proj', 48): 0.14229276066734678,
+    ('wq_matmul', 'head', 4): 0.2366767610822405,
+    ('w8a8_matmul', 'head', 4): 0.08018209253038679,
+    ('wq_matmul', 'head', 48): 1.5133750552222842,
+    ('w8a8_matmul', 'head', 48): 0.3399885722569057,
+    ('wq_matmul', 'step', 4): 6.232949574788411,
+    ('wq_matmul', 'step', 48): 15.895509084065756,
+    ('w8a8_matmul', 'step', 4): 2.8480052947998047,
+    ('w8a8_matmul', 'step', 48): 14.086427052815756,
+}
 INT8_MODES = {"enable_wq_decode": "wq_matmul", "enable_w8a8_head": "w8a8_matmul",
               "enable_w8a8_decode": "w8a8_matmul"}
 
@@ -216,6 +273,10 @@ FP32_EMBED_RTOL = 1e-4
 # output against the fp64 oracle on the real rows: at most 2.5e-3 measured on
 # the card over the 13 modes (bf16 P and output roundings), twice that here.
 BENCH_VARIANTS = ("encoder_attention_variant", "wq_matmul_pipe", "a8_matmul", "a8t_matmul")
+# #9b-#9d at their numerics points before the redesign of #5 and #6, from
+# this script on that tree (ms; NVIDIA H100 80GB HBM3, 700.00 W)
+PREVIOUS_VARIANT_MS = {"wq_matmul_pipe": 2.2355056762695313, "a8_matmul": 3.1405344009399414,
+                       "a8t_matmul": 1.719843292236328}
 VARIANT_REPS = 20
 VARIANT_ORACLE_ATOL = 5e-3
 
@@ -547,6 +608,37 @@ def decode_design_facts(log: str) -> None:
         fail(f"decode_kernel instances spill: {spilling}")
 
 
+# #5 and #6: split_matmul_kernel<W8A8, NT, WN, SHALLOW> of csrc/int8_matmul.cu,
+# one instance per batch size class (NT 8-row MMA columns), block arrangement
+# and (#5 at 32+ rows) ring depth
+INT8_INSTANCES = {(w8a8, nt, wn, shallow) for w8a8 in (0, 1) for nt in (1, 2, 4, 6, 8)
+                  for wn in ((1,) if w8a8 else (1, 4))
+                  for shallow in ((0, 1) if w8a8 and nt >= 4 else (0,))}
+
+
+def int8_instance_of(mangled: str):
+    """(W8A8, NT, WN, SHALLOW) of a split_matmul_kernel symbol, None for any
+    other."""
+    found = re.search(r"split_matmul_kernelILb([01])ELi(\d+)ELi(\d+)ELb([01])E", mangled)
+    return None if found is None else tuple(int(x) for x in found.groups())
+
+
+def int8_design_facts(log: str) -> None:
+    """Registers, static shared memory and spills of every instance of the
+    split design of #5 and #6 (``ptxas -v``).  Fails before any launch if an
+    instance is missing or spills."""
+    ptxas = ptxas_facts(log, int8_instance_of)
+    if set(ptxas) != INT8_INSTANCES:
+        fail(f"int8 kernel instances: ptxas {sorted(ptxas)}, expected {sorted(INT8_INSTANCES)}")
+    for inst in sorted(INT8_INSTANCES):
+        w8a8, nt, wn, shallow = inst
+        print(f"int8 design split_matmul_kernel<W8A8={bool(w8a8)}, NT={nt}, WN={wn}, "
+              f"SHALLOW={bool(shallow)}> ptxas={json.dumps(ptxas[inst])}")
+    spilling = [inst for inst in sorted(INT8_INSTANCES) if ptxas[inst].get("spill_bytes") != [0, 0]]
+    if spilling:
+        fail(f"split_matmul_kernel instances spill: {spilling}")
+
+
 def hopper_design_facts(log: str) -> None:
     """What shows that #1, #2, #2b and #2c are the Hopper design: for each
     instance of attention_fwd_sm90, attention_bwd_dkv_sm90 and
@@ -811,13 +903,14 @@ def decode_graph_times(gen: torch.Generator) -> dict:
     return results
 
 
-def int8pack_head_times(gen: torch.Generator) -> None:
+def int8pack_head_times(gen: torch.Generator) -> dict:
     """``torch._weight_int8pack_mm``, the one PyTorch call computing kernel
     #6's function (weight-only int8, per-output-channel scales; the call
     takes its weight [N, K] and its scales in x's dtype, both made outside
     the timed call), at #6's head shape (K 1,024 -> N 151,936), B = 4 and
     48, from a CUDA graph beside #6 from a graph, with its largest
-    difference from #6.  A yardstick only: the port never calls it."""
+    difference from #6.  A yardstick only: the port never calls it.
+    Returns {B: its ms} (empty where torch has no CUDA kernel for it)."""
     import torch.nn.functional as F
 
     from tiny_audio_tpu_torch.ops.wq_matmul import NT, quantize_weight, wq_matmul
@@ -828,6 +921,7 @@ def int8pack_head_times(gen: torch.Generator) -> None:
     w_nk, s_lib = wi.T.contiguous(), si.to(torch.bfloat16)
     pad = -n % NT  # the head as the wq collections pad it
     wi_pad, si_pad = F.pad(wi, (0, pad)), F.pad(si, (0, pad))
+    library: dict = {}
     for b in (BATCH, BENCH_BATCH):
         x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
         kernel_ms = graph_ms(lambda: wq_matmul(x, wi_pad, si_pad), 20)
@@ -840,10 +934,12 @@ def int8pack_head_times(gen: torch.Generator) -> None:
             continue
         err = (got.float() - wq_matmul(x, wi_pad, si_pad)[:, :n].float()).abs().max().item()
         lib_ms = graph_ms(lambda: torch._weight_int8pack_mm(x, w_nk, s_lib), 20)
+        library[b] = lib_ms
         print(f"int8pack head K={k} N={n} B={b} wq_graph_ms={kernel_ms!r} library_ms={lib_ms!r} "
               f"(torch._weight_int8pack_mm, CUDA graph) max_abs_err_vs_wq={err!r}")
         if not bool(torch.isfinite(got).all()):
             fail(f"torch._weight_int8pack_mm gave non-finite values at B={b}")
+    return library
 
 
 def compare_decode_kernels(gen: torch.Generator) -> dict:
@@ -1009,14 +1105,16 @@ def decode_graph_replay(gen: torch.Generator) -> None:
 
 
 def check_decode_counters() -> None:
-    """The decode kernels' merge counters are all zero between launches."""
+    """The merge counters of the decode kernels and the int8 products (one
+    set of buffers) are all zero between launches."""
     from tiny_audio_tpu_torch.ops.decode_attention import counter_buffers
 
     torch.cuda.synchronize()
     counters = torch.cat(counter_buffers(torch.device("cuda", torch.cuda.current_device())))
-    print(f"decode merge counters={counters.numel()} all_zero={str(not counters.any()).lower()}")
+    print(f"merge counters (decode attention, int8 products)={counters.numel()} "
+          f"all_zero={str(not counters.any()).lower()}")
     if counters.any():
-        fail(f"decode merge counters left non-zero: {counters.nonzero().flatten().tolist()[:8]}")
+        fail(f"merge counters left non-zero: {counters.nonzero().flatten().tolist()[:8]}")
 
 
 def compare_decode_on_path_inputs(name: str, kernel, plain, call: tuple) -> dict:
@@ -1122,7 +1220,7 @@ def int8_bound(name: str, x, w_i8, scale) -> dict:
 
 def compare_int8_matmuls(gen: torch.Generator) -> dict:
     """Kernels #5 (bitwise) and #6 (within WQ_ATOL + WQ_RTOL) against their
-    plain versions at the flagship's layer and head shapes, B = 4 and 16,
+    plain versions at the flagship's layer and head shapes, B = 4, 16 and 48,
     on a random bf16 weight quantized as the decode modes do; beside them
     the time of F.linear on that bf16 weight, what the modes stand in for
     (a yardstick, never called by the port).  Each is timed from the host's
@@ -1190,6 +1288,182 @@ def compare_int8_matmuls(gen: torch.Generator) -> dict:
             errs["w8a8_matmul"] = max(errs["w8a8_matmul"], err5)
             errs["wq_matmul"] = max(errs["wq_matmul"], err6)
     return errs
+
+
+def int8_weights(w: torch.Tensor, head: bool) -> dict:
+    """One bf16 weight ``[K, N]`` as the decode modes store it: #6's ``[K, N]``
+    int8 and scales (the head padded to NT), #5's ``[N, K]`` (the head padded
+    to NT_HEAD), and nn.Linear's bf16 ``[N, K]`` for the F.linear yardstick."""
+    import torch.nn.functional as F
+
+    from tiny_audio_tpu_torch.ops.wq_head import quantize_head_w8a8, quantize_weight_w8a8
+    from tiny_audio_tpu_torch.ops.wq_matmul import NT, quantize_weight
+
+    wi, si = quantize_weight(w)
+    if head:
+        pad = -w.shape[1] % NT
+        wi, si = F.pad(wi, (0, pad)), F.pad(si, (0, pad))
+    wt, st = quantize_head_w8a8(w) if head else quantize_weight_w8a8(w)
+    return {"wq_matmul": (wi, si), "w8a8_matmul": (wt, st), "linear": w.T.contiguous()}
+
+
+def int8_graph_times(gen: torch.Generator) -> dict:
+    """#5, #6 and bf16 F.linear at every INT8_SHAPES shape and INT8_GRAPH_BATCHES
+    batch, each from a CUDA graph that cycles through INT8_VIEWS distinct copies
+    of the weight (every read cold in L2, as in a decode step, which streams
+    28 layers' weights and the head), beside the bound and the previous
+    design's time from the same graph.  Returns {(name, B): {kernel: ms}}."""
+    from tiny_audio_tpu_torch.ops.wq_head import w8a8_matmul
+    from tiny_audio_tpu_torch.ops.wq_matmul import wq_matmul
+
+    import torch.nn.functional as F
+
+    results = {}
+    for name, (k, n) in INT8_SHAPES.items():
+        w = (torch.randn((k, n), generator=gen, device="cuda") * 0.03).to(torch.bfloat16)
+        one = int8_weights(w, name == "head")
+        del w
+        copies = lambda t: t.expand(INT8_VIEWS, *t.shape).clone()  # noqa: E731
+        for kernel in ("wq_matmul", "w8a8_matmul", "linear"):
+            weights = copies(one[kernel][0] if kernel != "linear" else one[kernel])
+            for b in INT8_GRAPH_BATCHES:
+                x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
+                if kernel == "linear":
+                    call = lambda i: F.linear(x, weights[i])  # noqa: E731
+                    stats = bound(nbytes(x, weights[0]) + b * n * 2, 2.0 * b * k * n,
+                                  BF16_TENSOR_FLOPS)
+                else:
+                    fn, scale = (wq_matmul if kernel == "wq_matmul" else w8a8_matmul), one[kernel][1]
+                    call = lambda i: fn(x, weights[i], scale)  # noqa: E731
+                    stats = int8_bound(kernel, x, weights[0], scale)
+                ms = rotation_graph_ms(call, INT8_VIEWS)
+                results.setdefault((name, b), {})[kernel] = {"ms": ms, **stats}
+            del weights
+            torch.cuda.empty_cache()
+        for b in INT8_GRAPH_BATCHES:
+            r = results[(name, b)]
+            print(f"int8 graph {name} K={k} N={n} B={b} views={INT8_VIEWS} "
+                  + " ".join(f"{kern}_ms={r[kern]['ms']!r} {kern}_bound_ms={r[kern]['bound_ms']!r} "
+                             f"{kern}_previous_design_ms="
+                             f"{PREVIOUS_INT8_GRAPH_MS.get((kern, name, b))!r}"
+                             for kern in ("wq_matmul", "w8a8_matmul"))
+                  + f" bf16_linear_ms={r['linear']['ms']!r} "
+                  f"bf16_linear_bound_ms={r['linear']['bound_ms']!r} (F.linear, a yardstick)")
+    return results
+
+
+def int8_instance(b: int, k: int, n: int, kind: str) -> str:
+    """The kernel instance #5 (``kind`` "w8a8") or #6 ("wq") takes at this
+    shape, as text: the split design's template arguments (NT from the rows,
+    SHALLOW as ``launch_nt`` in csrc/int8_matmul.cu picks it) and plan, or
+    the first design where the plan refuses the shape."""
+    from tiny_audio_tpu_torch.ops.wq_matmul import SPLIT_MAX_ROWS, int8_split_plan
+
+    rows = min(b, SPLIT_MAX_ROWS)
+    plan = int8_split_plan(rows, k, n, kind)
+    if plan is None:
+        return "first design (CUDA-core tiles, no split)"
+    nt = next(c for c in (1, 2, 4, 6, 8) if rows <= 8 * c)
+    shallow = kind == "w8a8" and nt >= 4 and plan.units > 256
+    return (f"split_matmul_kernel<W8A8={kind == 'w8a8'}, NT={nt}, WN={plan.warps_n}, "
+            f"SHALLOW={shallow}> tile_n={plan.tile_n} split_k={plan.split_k} "
+            f"splits={plan.splits} tiles={plan.tiles} units={plan.units}")
+
+
+def int8_repeat_and_graph(gen: torch.Generator) -> None:
+    """#5 and #6 at every INT8_SHAPES shape and INT8_GRAPH_BATCHES batch: the
+    instance each takes (every path shape must take the split design), three
+    runs bitwise equal, a CUDA graph of both products replayed bitwise equal
+    to the eager calls, and the merge counters zero after."""
+    from tiny_audio_tpu_torch.ops.wq_head import w8a8_matmul
+    from tiny_audio_tpu_torch.ops.wq_matmul import wq_matmul
+
+    for name, (k, n) in INT8_SHAPES.items():
+        w = (torch.randn((k, n), generator=gen, device="cuda") * 0.03).to(torch.bfloat16)
+        one = int8_weights(w, name == "head")
+        (wi, si), (wt, st) = one["wq_matmul"], one["w8a8_matmul"]
+        for b in INT8_GRAPH_BATCHES:
+            x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
+            calls = (lambda: wq_matmul(x, wi, si), lambda: w8a8_matmul(x, wt, st))
+            eager = [call() for call in calls]
+            repeat = all(same_bytes(call(), want) for call, want in zip(calls, eager)
+                         for _ in range(2))
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = [call() for call in calls]
+            graph.replay()
+            torch.cuda.synchronize()
+            replay = all(same_bytes(got, want) for got, want in zip(replayed, eager))
+            instances = {"wq_matmul": int8_instance(b, k, wi.shape[1], "wq"),
+                         "w8a8_matmul": int8_instance(b, k, wt.shape[0], "w8a8")}
+            print(f"int8 instance {name} K={k} B={b} " + " ".join(
+                f"{kern}=[{text}]" for kern, text in instances.items())
+                  + f" three_runs_bitwise={str(repeat).lower()} "
+                  f"graph_replay_bitwise={str(replay).lower()}")
+            if any(text.startswith("first design") for text in instances.values()):
+                fail(f"the int8 products at the path shape {name} B={b} took the first design")
+            if not (repeat and replay):
+                fail(f"int8 products not repeatable at {name} B={b}: runs {repeat}, graph {replay}")
+            del graph
+    check_decode_counters()
+
+
+def int8_step_times(model, kernel: str) -> dict:
+    """The int8 products of one decode step under the model's current int8
+    mode: the 7 projections of every layer in the path's order, then the
+    head, on the model's own ``wq`` collection, from one CUDA graph (two
+    steps captured, replayed three times; a step streams every layer's
+    weights and the head, so every read is cold in L2), at each
+    INT8_GRAPH_BATCHES batch; beside them the same products as bf16
+    F.linear on the model's own weights (a yardstick the port never calls)
+    and both bounds.  Returns {B: {"ms", "linear_ms", "bound_ms", ...}}."""
+    import torch.nn.functional as F
+
+    from tiny_audio_tpu_torch.models.decoder import PROJECTIONS, int8_matmul
+
+    dec = model.decoder
+    head_w = dec.embed_tokens.weight if dec.cfg.tie_word_embeddings else dec.lm_head.weight
+    results = {}
+    for b in INT8_GRAPH_BATCHES:
+        gen = torch.Generator(device=model.device).manual_seed(SEED + b)
+        layer0 = dec.layers[0]
+        xs = {name: torch.randn((b, getattr(layer0, name).in_features), generator=gen,
+                                device=model.device).to(torch.bfloat16) for name in PROJECTIONS}
+        xh = torch.randn((b, head_w.shape[1]), generator=gen,
+                         device=model.device).to(torch.bfloat16)
+        calls = [(xs[name], layer, name) for layer in dec.layers for name in PROJECTIONS]
+
+        def step_int8():
+            for x, layer, name in calls:
+                if int8_matmul(x, layer.wq, name) is None:
+                    fail(f"{name} has no int8 weights under {kernel}")
+            int8_matmul(xh, dec.wq, "head")
+
+        def step_linear():
+            for x, layer, name in calls:
+                F.linear(x, getattr(layer, name).weight)
+            F.linear(xh, head_w)
+
+        ms = rotation_graph_ms(lambda i: step_int8(), 1, reps=2)
+        linear_ms = rotation_graph_ms(lambda i: step_linear(), 1, reps=2)
+        wq = dec.wq
+        int8_bytes = sum(t.numel() * t.element_size() for t in wq["layers"].values()) + \
+            sum(t.numel() * t.element_size() for key, t in wq.items() if key.startswith("head"))
+        bf16_bytes = sum(getattr(layer, name).weight.numel() * 2 for layer in dec.layers
+                         for name in PROJECTIONS) + head_w.numel() * 2
+        ops = 2.0 * b * (sum(getattr(layer0, name).weight.numel() for name in PROJECTIONS)
+                         * len(dec.layers) + head_w.numel())
+        peak = INT8_TENSOR_OPS if kernel == "w8a8_matmul" else BF16_TENSOR_FLOPS
+        r = {"ms": ms, "linear_ms": linear_ms, **bound(int8_bytes, ops, peak),
+             "linear_bound_ms": bound(bf16_bytes, ops, BF16_TENSOR_FLOPS)["bound_ms"],
+             "previous_design_ms": PREVIOUS_INT8_GRAPH_MS.get((kernel, "step", b))}
+        print(f"int8 step {kernel} B={b} products={len(calls) + 1} int8_step_ms={ms!r} "
+              f"bound_ms={r['bound_ms']!r} previous_design_ms={r['previous_design_ms']!r} "
+              f"bf16_linear_step_ms={linear_ms!r} bf16_linear_bound_ms={r['linear_bound_ms']!r} "
+              f"int8_weight_bytes={int8_bytes} (CUDA graph of two steps, cold L2)")
+        results[b] = r
+    return results
 
 
 def compare_int8_on_path_inputs(name: str, kernel, plain, call: tuple, bf16_weight) -> dict:
@@ -2193,7 +2467,8 @@ def wq_head_variants_phase(reset_counts, read_counts) -> dict:
             "ms": r["products"][label]["ms"], "plain_ms": cuda_ms(lambda: plain(*args), 5),
             **bound(moved, ops, peak), "library_ms": None}
     print("wq_head variants at the script's numerics points "
-          + " ".join(f"{n}_ms={e['ms']!r} {n}_plain_ms={e['plain_ms']!r} "
+          + " ".join(f"{n}_ms={e['ms']!r} {n}_previous_ms={PREVIOUS_VARIANT_MS[n]!r} "
+                     f"{n}_plain_ms={e['plain_ms']!r} "
                      f"{n}_bound_ms={e['bound_ms']!r}" for n, e in entries.items())
           + f" bf16_linear_ms={r['products']['bf16 dot']['ms']!r} "
           f"wq_matmul_ms={r['products']['wq shipped (#6)']['ms']!r} "
@@ -2224,6 +2499,7 @@ def main() -> None:
           f"ptxas={json.dumps(ptxas)}")
     hopper_design_facts(log)
     decode_design_facts(log)
+    int8_design_facts(log)
     phase_done()
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2242,9 +2518,13 @@ def main() -> None:
     phase_done()
     dec_graph = decode_graph_times(gen)
     phase_done()
-    int8pack_head_times(gen)
+    int8pack = int8pack_head_times(gen)
     phase_done()
     int8_errs = compare_int8_matmuls(gen)
+    phase_done()
+    int8_graph = int8_graph_times(gen)
+    phase_done()
+    int8_repeat_and_graph(gen)
     phase_done()
     small_model_reference()
     phase_done()
@@ -2475,6 +2755,7 @@ def main() -> None:
     int8_inputs: dict = {}
     per_step_matmuls = 7 * n_dec + 1  # every layer projection and the head
     mode_launches = {}
+    int8_steps: dict = {}
     for mode, kernel_name in INT8_MODES.items():
         model.wq = None
         t0 = time.perf_counter()
@@ -2514,13 +2795,17 @@ def main() -> None:
                   f"decode_step_ms={step_ms!r} bf16_fused_decode_step_ms="
                   f"{results['fused']['step_ms']!r} peak_mem_gib={peak_gib!r} "
                   f"launches={json.dumps(counts)} deterministic=true "
-                  f"token_agreement_with_bf16={float((tokens == bf16_tokens).mean())!r}")
+                  f"token_agreement_with_bf16={float((tokens == bf16_tokens).mean())!r} "
+                  f"previous_design_token_agreement={PREVIOUS_TOKEN_AGREEMENT[mode]!r}")
         if "module" in mode_tokens and not np.array_equal(mode_tokens["fused"],
                                                           mode_tokens["module"]):
             fail(f"{mode}: the fused and the module decode paths gave different tokens")
         if "module" in mode_tokens:
             print(f"generate mode={mode} fused_vs_module_tokens_identical=true")
+        if mode != "enable_w8a8_head":
+            int8_steps[kernel_name] = int8_step_times(model, kernel_name)
         phase_done()
+    check_decode_counters()
     model.wq = None
     head_bf16 = model.decoder.embed_tokens.weight  # the tied head, [vocab, hidden]
     int8_path = {
@@ -2577,6 +2862,10 @@ def main() -> None:
     int8_source = "tiny_audio_tpu_torch/csrc/int8_matmul.cu"
     launches = {**results["fused"]["counts"],
                 "decode_attention": results["module"]["counts"]["decode_attention"]}
+    # #5 and #6 at the head, B = 4, from a CUDA graph at a cold L2
+    int8_head = {kern: {key: int8_graph[("head", BATCH)][kern][key]
+                        for key in ("ms", "bound_ms", "bound_by")}
+                 for kern in ("w8a8_matmul", "wq_matmul")}
     print(json.dumps({"kernels": [
         {"name": "encoder_attention", "route": "cuda", "source": source,
          "replaces": "tiny_audio_tpu/ops/encoder_attention.py:159",
@@ -2602,10 +2891,12 @@ def main() -> None:
         {"name": "w8a8_matmul", "route": "cuda", "source": int8_source,
          "replaces": "tiny_audio_tpu/ops/wq_head.py:128",
          "launches": mode_launches["w8a8_matmul"], **int8_path["w8a8_matmul"],
+         **int8_head["w8a8_matmul"],
          "max_abs_err": max(int8_errs["w8a8_matmul"], int8_path["w8a8_matmul"]["max_abs_err"])},
         {"name": "wq_matmul", "route": "cuda", "source": int8_source,
          "replaces": "tiny_audio_tpu/ops/wq_matmul.py:73",
-         "launches": mode_launches["wq_matmul"], **int8_path["wq_matmul"],
+         "launches": mode_launches["wq_matmul"], **int8_path["wq_matmul"], **int8_head["wq_matmul"],
+         "library_ms": int8pack.get(BATCH),
          "max_abs_err": max(int8_errs["wq_matmul"], int8_path["wq_matmul"]["max_abs_err"])},
         *({"name": name, "route": "cuda", "source": bwd_source, "replaces": replaces,
            "launches": trained["counts"][name], **trained["path"][name],

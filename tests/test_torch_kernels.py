@@ -822,7 +822,7 @@ def _matmul_inputs(device, b, k, n, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 4, 16, 19])
+@pytest.mark.parametrize("b", [1, 4, 16, 19, 48, 64])
 @pytest.mark.parametrize("k,n", MATMUL_SHAPES)
 def test_w8a8_kernel_matches_plain_bitwise(cuda_device, b, k, n):
     x, wt, scale = _matmul_inputs(cuda_device, b, k, n, seed=b + n)
@@ -832,10 +832,11 @@ def test_w8a8_kernel_matches_plain_bitwise(cuda_device, b, k, n):
     assert w8a8_matmul.launches == before + 1
     want = w8a8_matmul_plain(x, wt, scale)
     assert got.shape == (b, n) and torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert _counters_zero(cuda_device)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 4, 16, 19])
+@pytest.mark.parametrize("b", [1, 4, 16, 19, 48, 64])
 @pytest.mark.parametrize("k,n", MATMUL_SHAPES + [(64, 301)])
 def test_wq_kernel_matches_plain(cuda_device, b, k, n):
     """fp32 sums in another order than cuBLAS's: within WQ_ATOL + WQ_RTOL."""
@@ -846,6 +847,50 @@ def test_wq_kernel_matches_plain(cuda_device, b, k, n):
     assert wq_matmul.launches == before + 1
     want = wq_matmul_plain(x, w, scale)
     torch.testing.assert_close(got.float(), want.float(), atol=WQ_ATOL, rtol=WQ_RTOL)
+    assert _counters_zero(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [4, 48])
+@pytest.mark.parametrize("k,n", MATMUL_SHAPES)
+def test_int8_kernels_repeat_and_replay_bitwise(cuda_device, b, k, n):
+    """#5 and #6 sum in a fixed order (the splits merged in split order):
+    three runs, and a CUDA graph of both replayed twice, give the same bits,
+    and every merge counter is back at zero."""
+    x, wt, scale = _matmul_inputs(cuda_device, b, k, n, seed=5 * b + n)
+    w = wt.T.contiguous()
+    calls = (lambda: w8a8_matmul(x, wt, scale), lambda: wq_matmul(x, w, scale))
+    eager = [call() for call in calls]
+    for _ in range(2):
+        assert all(torch.equal(call().view(torch.int16), want.view(torch.int16))
+                   for call, want in zip(calls, eager))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = [call() for call in calls]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(got.view(torch.int16), want.view(torch.int16))
+                   for got, want in zip(replayed, eager))
+    assert _counters_zero(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [65, 130])
+def test_int8_kernels_take_more_rows_than_a_launch(cuda_device, b):
+    """Past 64 rows the wrappers launch once per 64 rows: each launch's rows
+    still match the plain versions (#5 bitwise)."""
+    k, n = 1024, 2048
+    x, wt, scale = _matmul_inputs(cuda_device, b, k, n, seed=b)
+    before = (w8a8_matmul.launches, wq_matmul.launches)
+    got5, got6 = w8a8_matmul(x, wt, scale), wq_matmul(x, wt.T.contiguous(), scale)
+    launches = -(-b // 64)
+    assert (w8a8_matmul.launches, wq_matmul.launches) == (before[0] + launches,
+                                                          before[1] + launches)
+    assert torch.equal(got5.view(torch.int16), w8a8_matmul_plain(x, wt, scale).view(torch.int16))
+    torch.testing.assert_close(got6.float(), wq_matmul_plain(x, wt.T.contiguous(), scale).float(),
+                               atol=WQ_ATOL, rtol=WQ_RTOL)
 
 
 @pytest.mark.cuda

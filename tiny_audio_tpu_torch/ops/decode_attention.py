@@ -307,6 +307,8 @@ def _device_kv_len(kv_len: KvLen, s: int, device: torch.device) -> torch.Tensor:
 #: (outside any graph capture) and left zero by every launch.  A buffer is
 #: never freed, because a CUDA graph captured with it keeps its address: a
 #: grid that needs more counters gets a larger buffer beside the old ones.
+#: The int8 products #5 and #6 (``ops/wq_matmul.launch_split``) count on
+#: the same buffers: launches on one stream never overlap.
 _counters: dict = {}
 #: counters of a device's first buffer: grids of up to B x Hkv x chunks = 64K
 COUNTERS_MIN = 1 << 16
@@ -319,8 +321,8 @@ def counter_buffer(device: torch.device, n: int) -> torch.Tensor:
     if not buffers or buffers[-1].numel() < n:
         if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
-                f"decode attention needs {n} merge counters on {device} and cannot allocate "
-                "them during a CUDA graph capture: run the same call once before capturing")
+                f"a kernel needs {n} merge counters on {device} and cannot allocate them "
+                "during a CUDA graph capture: run the same call once before capturing")
         buffers.append(torch.zeros(max(n, COUNTERS_MIN), dtype=torch.int32, device=device))
     return buffers[-1]
 

@@ -11,10 +11,15 @@ as XLA's int8 dot of the same function, for every layer projection of a
 decode step (``enable_w8a8_decode``); the port uses the kernel for both.
 
 The kernel (``csrc/int8_matmul.cu``, ``ta_w8a8_matmul``) quantizes the
-activation inside its blocks, so one product is one launch.  The sums are
+activation inside its blocks, so one product is one launch (a batch of up
+to ``SPLIT_MAX_ROWS`` rows; a larger one is a launch per that many rows).
+It splits K as #6 does (:func:`~tiny_audio_tpu_torch.ops.wq_matmul.int8_split_plan`)
+and merges the splits' int32 parts inside the launch.  The sums are
 integers, so the kernel and :func:`w8a8_matmul_plain` agree bitwise; the
 plain version sums in float64, which is exact here (``127**2 * K < 2**53``)
 on every device (PyTorch has no int32 matmul on CUDA).
+:func:`w8a8_matmul_split_plain` repeats the split's arithmetic as a test
+oracle; no path calls it.
 
 On a CPU tensor :func:`w8a8_matmul` runs the plain version; on a CUDA
 tensor it launches the kernel or raises.
@@ -22,11 +27,19 @@ tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
-from tiny_audio_tpu_torch import kernels
-from tiny_audio_tpu_torch.ops.wq_matmul import quantize_weight
+from tiny_audio_tpu_torch.ops.wq_matmul import (
+    SPLIT_MAX_ROWS,
+    Int8SplitPlan,
+    int8_split_plan,
+    launch_split,
+    quantize_weight,
+    split_rows,
+)
 
 #: the JAX kernel's output-channel tile; the W8A8 head is padded to it
 NT_HEAD = 2048
@@ -68,6 +81,24 @@ def w8a8_matmul_plain(x: torch.Tensor, wt_i8: torch.Tensor, scale: torch.Tensor)
     return ((acc.to(torch.float32) * sx) * scale[None, :]).to(torch.bfloat16)
 
 
+def w8a8_matmul_split_plain(x: torch.Tensor, wt_i8: torch.Tensor, scale: torch.Tensor,
+                            plan: Optional[Int8SplitPlan] = None) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch (a test oracle; no path calls it):
+    the activation quantized over whole rows, an integer part per split of K
+    (:func:`int8_split_plan`, or ``plan``), the parts summed in split order,
+    then the fp32 epilogue; integer sums, so bitwise the plain version."""
+    b, k = x.shape
+    plan = plan or int8_split_plan(min(b, SPLIT_MAX_ROWS), k, wt_i8.shape[0], "w8a8")
+    split_k = plan.split_k if plan is not None else k
+    x_i8, sx = quantize_act(x)
+    acc = torch.zeros((b, wt_i8.shape[0]), dtype=torch.int64, device=x.device)
+    for k0 in range(0, k, split_k):
+        part = x_i8[:, k0:k0 + split_k].to(torch.float64) @ \
+            wt_i8[:, k0:k0 + split_k].to(torch.float64).T  # exact integer sums
+        acc += part.to(torch.int64)
+    return ((acc.to(torch.float32) * sx) * scale[None, :]).to(torch.bfloat16)
+
+
 def _check_cuda_inputs(x, wt_i8, scale) -> None:
     if x.dtype != torch.bfloat16 or wt_i8.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError(f"w8a8 matmul kernel takes bf16 x, int8 wt and fp32 scale, got "
@@ -93,9 +124,10 @@ def w8a8_matmul(x: torch.Tensor, wt_i8: torch.Tensor, scale: torch.Tensor) -> to
     _check_cuda_inputs(x, wt_i8, scale)
     (b, k), n = x.shape, wt_i8.shape[0]
     out = torch.empty((b, n), dtype=torch.bfloat16, device=x.device)
-    kernels.launch("ta_w8a8_matmul", x.device, x.data_ptr(), wt_i8.data_ptr(), scale.data_ptr(),
-                   out.data_ptr(), b, k, n)
-    w8a8_matmul.launches += 1
+    for r0, r1 in split_rows(b):
+        launch_split("ta_w8a8_matmul", "w8a8", x[r0:r1], wt_i8, scale, out[r0:r1],
+                     int8_split_plan(r1 - r0, k, n, "w8a8"))
+        w8a8_matmul.launches += 1
     return out
 
 

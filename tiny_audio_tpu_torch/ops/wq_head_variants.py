@@ -15,7 +15,8 @@ flagship's LM head (x ``[48, 1024]``, an int8 head ``[1024, 151936]``):
   int32 sums, ``bf16((acc * sx) * scale)``, one block per ``nt`` channels
   (``csrc/int8_matmul_variants.cu``);
 - :func:`a8t_matmul` (#9d, ``build_a8t(nt)``): #9c with the weight stored
-  ``[N, K]``, #5's layout, on #5's tiles (``csrc/int8_matmul.cu``).
+  ``[N, K]``, #5's layout, on the CUDA-core tiles #5 had before its
+  redesign (``csrc/int8_matmul.cu``).
 
 The plain versions are the ones the port already has: #6's
 :func:`~tiny_audio_tpu_torch.ops.wq_matmul.wq_matmul_plain` for #9b, #5's
@@ -110,7 +111,7 @@ def a8_matmul(x, w_i8, scale, nt: int = 2048) -> torch.Tensor:
 
 def a8t_matmul(x, wt_i8, scale, nt: int = 2048) -> torch.Tensor:
     """W8A8 on the ``[N, K]`` weight, one block per ``nt`` channels (a
-    multiple of 64, #5's wide tile).  x [B, K] bf16 -> [B, N] bf16."""
+    multiple of 64, the kernel's tile).  x [B, K] bf16 -> [B, N] bf16."""
     if not x.is_cuda:
         return w8a8_matmul_plain(x, wt_i8, scale)
     if nt <= 0 or nt % 64:
