@@ -5,8 +5,10 @@
 
 Builds the Hopper kernels from ``tiny_audio_tpu_torch/csrc`` (one ``nvcc`` per
 source, started together) and shows that #1 and #2 are the Hopper design of
-``csrc/attention_sm90.cu`` and #2b and #2c that of
-``csrc/attention_bwd_sm90.cu``: for each instance of their kernels,
+``csrc/attention_sm90.cu``, #2b and #2c that of
+``csrc/attention_bwd_sm90.cu``, #8 that of ``csrc/encoder_ffn.cu`` and
+each of #9a's 13 modes that of ``csrc/encoder_attention_variants.cu``: for
+each instance of their kernels,
 registers, shared memory and spills from the ``ptxas -v`` log (no spill),
 and its HGMMA (wgmma), UTMALDG (TMA) and USETMAXREG instructions counted
 with ``cuobjdump -sass`` (neither of the first two may be 0).  It holds each kernel against its plain PyTorch version on random
@@ -46,7 +48,10 @@ flagship width (random weights from seed 0, int8 KV cache):
   ``fused_ffn`` / ``encoder_ffn``) on encoder layer 0's MLP input from the
   serving ``generate`` and at scripts/bench_encoder_ffn.py's shape, with
   what that script prints (fused and unfused cuBLAS times and TFLOP/s, both
-  errors against fp64 on 4,096 rows) and the gradient through ``EncoderFFN``.
+  errors against fp64 on 4,096 rows), the gradient through ``EncoderFFN``,
+  a second launch and two CUDA-graph replays bitwise equal to the first,
+  and its times at both M back to back and from a graph beside the
+  previous design's (``PREVIOUS_FFN_MS``).
 
 The decode kernels #3 and #4 (``csrc/decode_attention.cu``, a split over the
 cache rows merged inside the launch): the registers, shared memory and
@@ -86,7 +91,8 @@ After the paths, the four bench variants (#9a-#9d), which no path calls,
 run through their entry points, ``tools/bench_encoder_attention.py`` and
 ``tools/bench_wq_head.py``, at the TPU scripts' full shapes: every mode and
 sweep point against its plain version (#9c and #9d bitwise, ``packed2``
-bitwise ``shift_post``), #9a also against an fp64 oracle.
+bitwise ``shift_post``), #9a also against an fp64 oracle, each #9a mode's
+time beside its previous design's (``PREVIOUS_VARIANT_MS``) and #1's.
 
 Every kernel's launch count is set to 0 just before each path and read just
 after; the inputs the path gave each kernel in its first call are kept,
@@ -260,6 +266,18 @@ FFN_ORACLE_ROWS = 4096
 # Rounding h to bf16 before the GELU (naive_ffn's formula) still fits the
 # tolerance above but matches about a third, so the share is held too.
 FFN_MIN_EQUAL_SHARE = 0.95
+# Kernel #8's timed row counts: encoder layer 0's MLP input of the serving
+# batch (4 x 1,500 frames) and FFN_BENCH_SHAPE's; back to back (CUDA events
+# over FFN_REPS calls) and from a CUDA graph of FFN_REPS calls, on random
+# bf16 operands made from SEED + M (D = 1,280, F = 5,120): ffn_times.
+FFN_TIMED_M = (BATCH * 1500, FFN_BENCH_SHAPE[0])
+FFN_REPS = 10
+# The previous design of #8 (32-row blocks of 16 warps, mma.sync, both
+# weights streamed from L2 into fragments), timed by this script's ffn_times
+# run on the package of the tree before the redesign (one run on the card,
+# beside #9a's previous times below): M -> ms; NVIDIA H100 80GB HBM3, 700.00 W.
+PREVIOUS_FFN_MS = {6000: {"ms": 2.271993637084961, "graph_ms": 2.263920021057129},
+                   49152: {"ms": 13.578060913085938, "graph_ms": 13.50537567138672}}
 # The tiny towers (tiny_test_config, head_dim 16): the clips, tokens and
 # training steps of their phase.  fp32 runs the same formulas on the card's
 # CUDA cores and on the CPU, so their audio embeddings agree to fp32 sums
@@ -274,9 +292,27 @@ FP32_EMBED_RTOL = 1e-4
 # the card over the 13 modes (bf16 P and output roundings), twice that here.
 BENCH_VARIANTS = ("encoder_attention_variant", "wq_matmul_pipe", "a8_matmul", "a8t_matmul")
 # #9b-#9d at their numerics points before the redesign of #5 and #6, from
-# this script on that tree (ms; NVIDIA H100 80GB HBM3, 700.00 W)
+# this script on that tree (ms; NVIDIA H100 80GB HBM3, 700.00 W); then #9a's
+# previous design (mma.sync, 16 warps a 256-row block, V copied transposed)
+# by mode and hg, and #1 and SDPA at its shape, from the tool's timings on
+# that tree in the same run as PREVIOUS_FFN_MS (ms; NVIDIA H100 80GB HBM3,
+# 700.00 W)
 PREVIOUS_VARIANT_MS = {"wq_matmul_pipe": 2.2355056762695313, "a8_matmul": 3.1405344009399414,
-                       "a8t_matmul": 1.719843292236328}
+                       "a8t_matmul": 1.719843292236328,
+                       "loop-fp32(hg=10)": 7.6249137878417965, "loop-bf16(hg=10)": 8.999305725097656,
+                       "loop-rcp(hg=10)": 5.438627243041992, "loop-nomax(hg=10)": 6.589358520507813,
+                       "loop-shift(hg=10)": 6.450341033935547,
+                       "loop-tilemax(hg=10)": 7.425672149658203,
+                       "loop-tilemax_rcp(hg=10)": 5.39941291809082,
+                       "loop-qnorm(hg=10)": 6.376964950561524,
+                       "loop-qnorm_post(hg=10)": 2.811782455444336,
+                       "loop-fp32_post(hg=10)": 4.003662490844727,
+                       "loop-shift_post(hg=10)": 2.6980031967163085,
+                       "loop-tilemax_post(hg=10)": 4.010643386840821,
+                       "loop-packed2(hg=10)": 2.6028432846069336,
+                       "loop-fp32(hg=4)": 7.7754066467285154, "loop-fp32(hg=20)": 9.939046478271484,
+                       "encoder_attention (#1)": 1.1767824172973633,
+                       "sdpa (key mask)": 1.3554479598999023}
 VARIANT_REPS = 20
 VARIANT_ORACLE_ATOL = 5e-3
 
@@ -522,27 +558,49 @@ def compare_prefill_kernel(gen: torch.Generator) -> dict:
 # the backward (csrc/attention_bwd_sm90.cu; head_dim) behind #2b and #2c
 SM90_KERNEL = "attention_fwd_sm90"
 SM90_BWD_KERNELS = ("attention_bwd_dkv_sm90", "attention_bwd_dq_sm90")
+# #8 (csrc/encoder_ffn.cu, one instance) and #9a (csrc/encoder_attention_
+# variants.cu: variant_sm90<shift, exp bf16, norm, guard, heads a stage>, one
+# instance a mode, in ta_encoder_attention_variant's numbering)
+FFN_KERNEL = "encoder_ffn_sm90"
+VARIANT_KERNEL = "variant_sm90"
+VARIANT_INSTANCE_MODES = {
+    (0, 0, 0, 0, 1): "fp32", (0, 1, 0, 0, 1): "bf16", (0, 0, 1, 0, 1): "rcp",
+    (1, 0, 0, 0, 1): "nomax", (2, 0, 0, 1, 1): "shift", (3, 0, 0, 1, 1): "tilemax",
+    (3, 0, 1, 1, 1): "tilemax_rcp", (4, 0, 0, 1, 1): "qnorm", (4, 0, 2, 1, 1): "qnorm_post",
+    (0, 0, 2, 1, 1): "fp32_post", (2, 0, 2, 1, 1): "shift_post", (3, 0, 2, 1, 1): "tilemax_post",
+    (2, 0, 2, 1, 2): "packed2"}
 SM90_INSTANCES = {(SM90_KERNEL, 64, 0, 0), (SM90_KERNEL, 64, 1, 0), (SM90_KERNEL, 64, 1, 1),
                   (SM90_KERNEL, 128, 1, 0), (SM90_KERNEL, 128, 1, 1),
-                  *((name, d) for name in SM90_BWD_KERNELS for d in (64, 128))}
+                  *((name, d) for name in SM90_BWD_KERNELS for d in (64, 128)),
+                  (FFN_KERNEL,), *((VARIANT_KERNEL, *key) for key in VARIANT_INSTANCE_MODES)}
 # the flagship prefill at the JAX bench's batch (bench.py: 48 x 30 s)
 BENCH_BATCH = 48
 
 
 def sm90_instance(mangled: str):
     """The instance of the Hopper design a kernel symbol names:
-    (attention_fwd_sm90, head_dim, causal, stats) or (attention_bwd_*_sm90,
-    head_dim); None for any other kernel."""
+    (attention_fwd_sm90, head_dim, causal, stats), (attention_bwd_*_sm90,
+    head_dim), (encoder_ffn_sm90,) or (variant_sm90, shift, exp bf16, norm,
+    guard, heads a stage); None for any other kernel."""
     found = re.search(SM90_KERNEL + r"ILi(\d+)E.*?Lb([01])ELb([01])E", mangled)
     if found:
         return (SM90_KERNEL, *(int(x) for x in found.groups()))
     found = re.search(r"(" + "|".join(SM90_BWD_KERNELS) + r")ILi(\d+)E", mangled)
-    return None if found is None else (found.group(1), int(found.group(2)))
+    if found:
+        return (found.group(1), int(found.group(2)))
+    if FFN_KERNEL in mangled:
+        return (FFN_KERNEL,)
+    found = re.search(VARIANT_KERNEL + r"ILi(\d)ELb([01])ELi(\d)ELb([01])ELi(\d)E", mangled)
+    return None if found is None else (VARIANT_KERNEL, *(int(x) for x in found.groups()))
 
 
 def instance_text(inst: tuple) -> str:
     if inst[0] == SM90_KERNEL:
         return f"{SM90_KERNEL}<D={inst[1]}, causal={bool(inst[2])}, stats={bool(inst[3])}>"
+    if inst[0] == FFN_KERNEL:
+        return f"{FFN_KERNEL} (#8)"
+    if inst[0] == VARIANT_KERNEL:
+        return f"{VARIANT_KERNEL}<{VARIANT_INSTANCE_MODES[inst[1:]]}> (#9a)"
     return f"{inst[0]}<D={inst[1]}>"
 
 
@@ -640,15 +698,16 @@ def int8_design_facts(log: str) -> None:
 
 
 def hopper_design_facts(log: str) -> None:
-    """What shows that #1, #2, #2b and #2c are the Hopper design: for each
-    instance of attention_fwd_sm90, attention_bwd_dkv_sm90 and
-    attention_bwd_dq_sm90, its registers, static shared memory and spills
+    """What shows that #1, #2, #2b, #2c, #8 and #9a are the Hopper design:
+    for each instance of attention_fwd_sm90, attention_bwd_dkv_sm90,
+    attention_bwd_dq_sm90, encoder_ffn_sm90 and variant_sm90 (one a #9a
+    mode), its registers, static shared memory and spills
     from the build's ``ptxas -v`` log, its dynamic shared memory, and its
     HGMMA (wgmma), UTMALDG (TMA load) and USETMAXREG instructions counted in
     the library's SASS with cuobjdump.  Fails before any launch if an
     instance is missing, spills, or has no HGMMA or no UTMALDG, if ptxas
-    serialized a wgmma or ignored a setmaxnreg, or if dkv's entry registers
-    are not the count its setmaxnreg balances."""
+    serialized a wgmma or ignored a setmaxnreg, or if dkv's or a #9a
+    instance's entry registers are not the count its setmaxnreg balances."""
     from tiny_audio_tpu_torch import kernels
 
     for line in log.splitlines():
@@ -680,9 +739,18 @@ def hopper_design_facts(log: str) -> None:
     # consumer's setmaxnreg.inc could wait forever (the launch refuses such a
     # build; the run stops here, before any launch)
     dkv_entry_registers = lib.ta_attention_bwd_sm90_dkv_entry_registers()
+    # likewise #9a's instances, whose setmaxnreg split assumes this count
+    variant_entry_registers = lib.ta_encoder_attention_variant_entry_registers()
     for inst in sorted(SM90_INSTANCES):
         if inst[0] == SM90_KERNEL:
             smem = lib.ta_attention_sm90_smem_bytes(inst[1], inst[2])
+        elif inst[0] == FFN_KERNEL:
+            smem = lib.ta_encoder_ffn_smem_bytes()
+        elif inst[0] == VARIANT_KERNEL:  # at the bench's T = 1,536
+            from tiny_audio_tpu_torch.ops.encoder_attention_variants import MODES
+
+            smem = lib.ta_encoder_attention_variant_smem_bytes(
+                MODES.index(VARIANT_INSTANCE_MODES[inst[1:]]), 1536)
         else:
             smem = lib.ta_attention_bwd_sm90_smem_bytes(inst[1], inst[0] == SM90_BWD_KERNELS[0])
         print(f"hopper design {instance_text(inst)} ptxas={json.dumps(ptxas[inst])} "
@@ -692,11 +760,12 @@ def hopper_design_facts(log: str) -> None:
             fail(f"{instance_text(inst)} has no HGMMA or no UTMALDG in its SASS: {counts[inst]}")
         if ptxas[inst].get("spill_bytes", [0, 0]) != [0, 0]:
             fail(f"{instance_text(inst)} spills: {ptxas[inst]}")
-        if inst[0] == SM90_BWD_KERNELS[0] and (
-                ptxas[inst]["registers"] != dkv_entry_registers or not counts[inst]["USETMAXREG"]):
+        entry = {SM90_BWD_KERNELS[0]: dkv_entry_registers,
+                 VARIANT_KERNEL: variant_entry_registers}.get(inst[0])
+        if entry is not None and (
+                ptxas[inst]["registers"] != entry or not counts[inst]["USETMAXREG"]):
             fail(f"{instance_text(inst)} enters with {ptxas[inst]['registers']} registers and "
-                 f"{counts[inst]['USETMAXREG']} USETMAXREG; its setmaxnreg balances "
-                 f"{dkv_entry_registers}")
+                 f"{counts[inst]['USETMAXREG']} USETMAXREG; its setmaxnreg balances {entry}")
 
 
 def prefill_at_bench_batch(gen: torch.Generator) -> None:
@@ -1105,9 +1174,10 @@ def decode_graph_replay(gen: torch.Generator) -> None:
 
 
 def check_decode_counters() -> None:
-    """The merge counters of the decode kernels and the int8 products (one
-    set of buffers) are all zero between launches."""
-    from tiny_audio_tpu_torch.ops.decode_attention import counter_buffers
+    """The counters of the decode kernels, the int8 products and #8 (one
+    set of buffers, ``kernels.counter_buffers``) are all zero between
+    launches."""
+    from tiny_audio_tpu_torch.kernels import counter_buffers
 
     torch.cuda.synchronize()
     counters = torch.cat(counter_buffers(torch.device("cuda", torch.cuda.current_device())))
@@ -2118,6 +2188,28 @@ def ffn_phase(layer0: dict, reset_counts, read_counts) -> dict:
     vs_block = (out0 - layer0["mlp_out"]).abs().max().item()
     print(f"encoder_ffn layer-0 kernel vs the encoder block's own unfused MLP (bf16 h) "
           f"max_abs_err={vs_block!r}")
+    # a second launch, and a CUDA graph replayed twice, give the first
+    # launch's bytes at both M (the tile queue's counters are left zero by
+    # each launch; M = 49,152 has the most row blocks and the longest tail)
+    for label, first, args in (("encoder_layer0_mlp", out0.reshape(-1, d), (x0_2d, *w)),
+                               ("bench_encoder_ffn_shape", outb, (xb, *wb))):
+        second = encoder_ffn(*args)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = encoder_ffn(*args)
+        replays = []
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            replays.append(same_bytes(replayed, first))
+        if not (same_bytes(second, first) and all(replays)):
+            fail(f"the FFN kernel's repeated launch or graph replay differs from its first "
+                 f"launch at {label}: second launch equal={same_bytes(second, first)}, "
+                 f"replays equal={replays}")
+        print(f"encoder_ffn {label} M={args[0].shape[0]} second launch and two CUDA-graph "
+              f"replays bitwise equal to the first launch=true")
+        del graph, second, replayed
+        torch.cuda.empty_cache()
 
     # the gradient: EncoderFFN's backward recomputes naive_ffn in bf16
     ref = [t.detach().clone().requires_grad_(True) for t in (xb, *wb)]
@@ -2160,17 +2252,55 @@ def ffn_phase(layer0: dict, reset_counts, read_counts) -> dict:
 
     # times on the path's own tensors (M = 6,000)
     ms = cuda_ms(lambda: encoder_ffn(x0_2d, *w), 20)
+    kernel_graph_ms = graph_ms(lambda: encoder_ffn(x0_2d, *w), 20)
     plain_ms = cuda_ms(lambda: encoder_ffn_plain(x0_2d, *w), 5)
     library_ms = cuda_ms(lambda: unfused(x0_2d, *w), 20)
+    library_graph_ms = graph_ms(lambda: unfused(x0_2d, *w), 20)
     m0 = x0_2d.shape[0]
     stats = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
              **bound(2 * nbytes(x0_2d) + nbytes(*w), 4.0 * m0 * d * f, BF16_TENSOR_FLOPS),
              "library_ms": library_ms}
     print(f"encoder_ffn timing on the layer-0 input M={m0} kernel_ms={ms!r} "
+          f"kernel_graph_ms={kernel_graph_ms!r} "
           f"kernel_tflops={4.0 * m0 * d * f / ms / 1e9!r} plain_ms={plain_ms!r} "
-          f"cublas_chain_ms={library_ms!r} bound_ms={stats['bound_ms']!r} "
+          f"cublas_chain_ms={library_ms!r} cublas_chain_graph_ms={library_graph_ms!r} "
+          f"bound_ms={stats['bound_ms']!r} "
           f"bound_by={stats['bound_by']} launches={json.dumps(counts)}")
+    # the new design beside the previous one, each at both M (ffn_times)
+    for m_t, t in ffn_times(encoder_ffn).items():
+        prev = PREVIOUS_FFN_MS.get(m_t, {})
+        ops_t = 4.0 * m_t * d * f
+        print(f"encoder_ffn design times M={m_t} D={d} F={f} (random operands) "
+              f"kernel_ms={t['ms']!r} kernel_graph_ms={t['graph_ms']!r} "
+              f"previous_design_ms={prev.get('ms')!r} "
+              f"previous_design_graph_ms={prev.get('graph_ms')!r} "
+              f"tflops={ops_t / t['ms'] / 1e9!r} graph_tflops={ops_t / t['graph_ms'] / 1e9!r} "
+              f"bound_ms={ops_t / BF16_TENSOR_FLOPS * 1e3!r}")
     return {"stats": stats, "launches": counts["encoder_ffn"]}
+
+
+def ffn_operands(m: int) -> list:
+    """x [m, 1,280] and the flagship encoder MLP's weights, random bf16 from
+    SEED + m, at the scale of scripts/bench_encoder_ffn.py's."""
+    d, f = FFN_BENCH_SHAPE[1:]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + m)
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    return [randn(m, d).to(torch.bfloat16), (randn(f, d) / d ** 0.5).to(torch.bfloat16),
+            (0.1 * randn(f)).to(torch.bfloat16), (randn(d, f) / f ** 0.5).to(torch.bfloat16),
+            (0.1 * randn(d)).to(torch.bfloat16)]
+
+
+def ffn_times(encoder_ffn) -> dict:
+    """Kernel #8 at each M of FFN_TIMED_M: {M: {"ms", "graph_ms"}}, back to
+    back and from a CUDA graph."""
+    times = {}
+    for m in FFN_TIMED_M:
+        ops = ffn_operands(m)
+        call = lambda: encoder_ffn(*ops)  # noqa: E731
+        times[m] = {"ms": cuda_ms(call, FFN_REPS), "graph_ms": graph_ms(call, FFN_REPS)}
+        del ops, call
+        torch.cuda.empty_cache()
+    return times
 
 
 def small_model_reference() -> None:
@@ -2415,6 +2545,17 @@ def encoder_variants_phase(reset_counts, read_counts) -> dict:
              **bound(4 * nbytes(q) + nbytes(mask), 4.0 * b * h * t * t * (hd // h),
                      BF16_TENSOR_FLOPS),
              "library_ms": r["yardsticks"]["sdpa (key mask)"]["ms"]}
+    from tiny_audio_tpu_torch.ops.encoder_attention_variants import variant_units
+
+    unit_flops = 2.0 * b * h * t * t * (hd // h)  # one product over all keys
+    kernel1 = r["yardsticks"]["encoder_attention (#1)"]["ms"]
+    for name, x in r["variants"].items():
+        flops = variant_units(x["mode"]) * unit_flops
+        print(f"encoder_attention_variant design times {name} units={variant_units(x['mode'])} "
+              f"ms={x['ms']!r} previous_design_ms={PREVIOUS_VARIANT_MS.get(name)!r} "
+              f"tflops={flops / x['ms'] / 1e9!r} bound_ms={flops / BF16_TENSOR_FLOPS * 1e3!r} "
+              f"kernel1_ms={kernel1!r} "
+              f"kernel1_previous_ms={PREVIOUS_VARIANT_MS.get('encoder_attention (#1)')!r}")
     print(f"encoder_attention_variant packed2_equals_shift_post_bitwise=true "
           f"fp32_hg{hg}_ms={stats['ms']!r} plain_ms={plain_ms!r} bound_ms={stats['bound_ms']!r} "
           f"bound_by={stats['bound_by']} sdpa_ms={stats['library_ms']!r} "

@@ -24,14 +24,12 @@ from tiny_audio_tpu.ops.decode_attention import (
     decode_attention_tpu,
     decode_attention_update_tpu,
 )
-from tiny_audio_tpu_torch.ops import decode_attention as decode_ops
+from tiny_audio_tpu_torch import kernels
 from tiny_audio_tpu_torch.ops.decode_attention import (
     KERNEL_GROUPS,
     KERNEL_HEAD_DIMS,
     MAX_SPLITS,
     SPLIT_ROW_STEP,
-    counter_buffer,
-    counter_buffers,
     decode_attention_plain,
     decode_attention_split_plain,
     split_plan,
@@ -205,13 +203,13 @@ def test_counter_buffers_are_never_freed(monkeypatch):
     """A grid that needs more merge counters gets a new buffer beside the
     old ones: a CUDA graph captured with an older buffer keeps its address,
     so that buffer must stay allocated (and zero)."""
-    monkeypatch.setattr(decode_ops, "_counters", {})
-    monkeypatch.setattr(decode_ops, "COUNTERS_MIN", 4)
+    monkeypatch.setattr(kernels, "_counters", {})
+    monkeypatch.setattr(kernels, "COUNTERS_MIN", 4)
     cpu = torch.device("cpu")
-    small = counter_buffer(cpu, 3)
-    assert small.numel() == 4 and counter_buffer(cpu, 4) is small
-    large = counter_buffer(cpu, 384)
-    assert large.numel() == 384 and counter_buffer(cpu, 100) is large
-    kept = counter_buffers(cpu)
+    small = kernels.counter_buffer(cpu, 3)
+    assert small.numel() == 4 and kernels.counter_buffer(cpu, 4) is small
+    large = kernels.counter_buffer(cpu, 384)
+    assert large.numel() == 384 and kernels.counter_buffer(cpu, 100) is large
+    kept = kernels.counter_buffers(cpu)
     assert len(kept) == 2 and kept[0] is small and kept[1] is large
     assert not any(buf.any() for buf in kept)

@@ -121,7 +121,7 @@ def test_applicability_gate():
     assert tffn.fused_ffn_applicable(384, 1536)       # whisper-tiny
     assert not tffn.fused_ffn_applicable(1280, 5000)  # ffn not a multiple of 64
     assert not tffn.fused_ffn_applicable(100, 5120)   # d_model not a multiple of 128
-    assert not tffn.fused_ffn_applicable(1536, 6144)  # accumulator past the registers
+    assert tffn.fused_ffn_applicable(1536, 6144)      # past 1,280: no register-bound cap
 
 
 def test_plain_is_the_encoder_mlp_in_fp32():
@@ -132,3 +132,66 @@ def test_plain_is_the_encoder_mlp_in_fp32():
     x, w1, b1, w2, b2 = _to_port(*_mats(64, 128, 256, seed=3))
     want = F.linear(F.gelu(F.linear(x, w1, b1), approximate="tanh"), w2, b2)
     torch.testing.assert_close(tffn.encoder_ffn(x, w1, b1, w2, b2), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("d", [128, 256, 384, 512, 1024, 1280, 1536, 2048, 100, 200, 640, 0])
+@pytest.mark.parametrize("f", [64, 512, 1024, 1536, 5120, 6144, 5000, 96, 0])
+def test_applicability_gate_against_jax(d, f):
+    """The port's gate is d_model % 128 == 0 and ffn_dim % 64 == 0 (the
+    products' 64-deep steps), with no cap on d_model; every shape the JAX
+    gate takes (ffn_dim a multiple of its 512-wide blocks) the port takes."""
+    from tiny_audio_tpu.ops.encoder_ffn import fused_ffn_applicable as jax_applicable
+
+    want = d > 0 and f > 0 and d % 128 == 0 and f % 64 == 0
+    assert tffn.fused_ffn_applicable(d, f) == want
+    if d > 0 and f > 0 and jax_applicable(d, f):
+        assert tffn.fused_ffn_applicable(d, f)
+
+
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 6000, 49152])
+@pytest.mark.parametrize("d,f", [(1280, 5120), (384, 1536), (128, 64), (1536, 6144)])
+def test_tile_plan_counts_and_order(m, d, f):
+    """ffn_tile_plan, the kernel's queue: every (phase, row block, column
+    block) once; row blocks of 128 and column blocks of 256 cover [M, F]
+    (phase 1) and [M, D] (phase 2); every phase-2 tile comes after all of
+    its row block's phase-1 tiles (the only tiles it waits for), at most
+    ``lag`` row blocks later."""
+    plan = tffn.ffn_tile_plan(m, d, f)
+    rows = -(-m // tffn.BM)
+    n1, n2 = -(-f // tffn.BN), -(-d // tffn.BN)
+    assert (plan.rows, plan.n1, plan.n2) == (rows, n1, n2)
+    assert plan.lag == min(tffn.FFN_LAG, rows) and plan.total == rows * (n1 + n2)
+    tiles = plan.tiles()
+    assert len(tiles) == plan.total == len(set(tiles))
+    assert set(tiles) == ({(1, r, c) for r in range(rows) for c in range(n1)}
+                          | {(2, r, c) for r in range(rows) for c in range(n2)})
+    position = {tile: i for i, tile in enumerate(tiles)}
+    for (phase, r, c), i in position.items():
+        if phase == 2:
+            deps = [position[(1, r, c1)] for c1 in range(n1)]
+            assert max(deps) < i
+            # no later row block's phase-1 tiles than r + lag come before it
+            assert all(position[(1, r2, c1)] > i for r2 in range(r + plan.lag + 1, rows)
+                       for c1 in range(n1))
+    # the queue runs row block by row block: phase-1 tiles in row order
+    firsts = [r for phase, r, _ in tiles if phase == 1]
+    assert firsts == sorted(firsts)
+
+
+@pytest.mark.parametrize("m,d,f,want", [
+    # one row block: lag 1, its phase-1 tiles then its phase-2 tiles
+    (100, 256, 512, [(1, 0, 0), (1, 0, 1), (2, 0, 0)]),
+    # fewer row blocks than FFN_LAG: every phase-1 tile, then every phase-2 tile
+    (300, 256, 512, [(1, 0, 0), (1, 0, 1), (1, 1, 0), (1, 1, 1), (1, 2, 0), (1, 2, 1),
+                     (2, 0, 0), (2, 1, 0), (2, 2, 0)]),
+    # ten row blocks: phase 2 of row block i follows phase 1 of row block i + 8
+    (1280, 256, 256, [(1, r, 0) for r in range(8)]
+     + [(1, 8, 0), (2, 0, 0), (1, 9, 0), (2, 1, 0)] + [(2, r, 0) for r in range(2, 10)]),
+])
+def test_tile_plan_lag_is_ffn_lag_or_every_row_block(m, d, f, want):
+    """The queue lags phase 2 by min(FFN_LAG, rows) row blocks, the kernel's
+    ``LAG`` (8): with one row block the queue is that block's phase-1 tiles
+    then its phase-2 tiles."""
+    plan = tffn.ffn_tile_plan(m, d, f)
+    assert tffn.FFN_LAG == 8 and plan.lag == min(8, plan.rows)
+    assert plan.tiles() == want

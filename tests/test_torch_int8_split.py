@@ -22,7 +22,6 @@ import torch
 from tiny_audio_tpu.ops import wq_head as jax_wq_head
 from tiny_audio_tpu.ops import wq_matmul as jax_wq_matmul
 from tiny_audio_tpu_torch import kernels
-from tiny_audio_tpu_torch.ops import decode_attention as decode_ops
 from tiny_audio_tpu_torch.ops.wq_head import (
     w8a8_matmul,
     w8a8_matmul_plain,
@@ -216,7 +215,7 @@ def recorded_launches(monkeypatch):
     calls = []
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(kernels, "launch", lambda name, device, *args: calls.append((name, args)))
-    monkeypatch.setattr(decode_ops, "_counters", {})
+    monkeypatch.setattr(kernels, "_counters", {})
     wq_matmul.launches = w8a8_matmul.launches = 0
     yield calls
     wq_matmul.launches = w8a8_matmul.launches = 0
@@ -243,7 +242,7 @@ def test_one_launch_with_the_plan(recorded_launches, kind, k, n, b):
     assert args[:4] == (x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr())
     assert args[6:] == (b, k, n, plan.warps_n, plan.split_k)
     assert (args[4] != 0) == (args[5] != 0) == (plan.splits > 1)
-    counters = decode_ops.counter_buffers(x.device)
+    counters = kernels.counter_buffers(x.device)
     assert (len(counters) == 1 and counters[0].numel() >= plan.counters) == (plan.splits > 1)
     assert (wq_matmul.launches, w8a8_matmul.launches) == ((1, 0) if kind == "wq" else (0, 1))
 

@@ -12,9 +12,7 @@ import torch
 
 from tiny_audio_tpu_torch import kernels
 from tiny_audio_tpu_torch.ops import attention as tattn
-from tiny_audio_tpu_torch.ops import decode_attention as decode_ops
 from tiny_audio_tpu_torch.ops.decode_attention import (
-    counter_buffers,
     decode_attention,
     decode_attention_plain,
     decode_attention_split_plain,
@@ -345,6 +343,31 @@ def test_front_end_and_ffn_never_fall_back(pretend_cuda, grad, monkeypatch):
     assert encoder_ffn.launches == 0 and log_mel_spectrogram_fused.launches == 0
 
 
+def test_ffn_and_variant_refuse_misaligned_inputs_before_any_build(pretend_cuda):
+    """#8 and #9a on CUDA tensors off a 16-byte boundary (their TMA maps'
+    base) or not contiguous: a ValueError before the kernels are built, and
+    no launch counted."""
+    encoder_ffn.launches = encoder_attention_variant.launches = 0
+    ops = _ffn_operands(64, 256, 512)
+    shifted = torch.empty(64 * 256 + 1, dtype=torch.bfloat16)[1:].view(64, 256)
+    for i, t in enumerate(ops):
+        off = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+        off.copy_(t)
+        with pytest.raises(ValueError, match="16-byte"):
+            encoder_ffn(*ops[:i], off, *ops[i + 1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        encoder_ffn(torch.cat([shifted, shifted], 1)[:, ::2], *ops[1:])
+    x = torch.zeros((1, 256, 2 * 64), dtype=torch.bfloat16)
+    off = torch.empty(x.numel() + 1, dtype=x.dtype)[1:].view(x.shape)
+    for args in ((off, x, x), (x, off, x), (x, x, off)):
+        with pytest.raises(ValueError, match="aligned"):
+            encoder_attention_variant(*args, None, 2, "fp32", 2)
+    with pytest.raises(ValueError, match="multiple of 256 up to"):
+        y = torch.zeros((1, 65536 + 256, 64), dtype=torch.bfloat16)
+        encoder_attention_variant(y, y, y, None, 1, "fp32", 1)
+    assert encoder_ffn.launches == 0 and encoder_attention_variant.launches == 0
+
+
 def test_front_end_carries_a_gradient_on_a_cuda_tensor(pretend_cuda, monkeypatch):
     """The launch writes into a tensor with no grad_fn; with grad, LogMel
     wraps it and its backward recomputes the plain formula, so the gradient
@@ -607,7 +630,7 @@ def _split_kv_lens(b, s, hkv, group, d, dtype):
 
 def _counters_zero(device):
     torch.cuda.synchronize()
-    return not any(buf.any() for buf in counter_buffers(device))
+    return not any(buf.any() for buf in kernels.counter_buffers(device))
 
 
 # (B, kv_len) of the path's shape (S 608, Hkv 8, group 2, D 128): a stream,
@@ -722,8 +745,8 @@ def test_decode_graph_survives_a_larger_grid(cuda_device, quantized, monkeypatch
     as B = 1's grid) gets a new buffer and frees none, so the graph, replayed
     after the freed memory would have been reused, still gives the eager
     calls' bits and leaves every counter zero."""
-    monkeypatch.setattr(decode_ops, "_counters", {})
-    monkeypatch.setattr(decode_ops, "COUNTERS_MIN", 1)
+    monkeypatch.setattr(kernels, "_counters", {})
+    monkeypatch.setattr(kernels, "COUNTERS_MIN", 1)
     s, hkv, kv_len = 608, 8, 468
     q, ck, cv, fk, fv, ks, vs = _decode_inputs(cuda_device, 1, s, hkv, quantized, 5)
     kv_t = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
@@ -734,7 +757,7 @@ def test_decode_graph_survives_a_larger_grid(cuda_device, quantized, monkeypatch
         out = decode_attention(q, ck, cv, fk, fv, kv_t, ks, vs)
     big = _decode_inputs(cuda_device, 48, s, hkv, quantized, 6)
     decode_attention(big[0], *big[1:5], kv_len, *big[5:])
-    assert len(counter_buffers(q.device)) == 2
+    assert len(kernels.counter_buffers(q.device)) == 2
     # small allocations that would take a freed counter buffer's memory
     filler = [torch.full((64,), 7, dtype=torch.int32, device=cuda_device) for _ in range(64)]
     for _ in range(2):
@@ -969,6 +992,65 @@ def test_encoder_ffn_carries_a_gradient_on_card(cuda_device):
         assert torch.equal(leaf.grad, r.grad)
 
 
+# #8's Hopper design at its tile edges (rows of 128, columns of 256) and at
+# widths past 1,280, which the first design's register accumulator refused
+FFN_EDGE_SHAPES = [(127, 1280, 5120), (128, 1280, 5120), (129, 1280, 5120), (6001, 1280, 5120),
+                   (129, 128, 512), (300, 1536, 6144), (257, 2048, 1024), (1, 1536, 64),
+                   (200, 1280, 5184)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,f", FFN_EDGE_SHAPES)
+def test_encoder_ffn_kernel_edges_and_wide(cuda_device, m, d, f):
+    """Ragged M (rows past M read as zeros and never stored), D = 128 and
+    above 1,280, F not a multiple of the 256-wide tile: one launch, the
+    plain version's values and at least 95% of its bytes."""
+    ops = _ffn_operands(m, d, f, device=cuda_device, seed=m + d + f)
+    before = encoder_ffn.launches
+    got = encoder_ffn(*ops)
+    assert encoder_ffn.launches == before + 1
+    want = encoder_ffn_plain(*ops)
+    assert got.shape == (m, d) and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    assert (got == want).float().mean().item() >= 0.95
+
+
+@pytest.mark.cuda
+def test_encoder_ffn_repeats_and_replays_bitwise(cuda_device):
+    """The tile queue and its counters: a second launch and a CUDA graph
+    replayed twice give the first launch's bytes, and every launch leaves
+    the counters zero (no host memset between launches)."""
+    ops = _ffn_operands(1000, 1280, 5120, device=cuda_device, seed=11)
+    first = encoder_ffn(*ops)
+    second = encoder_ffn(*ops)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = encoder_ffn(*ops)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, first)
+    assert torch.equal(second, first)
+    assert all(int(buf.abs().sum()) == 0 for buf in kernels.counter_buffers(cuda_device))
+
+
+@pytest.mark.cuda
+def test_encoder_ffn_refuses_misaligned_or_strided(cuda_device):
+    """TMA reads 16-byte-aligned, contiguous operands: anything else raises
+    before a launch, and nothing falls back to the plain version."""
+    ops = _ffn_operands(64, 256, 512, device=cuda_device, seed=3)
+    before = encoder_ffn.launches
+    shifted = torch.empty(64 * 256 + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(64, 256)
+    shifted.copy_(ops[0])
+    with pytest.raises(ValueError, match="16-byte"):
+        encoder_ffn(shifted, *ops[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        encoder_ffn(ops[0], ops[3].T, *ops[2:3], ops[1].T, ops[4])
+    with pytest.raises(ValueError, match="contiguous"):
+        encoder_ffn(torch.cat([ops[0], ops[0]], 1)[:, ::2], *ops[1:])
+    assert encoder_ffn.launches == before
+
+
 # the fused log-mel front end (#7): ragged T at both mel counts, the edge shapes
 MEL_CASES = [(4, 480000, 128), (4, 480000, 80), (2, 16000, 80), (2, 48000, 128),
              (3, 40960, 128), (1, 160, 80), (2, 160 * 33, 128), (5, 160 * 1001, 80)]
@@ -1191,6 +1273,46 @@ def test_fp32_variant_is_kernel_1s_function(cuda_device):
     q, k, v, mask = _variant_inputs(cuda_device, 2, 1536, 20, 5)
     got = encoder_attention_variant(q, k, v, mask, 20, "fp32", 10)
     _close(got, encoder_attention(q, k, v, mask, 20), torch.ones_like(mask, dtype=torch.bool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_encoder_attention_variant_kernel_at_the_sweeps_hg(cuda_device, mode):
+    """#9a at the tool's sweep of heads a block (hg 4, 10 and 20 of H = 20):
+    hg only sets the heads a block walks, so each is the mode's output, and
+    packed2 is shift_post bitwise at each."""
+    b, t, h = 2, 512, 20
+    q, k, v, mask = _variant_inputs(cuda_device, b, t, h, 40 + MODES.index(mode))
+    plains = {m: encoder_attention_variant_plain(q, k, v, mask, h, m) for m in MODES}
+    outs = []
+    for hg in (4, 10, 20):
+        got = encoder_attention_variant(q, k, v, mask, h, mode, hg)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), plains[mode].float(),
+                                   atol=bench_encoder_attention.ATOL,
+                                   rtol=bench_encoder_attention.RTOL)
+        apart = bench_encoder_attention.apart(got, mode, plains, mask.bool()[..., None],
+                                              SAME_FUNCTION)
+        assert apart["apart"], apart
+        if mode == "packed2":
+            assert torch.equal(got, encoder_attention_variant(q, k, v, mask, h, "shift_post", hg))
+        outs.append(got)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.cuda
+def test_encoder_attention_variant_refuses_misaligned_or_strided(cuda_device):
+    """TMA reads 16-byte-aligned, contiguous q/k/v: anything else raises
+    before a launch, with no fallback."""
+    q, k, v, mask = _variant_inputs(cuda_device, 1, 256, 2, 9)
+    before = encoder_attention_variant.launches
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        encoder_attention_variant(shifted, k, v, mask, 2, "fp32", 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        encoder_attention_variant(q, torch.cat([k, k], 2)[..., ::2], v, mask, 2, "fp32", 2)
+    assert encoder_attention_variant.launches == before
 
 
 # (B, K, N) of the LM head at the bench's batch, a small one, a ragged N

@@ -125,6 +125,31 @@ def test_packed2_is_shift_post(enc_inputs):
     assert (packed == post).float().mean() > 0.99
 
 
+# #9a's passes over the keys by mode, in units of one product over all keys
+# (S = Q K^T, or P.V): a mode that normalises before P.V needs a
+# denominator pass, an exact or 256-row max a max pass; qnorm's K-norm
+# pre-pass reads only K.
+VARIANT_UNITS = {"shift_post": 2, "packed2": 2, "qnorm_post": 2,
+                 "fp32_post": 3, "tilemax_post": 3, "nomax": 3, "shift": 3, "qnorm": 3,
+                 "fp32": 4, "bf16": 4, "rcp": 4, "tilemax": 4, "tilemax_rcp": 4}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_variant_pass_count(mode):
+    from tiny_audio_tpu_torch.ops.encoder_attention_variants import variant_passes, variant_units
+
+    passes = variant_passes(mode)
+    assert variant_units(mode) == VARIANT_UNITS[mode]
+    assert passes[-1] == "pv" and len(set(passes)) == len(passes)
+    assert ("knorm" in passes) == mode.startswith("qnorm")
+    assert ("max" in passes) == (mode in ("fp32", "bf16", "rcp", "fp32_post") or
+                                 mode.startswith("tilemax"))
+    assert ("den" in passes) == (not mode.endswith("_post") and mode != "packed2")
+    # the order the kernel runs them in: each needs what the one before gives
+    order = ("knorm", "max", "den", "pv")
+    assert list(passes) == sorted(passes, key=order.index)
+
+
 def test_variant_plain_rejects_unknown_mode_and_ragged_tilemax(enc_inputs):
     (qt, _), (kt, _), (vt, _), mask = enc_inputs
     with pytest.raises(ValueError, match="mode"):

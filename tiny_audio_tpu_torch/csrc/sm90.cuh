@@ -3,7 +3,8 @@
 // 128-byte-swizzled shared memory and the host-side tensor maps they read,
 // the wgmma shared-memory descriptor, the warpgroup products m64nNk16 (bf16
 // in, fp32 accumulators) with A in shared memory (SS) or in registers (RS),
-// and setmaxnreg.
+// setmaxnreg, named barriers, and the gpu-scope counter and proxy fence
+// through which one block's plain stores reach another block's TMA loads.
 //
 // Shared-memory tiles.  A TMA box of [rows][64] bf16 (128 bytes a row) lands
 // with CU_TENSOR_MAP_SWIZZLE_128B as 8-row, 1,024-byte atoms in which the
@@ -141,6 +142,31 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ---- ordering between blocks: a counter released and acquired at gpu
+// scope, and the proxy fence that orders generic-proxy global memory (plain
+// stores, or what an acquire made visible) with this thread's later
+// async-proxy accesses (TMA loads).
+
+__device__ __forceinline__ int ld_acquire_gpu(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release_gpu_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// bar.sync on named barrier `id` (1-15; 0 is __syncthreads) for `count`
+// threads, a multiple of 32.
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---- wgmma

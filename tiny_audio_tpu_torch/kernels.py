@@ -40,7 +40,8 @@ _PREFILL_ARGS = (_PTR,) * 5 + (_INT,) * 5 + (ctypes.c_float, _PTR)
 # name -> argtypes of the C entry points in csrc/*.cu; attention_f32.cu's
 # fp32 instances take their bf16 entry point's arguments
 _SIGNATURES = {
-    "ta_encoder_ffn": (_PTR,) * 6 + (_INT,) * 3 + (_PTR,),
+    "ta_encoder_ffn": (_PTR,) * 8 + (_INT,) * 3 + (_PTR,),
+    "ta_encoder_ffn_smem_bytes": (),
     "ta_log_mel": (_PTR,) * 4 + (_INT,) * 4 + (_PTR,),
     **{name + suffix: argtypes
        for suffix in ("", "_f32")
@@ -59,8 +60,10 @@ _SIGNATURES = {
     "ta_a8_matmul": (_PTR,) * 5 + (_INT,) * 4 + (_PTR,),
     "ta_a8t_matmul": (_PTR,) * 5 + (_INT,) * 4 + (_PTR,),
     "ta_attention_sm90_smem_bytes": (_INT, _INT),
+    "ta_encoder_attention_variant_smem_bytes": (_INT, _INT),
     "ta_attention_bwd_sm90_smem_bytes": (_INT, _INT),
     "ta_attention_bwd_sm90_dkv_entry_registers": (),
+    "ta_encoder_attention_variant_entry_registers": (),
 }
 
 
@@ -160,3 +163,40 @@ def launch(name: str, device, *args) -> None:
     err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+#: the counters of the kernels that coordinate their blocks inside a launch
+#: (the decode kernels' and the int8 products' split merges, #8's tile queue
+#: and readiness counters): int32 buffers per device, zeroed once (outside
+#: any graph capture) and left zero by every launch.  A buffer is never
+#: freed, because a CUDA graph captured with it keeps its address: a grid
+#: that needs more counters gets a larger buffer beside the old ones.  All
+#: of these kernels share a device's buffers, so they must never run
+#: concurrently: launches on one stream never overlap, and every path of
+#: the port launches on one stream.  A kernel running beside another on a
+#: second stream would find the other's counters non-zero (#8 would skip
+#: tiles and leave output unwritten, a merge would read unfinished parts).
+_counters: dict = {}
+#: counters of a device's first buffer: grids of up to B x Hkv x chunks = 64K
+COUNTERS_MIN = 1 << 16
+
+
+def counter_buffer(device, n: int):
+    """The counters of ``device`` (a ``torch.device``) that a launch uses, at
+    least ``n`` of them: an int32 tensor, zero."""
+    import torch
+
+    buffers = _counters.setdefault(device, [])
+    if not buffers or buffers[-1].numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"a kernel needs {n} merge counters on {device} and cannot allocate them "
+                "during a CUDA graph capture: run the same call once before capturing")
+        buffers.append(torch.zeros(max(n, COUNTERS_MIN), dtype=torch.int32, device=device))
+    return buffers[-1]
+
+
+def counter_buffers(device) -> list:
+    """Every counter buffer ``device`` has had, the newest last: all zero
+    between launches."""
+    return list(_counters.get(device, []))

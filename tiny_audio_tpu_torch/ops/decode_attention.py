@@ -16,10 +16,10 @@ The kernels (``csrc/decode_attention.cu``) read only the first ``kv_len``
 cache rows, int8 dequantized with the per-entry scales; the source's header
 states the bound and the design.  They split the cache rows over blocks
 (:func:`split_plan`) and merge the splits inside the same launch, through
-an fp32 scratch the wrapper allocates and counters it owns
-(:func:`counter_buffer`: per device, never freed, zero between launches),
-so calls on one device must not run concurrently on two streams: every
-path of the port runs on one stream.
+an fp32 scratch the wrapper allocates and the counters of
+``kernels.counter_buffer`` (per device, never freed, zero between
+launches), so calls on one device must not run concurrently on two
+streams: every path of the port runs on one stream.
 :func:`decode_attention_split_plain` repeats the kernels' arithmetic (a
 part per split, merged in split order) as a test oracle; no path calls it.
 They work in the model's dtype, bf16 or fp32: q, the fresh K/V and the
@@ -303,36 +303,6 @@ def _device_kv_len(kv_len: KvLen, s: int, device: torch.device) -> torch.Tensor:
     return torch.full((), kv_len, dtype=torch.int32, device=device)
 
 
-#: the kernels' merge counters: int32 buffers per device, zeroed once
-#: (outside any graph capture) and left zero by every launch.  A buffer is
-#: never freed, because a CUDA graph captured with it keeps its address: a
-#: grid that needs more counters gets a larger buffer beside the old ones.
-#: The int8 products #5 and #6 (``ops/wq_matmul.launch_split``) count on
-#: the same buffers: launches on one stream never overlap.
-_counters: dict = {}
-#: counters of a device's first buffer: grids of up to B x Hkv x chunks = 64K
-COUNTERS_MIN = 1 << 16
-
-
-def counter_buffer(device: torch.device, n: int) -> torch.Tensor:
-    """The merge counters of ``device`` that a launch uses, at least ``n``
-    of them."""
-    buffers = _counters.setdefault(device, [])
-    if not buffers or buffers[-1].numel() < n:
-        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                f"a kernel needs {n} merge counters on {device} and cannot allocate them "
-                "during a CUDA graph capture: run the same call once before capturing")
-        buffers.append(torch.zeros(max(n, COUNTERS_MIN), dtype=torch.int32, device=device))
-    return buffers[-1]
-
-
-def counter_buffers(device: torch.device) -> list[torch.Tensor]:
-    """Every merge-counter buffer ``device`` has had, the newest last: all
-    zero between launches."""
-    return list(_counters.get(device, []))
-
-
 def _launch(name: str, q, cache_k, cache_v, fresh_k, fresh_v, kv_len, k_scale, v_scale):
     _check_cuda_inputs(q, cache_k, cache_v, fresh_k, fresh_v, k_scale, v_scale)
     b, hq, d = q.shape
@@ -342,7 +312,7 @@ def _launch(name: str, q, cache_k, cache_v, fresh_k, fresh_v, kv_len, k_scale, v
     out = torch.empty_like(q)
     partial = (torch.empty(plan.scratch_floats, dtype=torch.float32, device=q.device)
                if plan.scratch_floats else None)
-    counters = counter_buffer(q.device, plan.counters)
+    counters = kernels.counter_buffer(q.device, plan.counters)
     quantized = k_scale is not None
     kernels.launch(
         name, q.device,

@@ -16,7 +16,9 @@ blocks add nothing, so it is ``shift_post`` per head.
 No path of the port calls it: it is the yardstick of #1's redesign, driven
 by ``python -m tiny_audio_tpu_torch.tools.bench_encoder_attention``.  The
 kernel (``csrc/encoder_attention_variants.cu``) is one template over the four
-axes; its source states the design and the bound.  On a CPU tensor
+axes on #1's Hopper design (TMA loads issued ahead by one thread, ``wgmma``,
+four warpgroups a block); its source states the design and the bound, and
+:func:`variant_passes` the passes over the keys each mode takes.  On a CPU tensor
 :func:`encoder_attention_variant` runs :func:`encoder_attention_variant_plain`;
 on a CUDA tensor it launches the kernel or raises.
 """
@@ -48,6 +50,33 @@ _SHIFT = {"fp32": "rowmax", "bf16": "rowmax", "rcp": "rowmax", "fp32_post": "row
           "tilemax": "tilemax", "tilemax_rcp": "tilemax", "tilemax_post": "tilemax",
           "qnorm": "qnorm", "qnorm_post": "qnorm"}
 _UNGUARDED = ("fp32", "bf16", "rcp", "nomax")
+#: the most keys the kernel takes (its mask bits live in shared memory)
+MAX_T = 65536
+
+
+def variant_passes(mode: str) -> tuple[str, ...]:
+    """The kernel's passes over the keys under ``mode``, in order: ``knorm``
+    (max_t |k_t|, reads K only), ``max`` (S, the exact or the 256-row
+    group's max), ``den`` (S and the exponentials, the denominator a
+    normalise-before-P.V mode needs) and ``pv`` (S, the exponentials and
+    P.V).  Merging ``max`` into ``den`` with an online rescale would round
+    the denominator otherwise: another function."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; the modes are {MODES}")
+    shift = _SHIFT.get(mode, "clamp48")  # packed2 is shift_post per head
+    passes = ("knorm",) if shift == "qnorm" else ()
+    if shift in ("rowmax", "tilemax"):
+        passes += ("max",)
+    if not (mode.endswith("_post") or mode == "packed2"):
+        passes += ("den",)
+    return passes + ("pv",)
+
+
+def variant_units(mode: str) -> int:
+    """Products over all keys that ``mode`` takes, S = Q K^T and P.V one
+    unit each: #1 takes 2."""
+    units = {"knorm": 0, "max": 1, "den": 1, "pv": 2}
+    return sum(units[p] for p in variant_passes(mode))
 
 
 def _heads(x: torch.Tensor, h: int) -> torch.Tensor:
@@ -167,8 +196,8 @@ def _check_cuda_inputs(q, k, v, num_heads: int, mode: str, hg: int) -> None:
     if packed != num_heads * HEAD_DIM:
         raise ValueError(f"the kernel takes head_dim {HEAD_DIM}: {packed} features, "
                          f"{num_heads} heads")
-    if t % BQ:
-        raise ValueError(f"the kernel takes T a multiple of {BQ}, got {t}")
+    if t % BQ or t > MAX_T:
+        raise ValueError(f"the kernel takes T a multiple of {BQ} up to {MAX_T}, got {t}")
     if hg <= 0 or num_heads % hg or (mode == "packed2" and hg % 2):
         raise ValueError(f"hg = {hg} must divide H = {num_heads} (and be even for packed2)")
 

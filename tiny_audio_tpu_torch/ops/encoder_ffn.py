@@ -2,8 +2,8 @@
 
 Counterpart of ``tiny_audio_tpu/ops/encoder_ffn.py``.  Replaces its TPU
 kernel ``_ffn_impl`` (``encoder_ffn.py:115``, pallas_call ``:124``), behind
-``encoder_ffn_tpu`` and ``fused_ffn``: fc1 -> tanh GELU -> fc2 with the
-``[M, F]`` intermediate kept on the chip.
+``encoder_ffn_tpu`` and ``fused_ffn``: fc1 -> tanh GELU -> fc2, which keeps
+the ``[M, F]`` intermediate in VMEM (the Hopper kernel passes it through L2).
 
 The weights are in ``nn.Linear``'s layout, as the port's ``EncoderBlock``
 holds them (``models/encoder.py``): w1 ``[F, D]``, w2 ``[D, F]`` (the JAX
@@ -17,7 +17,11 @@ Three formulas:
 - :func:`encoder_ffn_plain`, the kernel's own formula and its plain version:
   both products accumulate in fp32, h stays fp32 through the GELU and g is
   rounded to x's dtype once before the second product;
-- the kernel (``csrc/encoder_ffn.cu``, ``ta_encoder_ffn``), bf16 only.
+- the kernel (``csrc/encoder_ffn.cu``, ``ta_encoder_ffn``), bf16 only: one
+  persistent launch of TMA + ``wgmma`` GEMM tiles, phase 1 writing
+  ``g = bf16(gelu(x w1^T + b1))`` into a scratch ``[M, F]`` tensor that
+  phase 2 reads back from L2 (``out = g w2^T + b2``), in the queue order
+  of :func:`ffn_tile_plan`.
 
 Gradient: as the JAX package's custom VJP recomputes through ``naive_ffn``
 (``tiny_audio_tpu/ops/encoder_ffn.py:103-108``), :class:`EncoderFFN`'s
@@ -32,13 +36,19 @@ CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from tiny_audio_tpu_torch import kernels
 from tiny_audio_tpu_torch.ops.mel import full_fp32_matmul
 
-BF = 64           # the kernel walks F in blocks of 64
-MAX_D = 1280      # its [32, D] fp32 partial output lives in registers
+BK = 64           # the kernel's products step through D and F 64 deep
+BM, BN = 128, 256  # rows and columns of one output tile
+#: row blocks between a block's phase-1 tiles and its phase-2 tiles in the
+#: queue, at most (the kernel's ``LAG``): the phase-2 tiles then rarely wait
+#: for their g
+FFN_LAG = 8
 GELU_C = 0.7978845608028654  # sqrt(2 / pi)
 
 
@@ -69,10 +79,45 @@ def encoder_ffn_plain(x, w1, b1, w2, b2):
 
 
 def fused_ffn_applicable(d_model: int, ffn_dim: int) -> bool:
-    """The kernel's shape constraints: d_model a multiple of 128 up to 1280
-    (16 warps of 8-column mma tiles, a [32, d_model] fp32 accumulator in
-    registers) and ffn_dim a multiple of 64."""
-    return d_model % 128 == 0 and 0 < d_model <= MAX_D and ffn_dim % BF == 0 and ffn_dim > 0
+    """The kernel's shape constraints: d_model a multiple of 128 (the JAX
+    gate's) and ffn_dim a multiple of 64 (the products' 64-deep steps; the
+    JAX kernel's 512-wide ffn blocks are not needed here)."""
+    return d_model > 0 and d_model % 128 == 0 and ffn_dim > 0 and ffn_dim % BK == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class FfnPlan:
+    """The kernel's queue of output tiles for one call (shapes only)."""
+
+    rows: int   # row blocks of BM
+    n1: int     # phase-1 tiles a row block (g's column blocks of BN)
+    n2: int     # phase-2 tiles a row block (out's column blocks of BN)
+    lag: int    # min(FFN_LAG, rows)
+    total: int
+
+    def tiles(self) -> list[tuple[int, int, int]]:
+        """(phase, row block, column block) in the order the blocks claim
+        them: the phase-1 tiles of row blocks 0 .. lag - 1, then for each
+        i >= lag row block i's phase-1 tiles followed by row block
+        i - lag's phase-2 tiles, then the last lag row blocks' phase-2
+        tiles (``csrc/encoder_ffn.cu``'s ``tile_of``)."""
+        order = []
+        for step in range(self.rows + self.lag):
+            if step < self.rows:
+                order += [(1, step, c) for c in range(self.n1)]
+            if step >= self.lag:
+                order += [(2, step - self.lag, c) for c in range(self.n2)]
+        return order
+
+
+def ffn_tile_plan(m: int, d: int, f: int) -> FfnPlan:
+    """The queue ``ta_encoder_ffn`` walks for x [m, d] and ffn width f: a
+    phase-2 tile of a row block comes after all of that block's phase-1
+    tiles (it waits for them to finish, and they wait on nothing),
+    ``FFN_LAG`` row blocks later where there are that many."""
+    rows = -(-m // BM)
+    n1, n2 = -(-f // BN), -(-d // BN)
+    return FfnPlan(rows, n1, n2, min(FFN_LAG, rows), rows * (n1 + n2))
 
 
 def _check_cuda_inputs(x, w1, b1, w2, b2) -> None:
@@ -91,10 +136,11 @@ def _check_cuda_inputs(x, w1, b1, w2, b2) -> None:
         raise ValueError(f"weights must be w1 [F, D], b1 [F], w2 [D, F], b2 [D] for D={d}: "
                          f"{tuple(w1.shape)} {tuple(b1.shape)} {tuple(w2.shape)} {tuple(b2.shape)}")
     if not fused_ffn_applicable(d, f):
-        raise ValueError(f"encoder FFN kernel takes d_model a multiple of 128 up to {MAX_D} "
-                         f"and ffn_dim a multiple of {BF}, got ({d}, {f})")
-    if x.data_ptr() % 16 or w2.data_ptr() % 8 or w1.data_ptr() % 4:
-        raise ValueError("x must be 16-byte aligned, w2 8-byte and w1 4-byte")
+        raise ValueError(f"encoder FFN kernel takes d_model a multiple of 128 "
+                         f"and ffn_dim a multiple of {BK}, got ({d}, {f})")
+    for name, t in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     if m == 0:
         raise ValueError("encoder FFN kernel needs at least one row")
 
@@ -133,11 +179,15 @@ class EncoderFFN(torch.autograd.Function):
 def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
     _check_cuda_inputs(x, w1, b1, w2, b2)
     m, d = x.shape
+    f = w1.shape[0]
+    plan = ffn_tile_plan(m, d, f)
     out = torch.empty_like(x)
+    g = torch.empty((m, f), dtype=x.dtype, device=x.device)  # phase 1 -> phase 2, via L2
+    counters = kernels.counter_buffer(x.device, 2 + plan.rows)
     kernels.launch(
         "ta_encoder_ffn", x.device,
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), m, d, w1.shape[0],
+        out.data_ptr(), g.data_ptr(), counters.data_ptr(), m, d, f,
     )
     encoder_ffn.launches += 1
     return out

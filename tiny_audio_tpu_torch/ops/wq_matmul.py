@@ -13,7 +13,7 @@ source states the bound and the design.
 The kernel splits K over blocks (:func:`int8_split_plan`, from shapes only,
 shared with #5 in ``ops/wq_head.py``) and merges the splits inside the same
 launch, through a scratch this wrapper allocates and the merge counters of
-``ops/decode_attention.counter_buffer`` (per device, never freed, zero
+``kernels.counter_buffer`` (per device, never freed, zero
 between launches): calls on one device must not run concurrently on two
 streams, and every path of the port runs on one.  A batch of up to
 ``SPLIT_MAX_ROWS`` rows is one launch (the weights are read once); a larger
@@ -37,7 +37,6 @@ import numpy as np
 import torch
 
 from tiny_audio_tpu_torch import kernels
-from tiny_audio_tpu_torch.ops.decode_attention import counter_buffer
 
 #: the JAX kernel's N tile; the LM head's int8 columns are padded to it
 NT = 512
@@ -151,7 +150,7 @@ def launch_split(name: str, kind: str, x: torch.Tensor, w: torch.Tensor, scale: 
     if plan.splits > 1:
         dtype = torch.int32 if kind == "w8a8" else torch.float32
         partial = torch.empty(plan.scratch, dtype=dtype, device=x.device)
-        counters = counter_buffer(x.device, plan.counters)
+        counters = kernels.counter_buffer(x.device, plan.counters)
     kernels.launch(name, x.device, x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
                    partial.data_ptr() if partial is not None else 0,
                    counters.data_ptr() if counters is not None else 0,
