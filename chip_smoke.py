@@ -41,10 +41,15 @@ flagship width (random weights from seed 0, int8 KV cache):
   and generating on the card;
 - the two kernels that only their own entry points reach (no path of the
   port or of the JAX package calls them; every path above launches them 0
-  times): the fused log-mel front end (#7, ``log_mel_spectrogram_fused``) on
-  the serving batch's audio, the training batch's clips zero-padded to 30 s
-  and the edge shapes of tests/test_mel_pallas.py, each held with its plain
-  version against an fp64 oracle; and the fused encoder FFN (#8,
+  times): the fused log-mel front end (#7, ``log_mel_spectrogram_fused``,
+  an FFT in shared memory) on the serving batch's audio, the training
+  batch's clips zero-padded to 30 s, the edge shapes of
+  tests/test_mel_pallas.py, a T that is no multiple of its 32-frame tile and
+  8 mels, each held with its plain version against an fp64 oracle, then
+  timed alone at both batches back to back and from a CUDA graph beside its
+  previous design's times (``PREVIOUS_MEL_MS``), its entry point, the plain
+  mel, the ``torch.stft`` chain, its bound and its ptxas facts (no spill);
+  and the fused encoder FFN (#8,
   ``fused_ffn`` / ``encoder_ffn``) on encoder layer 0's MLP input from the
   serving ``generate`` and at scripts/bench_encoder_ffn.py's shape, with
   what that script prints (fused and unfused cuBLAS times and TFLOP/s, both
@@ -66,8 +71,8 @@ design's times and SDPA on a bf16 cache.  ``torch._weight_int8pack_mm``, one cal
 computing #6's function, is timed beside #6 at its head shape.
 
 The int8 products #5 and #6 (``csrc/int8_matmul.cu``, a split over K merged
-inside the launch): the registers, shared memory and spills of the 18
-instances of ``split_matmul_kernel`` (none may spill); each product against
+inside the launch): the registers, shared memory and spills of the 26
+instances of ``split_matmul_kernel`` (#5, #6 and #9c's; none may spill); each product against
 its plain version at the flagship's layer and head shapes, B = 4, 16 and 48
 (#5 bitwise, #6 within ``WQ_ATOL``/``WQ_RTOL``); the instance each path
 shape takes at B = 4 and 48 (the split design, or the run fails), three runs
@@ -92,7 +97,11 @@ run through their entry points, ``tools/bench_encoder_attention.py`` and
 ``tools/bench_wq_head.py``, at the TPU scripts' full shapes: every mode and
 sweep point against its plain version (#9c and #9d bitwise, ``packed2``
 bitwise ``shift_post``), #9a also against an fp64 oracle, each #9a mode's
-time beside its previous design's (``PREVIOUS_VARIANT_MS``) and #1's.
+time beside its previous design's (``PREVIOUS_VARIANT_MS``) and #1's; #9c
+(the split design's third kind) also bitwise at B = 1, 4, 17, 48, 64, at
+ragged N and replayed from a CUDA graph, timed alone and through its entry
+point, back to back and from a graph, beside its previous design, #5 and #6
+at B = 48 and its bound.
 
 Every kernel's launch count is set to 0 just before each path and read just
 after; the inputs the path gave each kernel in its first call are kept,
@@ -248,7 +257,7 @@ SMALL_MODEL_RTOL = 5e-2
 # near the top of a binade; both outputs are rounded to bf16).
 BWD_ERR_RATIO = 2.0
 BWD_FLOOR = 2.0**-8
-# Kernel #7 (fp32) and its plain version (cuBLAS fp32 products) are each held
+# Kernel #7 (an fp32 FFT) and its plain version (cuBLAS fp32 products) are each held
 # against an fp64 oracle of the same formula: near the max - 8 floor a bin is
 # a difference of large terms, where two right fp32 answers can differ by
 # more than the JAX tests' 5e-4 after the log.  The kernel's error may be at
@@ -256,6 +265,13 @@ BWD_FLOOR = 2.0**-8
 # that 5e-4, in the normalized units of the output).
 MEL_ERR_RATIO = 2.0
 MEL_FLOOR = 1e-4
+# kernel #7 alone: reps of its timed loops, and its previous design (the
+# dense DFT product on the CUDA cores, one block per 32 frames) at the
+# serving and the training batch, this script's mel_times on the parent
+# tree's package (ms; NVIDIA H100 80GB HBM3, 700.00 W)
+MEL_REPS = 20
+PREVIOUS_MEL_MS = {"serving": {"ms": 0.22946560382843018, "graph_ms": 0.22814559936523438},
+                   "training": {"ms": 0.3746880054473877, "graph_ms": 0.37284159660339355}}
 # Kernel #8's second input: the shape of scripts/bench_encoder_ffn.py
 # (32 x 1536 frames of the flagship encoder), errors against fp64 on 4,096 rows
 FFN_BENCH_SHAPE = (32 * 1536, 1280, 5120)
@@ -315,6 +331,11 @@ PREVIOUS_VARIANT_MS = {"wq_matmul_pipe": 2.2355056762695313, "a8_matmul": 3.1405
                        "sdpa (key mask)": 1.3554479598999023}
 VARIANT_REPS = 20
 VARIANT_ORACLE_ATOL = 5e-3
+# #9c beyond the sweep: row counts at the bench shape, and N that leave the
+# last 128-channel tile part-filled (the head's, and a narrow one whose K is
+# split)
+A8_CHECK_BATCHES = (1, 4, 17, 48, 64)
+A8_RAGGED_N = (151936 - 112, 1040)
 
 
 def fail(msg: str) -> None:
@@ -666,35 +687,56 @@ def decode_design_facts(log: str) -> None:
         fail(f"decode_kernel instances spill: {spilling}")
 
 
-# #5 and #6: split_matmul_kernel<W8A8, NT, WN, SHALLOW> of csrc/int8_matmul.cu,
-# one instance per batch size class (NT 8-row MMA columns), block arrangement
-# and (#5 at 32+ rows) ring depth
-INT8_INSTANCES = {(w8a8, nt, wn, shallow) for w8a8 in (0, 1) for nt in (1, 2, 4, 6, 8)
-                  for wn in ((1,) if w8a8 else (1, 4))
-                  for shallow in ((0, 1) if w8a8 and nt >= 4 else (0,))}
+# #5, #6 and #9c: split_matmul_kernel<KIND, NT, WN, SHALLOW> of
+# csrc/int8_matmul.cu (KIND 0 = #6, 1 = #5, 2 = #9c), one instance per batch
+# size class (NT 8-row MMA columns), block arrangement and (#5, #9c at 32+
+# rows) ring depth
+INT8_KINDS = {0: "wq (#6)", 1: "w8a8 (#5)", 2: "a8 (#9c)"}
+INT8_INSTANCES = {(kind, nt, wn, shallow) for kind in INT8_KINDS for nt in (1, 2, 4, 6, 8)
+                  for wn in {0: (1, 4), 1: (1,), 2: (4,)}[kind]
+                  for shallow in ((0, 1) if kind and nt >= 4 else (0,))}
 
 
 def int8_instance_of(mangled: str):
-    """(W8A8, NT, WN, SHALLOW) of a split_matmul_kernel symbol, None for any
+    """(KIND, NT, WN, SHALLOW) of a split_matmul_kernel symbol, None for any
     other."""
-    found = re.search(r"split_matmul_kernelILb([01])ELi(\d+)ELi(\d+)ELb([01])E", mangled)
+    found = re.search(r"split_matmul_kernelILi(\d)ELi(\d+)ELi(\d+)ELb([01])E", mangled)
     return None if found is None else tuple(int(x) for x in found.groups())
 
 
-def int8_design_facts(log: str) -> None:
+def int8_design_facts(log: str) -> dict:
     """Registers, static shared memory and spills of every instance of the
-    split design of #5 and #6 (``ptxas -v``).  Fails before any launch if an
-    instance is missing or spills."""
+    split design of #5, #6 and #9c (``ptxas -v``).  Fails before any launch
+    if an instance is missing or spills; returns the facts by instance."""
     ptxas = ptxas_facts(log, int8_instance_of)
     if set(ptxas) != INT8_INSTANCES:
         fail(f"int8 kernel instances: ptxas {sorted(ptxas)}, expected {sorted(INT8_INSTANCES)}")
     for inst in sorted(INT8_INSTANCES):
-        w8a8, nt, wn, shallow = inst
-        print(f"int8 design split_matmul_kernel<W8A8={bool(w8a8)}, NT={nt}, WN={wn}, "
+        kind, nt, wn, shallow = inst
+        print(f"int8 design split_matmul_kernel<KIND={INT8_KINDS[kind]}, NT={nt}, WN={wn}, "
               f"SHALLOW={bool(shallow)}> ptxas={json.dumps(ptxas[inst])}")
     spilling = [inst for inst in sorted(INT8_INSTANCES) if ptxas[inst].get("spill_bytes") != [0, 0]]
     if spilling:
         fail(f"split_matmul_kernel instances spill: {spilling}")
+    return ptxas
+
+
+MEL_KERNEL = "log_mel_kernel"
+
+
+def mel_design_facts(log: str) -> dict:
+    """Registers, static shared memory and spills of #7's kernel (``ptxas
+    -v``), beside its dynamic shared memory (the audio run and the exchange).
+    Fails before any launch if it is missing or spills."""
+    ptxas = ptxas_facts(log, lambda mangled: MEL_KERNEL if MEL_KERNEL in mangled else None)
+    facts = ptxas.get(MEL_KERNEL)
+    if facts is None:
+        fail(f"{MEL_KERNEL} is not in the build's ptxas log")
+    facts["dynamic_smem_bytes"] = 4 * (31 * 160 + 400) + 8 * 32 * 200
+    print(f"mel design {MEL_KERNEL} (#7) ptxas={json.dumps(facts)}")
+    if facts.get("spill_bytes") != [0, 0]:
+        fail(f"{MEL_KERNEL} spills: {facts}")
+    return facts
 
 
 def hopper_design_facts(log: str) -> None:
@@ -1423,7 +1465,7 @@ def int8_graph_times(gen: torch.Generator) -> dict:
 
 
 def int8_instance(b: int, k: int, n: int, kind: str) -> str:
-    """The kernel instance #5 (``kind`` "w8a8") or #6 ("wq") takes at this
+    """The kernel instance #5 (``kind`` "w8a8"), #6 ("wq") or #9c ("a8") takes at this
     shape, as text: the split design's template arguments (NT from the rows,
     SHALLOW as ``launch_nt`` in csrc/int8_matmul.cu picks it) and plan, or
     the first design where the plan refuses the shape."""
@@ -1434,8 +1476,9 @@ def int8_instance(b: int, k: int, n: int, kind: str) -> str:
     if plan is None:
         return "first design (CUDA-core tiles, no split)"
     nt = next(c for c in (1, 2, 4, 6, 8) if rows <= 8 * c)
-    shallow = kind == "w8a8" and nt >= 4 and plan.units > 256
-    return (f"split_matmul_kernel<W8A8={kind == 'w8a8'}, NT={nt}, WN={plan.warps_n}, "
+    shallow = kind != "wq" and nt >= 4 and plan.units > 256
+    kind_id = {"wq": 0, "w8a8": 1, "a8": 2}[kind]
+    return (f"split_matmul_kernel<KIND={INT8_KINDS[kind_id]}, NT={nt}, WN={plan.warps_n}, "
             f"SHALLOW={shallow}> tile_n={plan.tile_n} split_k={plan.split_k} "
             f"splits={plan.splits} tiles={plan.tiles} units={plan.units}")
 
@@ -2004,7 +2047,7 @@ def mel_bound(audio: torch.Tensor, mels: int) -> dict:
     one log per mel, in fp32."""
     from tiny_audio_tpu_torch.ops.mel import HOP_LENGTH, N_FFT, mel_filter_bank
 
-    b, n = audio.shape
+    b, n = audio.shape[0], audio.shape[-1]
     t = n // HOP_LENGTH
     n_freq = N_FFT // 2 + 1
     nonzero = int(np.count_nonzero(mel_filter_bank(n_freq, mels)))
@@ -2012,18 +2055,17 @@ def mel_bound(audio: torch.Tensor, mels: int) -> dict:
     return bound(nbytes(audio) + b * mels * t * 4, b * t * per_frame, FP32_FLOPS)
 
 
-def front_end_phase(serving_audio: list, reset_counts, read_counts) -> dict:
-    """Kernel #7 through its entry point, ``log_mel_spectrogram_fused``, on the
-    serving batch's audio, the training batch's clips zero-padded to 30 s and
-    the edge shapes of tests/test_mel_pallas.py; each output against the plain
-    mel and both against an fp64 oracle; then timed at the serving batch
-    beside the plain mel and torch.stft + power + filterbank."""
-    from tiny_audio_tpu_torch.ops.mel import log_mel_spectrogram, pad_audio
-    from tiny_audio_tpu_torch.ops.mel_fused import (
-        kernel_constants,
-        launch_log_mel,
-        log_mel_spectrogram_fused,
-    )
+def serving_audio(rng: np.random.Generator) -> list:
+    """The serving batch: BATCH x 30 s of int16 PCM noise, as float32 rows
+    (``main`` hands ``generate`` the first draw of default_rng(SEED))."""
+    n = int(CLIP_S * 16000)
+    pcm = (np.clip(rng.standard_normal((BATCH, n)) * 0.1, -1, 1) * 32767).astype(np.int16)
+    return [row.astype(np.float32) / 32768.0 for row in pcm]
+
+
+def training_audio() -> np.ndarray:
+    """The training batch's TRAIN_BATCH synthetic 10-30 s clips from SEED,
+    zero-padded to 30 s: [TRAIN_BATCH, 480,000] float32."""
     from tiny_audio_tpu_torch.train.data import synthetic_dataset
 
     n30 = int(CLIP_S * 16000)
@@ -2032,14 +2074,48 @@ def front_end_phase(serving_audio: list, reset_counts, read_counts) -> dict:
     train = np.zeros((len(clips), n30), np.float32)
     for i, clip in enumerate(clips):
         train[i, : len(clip)] = clip[:n30]
+    return train
+
+
+def mel_times(launch_log_mel, pad_audio) -> dict:
+    """Kernel #7 alone (``launch_log_mel`` on padded audio, 128 mels) at the
+    serving batch and the training batch: {batch: {"ms", "graph_ms"}}, back
+    to back and from a CUDA graph of MEL_REPS launches."""
+    times = {}
+    for label, audio in (("serving", np.stack(serving_audio(np.random.default_rng(SEED)))),
+                         ("training", training_audio())):
+        x = torch.from_numpy(audio).cuda()
+        t = x.shape[1] // 160
+        padded = pad_audio(x)[:, : (t + 3) * 160].contiguous()
+        call = lambda: launch_log_mel(padded, t, 128)  # noqa: E731
+        times[label] = {"ms": cuda_ms(call, MEL_REPS), "graph_ms": graph_ms(call, MEL_REPS)}
+    return times
+
+
+def front_end_phase(serving: list, mel_ptxas: dict, reset_counts, read_counts) -> dict:
+    """Kernel #7 through its entry point, ``log_mel_spectrogram_fused``, on the
+    serving batch's audio, the training batch's clips zero-padded to 30 s,
+    the edge shapes of tests/test_mel_pallas.py, a T that is no multiple of
+    the kernel's 32-frame tile and 8 mels; each output against the plain mel
+    and both against an fp64 oracle; then the kernel alone timed at the
+    serving and the training batch, back to back and from a CUDA graph,
+    beside its previous design's times (PREVIOUS_MEL_MS), the entry point,
+    the plain mel, torch.stft + power + filterbank, the bound and its ptxas
+    facts."""
+    from tiny_audio_tpu_torch.ops.mel import log_mel_spectrogram, mel_filter_bank, pad_audio
+    from tiny_audio_tpu_torch.ops.mel_fused import launch_log_mel, log_mel_spectrogram_fused
+
+    n30 = int(CLIP_S * 16000)
     rng = np.random.default_rng(SEED + 7)
     noise = lambda b, n: (rng.standard_normal((b, n)) * 0.1).astype(np.float32)  # noqa: E731
-    cases = [("serving_4x30s", np.stack(serving_audio), 128),
-             ("training_6x10-30s_zero_padded", train, 128),
+    cases = [("serving_4x30s", np.stack(serving), 128),
+             ("training_6x10-30s_zero_padded", training_audio(), 128),
              ("1s_80mels", noise(2, 16000), 80), ("3s_128mels", noise(2, 48000), 128),
              ("one_tpu_tile", noise(2, 256 * 160), 128), ("30s_128mels", noise(2, n30), 128),
              ("silence_80mels", np.zeros((1, 32000), np.float32), 80),
-             ("160_samples_constant_pad", noise(2, 160), 80)]
+             ("160_samples_constant_pad", noise(2, 160), 80),
+             ("T_101_frames_ragged_tile", noise(3, 101 * 160), 128),
+             ("3s_8mels", noise(2, 48000), 8)]
     inputs = [(label, torch.from_numpy(a).cuda(), mels) for label, a, mels in cases]
     torch.cuda.synchronize()
     reset_counts()
@@ -2071,17 +2147,15 @@ def front_end_phase(serving_audio: list, reset_counts, read_counts) -> dict:
                  f"{label}: {err_k} against {err_p}")
         worst = max(worst, err)
 
-    # times at the serving batch: the kernel alone, the entry point, the plain
-    # mel and the library chain (torch.stft, power, filterbank, log, clamp)
+    # the kernel alone at both batches; the entry point, the plain mel and the
+    # library chain (torch.stft, power, filterbank, log, clamp) at the serving one
+    times = mel_times(launch_log_mel, pad_audio)
     _, x, mels = inputs[0]
-    b, n = x.shape
-    t = n // 160
-    padded = pad_audio(x)[:, : (t + 3) * 160].contiguous()
-    ms = cuda_ms(lambda: launch_log_mel(padded, t, mels), 20)
-    entry_ms = cuda_ms(lambda: log_mel_spectrogram_fused(x, mels), 20)
-    plain_ms = cuda_ms(lambda: log_mel_spectrogram(x, mels), 20)
+    entry_ms = cuda_ms(lambda: log_mel_spectrogram_fused(x, mels), MEL_REPS)
+    entry_graph_ms = graph_ms(lambda: log_mel_spectrogram_fused(x, mels), MEL_REPS)
+    plain_ms = cuda_ms(lambda: log_mel_spectrogram(x, mels), MEL_REPS)
     window = torch.hann_window(400, periodic=True, device=x.device)
-    fb = torch.from_numpy(kernel_constants(mels)[1]).cuda()
+    fb = torch.from_numpy(mel_filter_bank(201, mels).astype(np.float32)).cuda()
 
     def library():
         spec = torch.stft(x, 400, 160, window=window, center=True, pad_mode="reflect",
@@ -2090,17 +2164,34 @@ def front_end_phase(serving_audio: list, reset_counts, read_counts) -> dict:
         log_spec = torch.log10(torch.clamp(mel, min=1e-10))
         return (torch.maximum(log_spec, log_spec.amax(dim=(1, 2), keepdim=True) - 8.0) + 4.0) / 4.0
 
-    library_ms = cuda_ms(library, 20)
+    library_ms = cuda_ms(library, MEL_REPS)
     stft_ms = cuda_ms(lambda: torch.stft(x, 400, 160, window=window, center=True,
-                                         pad_mode="reflect", return_complex=True), 20)
+                                         pad_mode="reflect", return_complex=True), MEL_REPS)
     library_err = (library() - outs[0]).abs().max().item()
-    stats = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-             **mel_bound(x, mels), "library_ms": library_ms}
-    print(f"log_mel_spectrogram_fused timing shape={list(x.shape)} mels={mels} kernel_ms={ms!r} "
-          f"entry_point_ms={entry_ms!r} plain_ms={plain_ms!r} stft_chain_ms={library_ms!r} "
+    # from CUDA graphs too: each chain is several launches, host-bound back to back
+    library_graph_ms = graph_ms(library, MEL_REPS)
+    plain_graph_ms = graph_ms(lambda: log_mel_spectrogram(x, mels), MEL_REPS)
+    train_x = inputs[1][1]
+    stats = {"max_abs_err": worst, "ms": times["serving"]["graph_ms"],
+             "plain_ms": plain_graph_ms, **mel_bound(x, mels), "library_ms": library_graph_ms,
+             "back_to_back_ms": times["serving"]["ms"], "entry_point_ms": entry_ms,
+             "entry_point_graph_ms": entry_graph_ms}
+    for label, bx in (("serving", x), ("training", train_x)):
+        now, before = times[label], PREVIOUS_MEL_MS[label]
+        print(f"log_mel_spectrogram_fused timing batch={label} shape={list(bx.shape)} mels=128 "
+              f"kernel_graph_ms={now['graph_ms']!r} kernel_ms={now['ms']!r} "
+              f"previous_design_graph_ms={before['graph_ms']!r} "
+              f"previous_design_ms={before['ms']!r} "
+              f"bound_ms={mel_bound(bx, 128)['bound_ms']!r} "
+              f"share_of_bound={mel_bound(bx, 128)['bound_ms'] / now['graph_ms']!r}")
+    print(f"log_mel_spectrogram_fused timing shape={list(x.shape)} mels={mels} "
+          f"kernel_graph_ms={stats['ms']!r} kernel_ms={stats['back_to_back_ms']!r} "
+          f"entry_point_ms={entry_ms!r} entry_point_graph_ms={entry_graph_ms!r} "
+          f"plain_ms={plain_ms!r} plain_graph_ms={plain_graph_ms!r} stft_chain_ms={library_ms!r} "
+          f"stft_chain_graph_ms={library_graph_ms!r} "
           f"stft_alone_ms={stft_ms!r} stft_chain_vs_kernel_max_abs_err={library_err!r} "
           f"bound_ms={stats['bound_ms']!r} bound_by={stats['bound_by']} "
-          f"launches={json.dumps(counts)}")
+          f"ptxas={json.dumps(mel_ptxas)} launches={json.dumps(counts)}")
     return {"stats": stats, "launches": counts["log_mel_spectrogram_fused"]}
 
 
@@ -2567,14 +2658,62 @@ def encoder_variants_phase(reset_counts, read_counts) -> dict:
     return {"stats": stats, "launches": counts["encoder_attention_variant"]}
 
 
-def wq_head_variants_phase(reset_counts, read_counts) -> dict:
+def a8_checks(x, w_i8, scale) -> dict:
+    """#9c bitwise its plain version beyond the tool's sweep: at the bench
+    shape for every A8_CHECK_BATCHES row count (fresh x), at ragged N (the
+    last 128-channel tile part-filled, and a narrow product whose K is
+    split), and replayed from a CUDA graph.  Returns {label: launches}."""
+    from tiny_audio_tpu_torch.ops.wq_head import w8a8_matmul_plain
+    from tiny_audio_tpu_torch.ops.wq_head_variants import a8_matmul
+    from tiny_audio_tpu_torch.ops.wq_matmul import int8_split_plan
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    k = x.shape[1]
+    cases = [(f"B={b}", (torch.randn((b, k), generator=gen, device="cuda") * 2).to(torch.bfloat16),
+              w_i8, scale) for b in A8_CHECK_BATCHES]
+    for n in A8_RAGGED_N:
+        w = w_i8[:, :n].contiguous()
+        cases.append((f"B=17 N={n}", cases[2][1], w, scale[:n].contiguous()))
+    done = {}
+    for label, xb, w, sc in cases:
+        before = a8_matmul.launches
+        got = a8_matmul(xb, w, sc)
+        want = w8a8_matmul_plain(xb, w.T, sc)
+        if not same_bytes(got, want):
+            fail(f"a8_matmul (#9c) is not bitwise its plain version at {label}: "
+                 f"{(got.float() - want.float()).abs().max().item()}")
+        plan = int8_split_plan(min(xb.shape[0], 64), k, w.shape[1], "a8")
+        done[label] = {"launches": a8_matmul.launches - before, "splits": plan.splits,
+                       "tiles": plan.tiles}
+    xg = x.clone()
+    static = a8_matmul(xg, w_i8, scale)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = a8_matmul(xg, w_i8, scale)
+    for xb in (cases[3][1], x):  # another x of 48 rows, then the tool's
+        xg.copy_(xb)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not same_bytes(static, w8a8_matmul_plain(xb, w_i8.T, scale)):
+            fail("a8_matmul (#9c) replayed from a CUDA graph is not bitwise its plain version")
+    print(f"a8_matmul (#9c) bitwise_vs_plain=true cases={json.dumps(done)} graph_replays=2 "
+          f"graph_bitwise=true")
+    return done
+
+
+def wq_head_variants_phase(int8_ptxas: dict, reset_counts, read_counts) -> dict:
     """Kernels #9b-#9d through their entry point, the port's
     tools/bench_wq_head.py at scripts/bench_wq_head.py's shape, every sweep
     point: #9c and #9d bitwise their plain versions, #9b within #6's
-    tolerance; then each one's plain time and bound at the script's
-    numerics points, nc = 8192 (#9b) and nt = 2048 (#9c, #9d)."""
-    from tiny_audio_tpu_torch.ops.wq_head import w8a8_matmul_plain
-    from tiny_audio_tpu_torch.ops.wq_matmul import wq_matmul_plain
+    tolerance; #9c also at more row counts, ragged N and from a CUDA graph
+    (``a8_checks``); then each one's plain time and bound at the script's
+    numerics points, nc = 8192 (#9b) and nt = 2048 (#9c, #9d), and #9c timed
+    alone (on x quantized beforehand) and through its entry point, back to
+    back and from a CUDA graph, beside its previous design and #5 and #6 at
+    B = 48."""
+    from tiny_audio_tpu_torch.ops.wq_head import quantize_act, w8a8_matmul, w8a8_matmul_plain
+    from tiny_audio_tpu_torch.ops.wq_head_variants import a8_matmul, launch_a8
+    from tiny_audio_tpu_torch.ops.wq_matmul import int8_split_plan, wq_matmul, wq_matmul_plain
     from tiny_audio_tpu_torch.tools import bench_wq_head as tool
 
     reset_counts()
@@ -2590,8 +2729,9 @@ def wq_head_variants_phase(reset_counts, read_counts) -> dict:
             fail(f"{name} disagrees with its plain version ({p['rule']}): {p['max_abs_err_vs_plain']}")
     d = r["inputs"]
     x, w_i8, wt_i8, scale = d["x"], d["w_i8"], d["wt_i8"], d["scale"]
-    x_i8 = torch.empty_like(x, dtype=torch.int8)
-    sx = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
+    a8_checks(x, w_i8, scale)
+    x_i8, sx = quantize_act(x)
+    sx = sx.reshape(-1).contiguous()
     out = torch.empty((x.shape[0], scale.shape[0]), dtype=torch.bfloat16, device=x.device)
     ops = 2.0 * x.shape[0] * x.shape[1] * scale.shape[0]
     entries = {}
@@ -2607,6 +2747,33 @@ def wq_head_variants_phase(reset_counts, read_counts) -> dict:
             "max_abs_err": max(p["max_abs_err_vs_plain"] for p in group),
             "ms": r["products"][label]["ms"], "plain_ms": cuda_ms(lambda: plain(*args), 5),
             **bound(moved, ops, peak), "library_ms": None}
+    # #9c alone and through its entry point, and #5 / #6 at B = 48, from graphs
+    reset_counts()
+    alone = lambda: launch_a8(x_i8, sx, w_i8, scale, out)  # noqa: E731
+    a8 = entries["a8_matmul"]
+    a8.update(entry_ms=a8["ms"], ms=graph_ms(alone, VARIANT_REPS),
+              back_to_back_ms=cuda_ms(alone, VARIANT_REPS),
+              entry_graph_ms=graph_ms(lambda: a8_matmul(x, w_i8, scale), VARIANT_REPS))
+    yard = {"w8a8_matmul (#5)": graph_ms(lambda: w8a8_matmul(x, wt_i8, scale), VARIANT_REPS),
+            "wq_matmul (#6)": graph_ms(lambda: wq_matmul(x, w_i8, scale), VARIANT_REPS)}
+    plan = int8_split_plan(x.shape[0], x.shape[1], scale.shape[0], "a8")
+    nt = next(c for c in (1, 2, 4, 6, 8) if x.shape[0] <= 8 * c)
+    inst = (2, nt, plan.warps_n, int(nt >= 4 and plan.units > 256))
+    sweep = {name: p["ms"] for name, p in r["products"].items() if name.startswith("a8 ")}
+    sweep_graph = {name: p["graph_ms"] for name, p in r["products"].items()
+                   if name.startswith("a8 ")}
+    print(f"a8_matmul (#9c) at B={x.shape[0]} K={x.shape[1]} N={scale.shape[0]}: "
+          f"kernel_graph_ms={a8['ms']!r} kernel_ms={a8['back_to_back_ms']!r} "
+          f"entry_point_ms={a8['entry_ms']!r} entry_point_graph_ms={a8['entry_graph_ms']!r} "
+          f"sweep_entry_point_ms={json.dumps(sweep)} "
+          f"sweep_entry_point_graph_ms={json.dumps(sweep_graph)} "
+          f"previous_design_ms={PREVIOUS_VARIANT_MS['a8_matmul']!r} "
+          f"bound_ms={a8['bound_ms']!r} share_of_bound={a8['bound_ms'] / a8['ms']!r} "
+          f"w8a8_matmul_ms={r['products']['w8a8 shipped (#5)']['ms']!r} "
+          f"wq_matmul_ms={r['products']['wq shipped (#6)']['ms']!r} "
+          f"graph_ms={json.dumps(yard)} plan={json.dumps(plan._asdict())} "
+          f"instance=split_matmul_kernel<KIND={INT8_KINDS[2]}, NT={inst[1]}, WN={inst[2]}, "
+          f"SHALLOW={bool(inst[3])}> ptxas={json.dumps(int8_ptxas[inst])}")
     print("wq_head variants at the script's numerics points "
           + " ".join(f"{n}_ms={e['ms']!r} {n}_previous_ms={PREVIOUS_VARIANT_MS[n]!r} "
                      f"{n}_plain_ms={e['plain_ms']!r} "
@@ -2640,7 +2807,8 @@ def main() -> None:
           f"ptxas={json.dumps(ptxas)}")
     hopper_design_facts(log)
     decode_design_facts(log)
-    int8_design_facts(log)
+    int8_ptxas = int8_design_facts(log)
+    mel_ptxas = mel_design_facts(log)
     phase_done()
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2738,10 +2906,8 @@ def main() -> None:
     if model.device.type != "cuda":
         fail(f"ASRModel built on {model.device}, not on the card")
     pipe = ASRPipeline(model)
-    n = int(CLIP_S * 16000)
     rng = np.random.default_rng(SEED)
-    pcm = (np.clip(rng.standard_normal((BATCH, n)) * 0.1, -1, 1) * 32767).astype(np.int16)
-    audio = [row.astype(np.float32) / 32768.0 for row in pcm]
+    audio = serving_audio(rng)
     n_enc, n_dec = cfg.encoder.num_layers, cfg.decoder.num_layers
     steps = MAX_NEW - 1
 
@@ -2973,7 +3139,7 @@ def main() -> None:
     phase_done()
 
     # ---- 11. kernel #7, the fused front end, through its entry point ----
-    front = front_end_phase(audio, reset_counts, read_counts)
+    front = front_end_phase(audio, mel_ptxas, reset_counts, read_counts)
     phase_done()
 
     # ---- 12. kernel #8, the fused encoder FFN, through its entry points ----
@@ -2984,7 +3150,7 @@ def main() -> None:
     # ---- 13. kernels #9a-#9d through the two bench entry points ----
     variants_9a = encoder_variants_phase(reset_counts, read_counts)
     phase_done()
-    variants_9bcd = wq_head_variants_phase(reset_counts, read_counts)
+    variants_9bcd = wq_head_variants_phase(int8_ptxas, reset_counts, read_counts)
     phase_done()
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax",
@@ -3059,8 +3225,7 @@ def main() -> None:
           for name, source, replaces in (
               ("wq_matmul_pipe", "tiny_audio_tpu_torch/csrc/int8_matmul_variants.cu",
                "scripts/bench_wq_head.py:95"),
-              ("a8_matmul", "tiny_audio_tpu_torch/csrc/int8_matmul_variants.cu",
-               "scripts/bench_wq_head.py:142"),
+              ("a8_matmul", int8_source, "scripts/bench_wq_head.py:142"),
               ("a8t_matmul", int8_source, "scripts/bench_wq_head.py:184"))),
     ]}))
     print(power_line)

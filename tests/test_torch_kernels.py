@@ -1051,17 +1051,20 @@ def test_encoder_ffn_refuses_misaligned_or_strided(cuda_device):
     assert encoder_ffn.launches == before
 
 
-# the fused log-mel front end (#7): ragged T at both mel counts, the edge shapes
+# the fused log-mel front end (#7): T ragged against the kernel's 32-frame tile
+# at both mel counts (3,000, 100, 33, 1,001, 101 frames), the edge shapes, and
+# the narrowest and widest filterbanks (8 mels: bands of up to 99 bins)
 MEL_CASES = [(4, 480000, 128), (4, 480000, 80), (2, 16000, 80), (2, 48000, 128),
-             (3, 40960, 128), (1, 160, 80), (2, 160 * 33, 128), (5, 160 * 1001, 80)]
+             (3, 40960, 128), (1, 160, 80), (2, 160 * 33, 128), (5, 160 * 1001, 80),
+             (3, 160 * 101, 128), (2, 48000, 8), (1, 160 * 97, 8)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,mels", MEL_CASES)
 def test_log_mel_kernel_matches_plain(cuda_device, b, n, mels):
-    """fp32 on both sides: the kernel's FMAs in sample order vs cuBLAS's
-    fp32 products; on noise every bin is well above the floor, so the
-    JAX tests' 5e-4 after the log holds."""
+    """fp32 on both sides: the kernel's FFT vs cuBLAS's fp32 DFT products;
+    on noise every bin is well above the floor, so the JAX tests' 5e-4 after
+    the log holds."""
     g = torch.Generator(device=cuda_device).manual_seed(n + mels)
     audio = torch.randn((b, n), generator=g, device=cuda_device) * 0.1
     before = log_mel_spectrogram_fused.launches
@@ -1341,16 +1344,34 @@ def test_wq_matmul_pipe_kernel_matches_plain(cuda_device, b, k, n):
         torch.testing.assert_close(got.float(), want.float(), atol=WQ_ATOL, rtol=WQ_RTOL)
 
 
+# #9c at the bench shape for every row count its instances take, at ragged N
+# (the head's last 128-channel tile part-filled; a narrow product with K split)
+# and past 64 rows (two launches)
+A8_SHAPES = HEAD_SHAPES + [(b, 1024, 151936) for b in (1, 4, 17, 64)] + [
+    (17, 1024, 151936 - 112), (48, 1024, 1040), (64, 1024, 4096), (130, 256, 4112)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,k,n", HEAD_SHAPES + [(64, 1024, 4096)])
+@pytest.mark.parametrize("b,k,n", A8_SHAPES)
 def test_a8_kernels_are_plain_bitwise(cuda_device, b, k, n):
     """#9c ([K, N] weight) and #9d ([N, K]) equal their plain versions bit
-    for bit: integer sums, the same epilogue order."""
+    for bit: integer sums, the same epilogue order; #9c also replayed from a
+    CUDA graph on a new x."""
     x, w_i8, scale = _head_inputs(cuda_device, b, k, n, n + 1)
     wt_i8 = w_i8.T.contiguous()
     want = w8a8_matmul_plain(x, wt_i8, scale)  # #5's function
+    launches = -(-b // 64)
     for nt in (2048, 4096, 8192, 64):
         before = (a8_matmul.launches, a8t_matmul.launches)
         got_c, got_d = a8_matmul(x, w_i8, scale, nt), a8t_matmul(x, wt_i8, scale, nt)
-        assert (a8_matmul.launches, a8t_matmul.launches) == (before[0] + 1, before[1] + 1)
+        assert (a8_matmul.launches, a8t_matmul.launches) == (before[0] + launches, before[1] + 1)
         assert torch.equal(got_c, want) and torch.equal(got_d, want)
+    xg = x.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = a8_matmul(xg, w_i8, scale)
+    xg.copy_(x.flip(0))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static.view(torch.int16),
+                       w8a8_matmul_plain(x.flip(0), wt_i8, scale).view(torch.int16))

@@ -9,6 +9,7 @@ both sides as the same bf16 values.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -24,9 +25,17 @@ from tiny_audio_tpu_torch.ops.encoder_attention_variants import (
     encoder_attention_variant,
     encoder_attention_variant_plain,
 )
-from tiny_audio_tpu_torch.ops.wq_head import w8a8_matmul_plain
+from tiny_audio_tpu_torch import kernels
+from tiny_audio_tpu_torch.ops.wq_head import quantize_act, w8a8_matmul_plain
 from tiny_audio_tpu_torch.ops.wq_head_variants import a8_matmul, a8t_matmul, wq_matmul_pipe
-from tiny_audio_tpu_torch.ops.wq_matmul import quantize_weight, wq_matmul_plain
+from tiny_audio_tpu_torch.ops.wq_matmul import (
+    SPLIT_MAX_ROWS,
+    fills_card,
+    int8_split_plan,
+    quantize_weight,
+    split_units,
+    wq_matmul_plain,
+)
 from tiny_audio_tpu_torch.tools import bench_encoder_attention, bench_wq_head
 
 REPO = Path(__file__).resolve().parent.parent
@@ -203,6 +212,184 @@ def test_a8t_plain_is_the_scripts_pallas_kernel_bitwise(wq_script, wq_inputs, nt
     assert np.array_equal(got.float().numpy(), ref)
     assert torch.equal(got, w8a8_matmul_plain(xt, w_t, st))  # #5's function
     assert torch.equal(got, a8_matmul(xt, wt, st, nt))  # one function, two layouts
+
+
+# ------------------------------------- #9c's split design, replayed in numpy
+#
+# csrc/int8_matmul.cu, split_matmul_kernel<A8, NT, 4, ...>: a unit (a tile of
+# 128 channels x a split of K) streams stages of 32 k rows x 128 channel
+# bytes, chunk c of row r at r * 128 + 16 (c ^ 2 ((r / 8) % 4)); warp wn,
+# lane (g, t) reads the words of rows 8t + q (q < 8) at its 4 channels 32 wn
+# + 4g .. + 3 and transposes each 4 x 4 bytes with __byte_perm; MMA tile mt's
+# rows g and g + 8 are channels 4g + mt and 4g + 2 + mt; the batch is the
+# MMA's 8 columns, its B registers the 8 bytes of x_i8 at k 8t .. 8t + 7.
+
+A8_PRMT = (0x5140, 0x7362, 0x5410, 0x7632)
+
+
+def _byte_perm(a, b, sel):
+    """CUDA's __byte_perm(a, b, sel) on uint32 arrays (selector nibbles < 8)."""
+    src = [(a >> (8 * i)) & 0xFF for i in range(4)] + [(b >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(src[(sel >> (4 * j)) & 7] << (8 * j) for j in range(4))
+
+
+def _transpose4x4(w0, w1, w2, w3):
+    lo01, hi01 = _byte_perm(w0, w1, A8_PRMT[0]), _byte_perm(w0, w1, A8_PRMT[1])
+    lo23, hi23 = _byte_perm(w2, w3, A8_PRMT[0]), _byte_perm(w2, w3, A8_PRMT[1])
+    return [_byte_perm(lo01, lo23, A8_PRMT[2]), _byte_perm(lo01, lo23, A8_PRMT[3]),
+            _byte_perm(hi01, hi23, A8_PRMT[2]), _byte_perm(hi01, hi23, A8_PRMT[3])]
+
+
+def _bytes(words):
+    """uint32 words [...] -> their 4 bytes as int8 [..., 4], byte 0 first."""
+    return np.stack([((words >> (8 * i)) & 0xFF).astype(np.uint8) for i in range(4)],
+                    -1).view(np.int8)
+
+
+def _a8_replay(x_i8, w_i8, plan):
+    """The int32 sums [B, N] of #9c's kernel for ``plan``, as its threads
+    form them: stage layout, word loads, byte transposes, MMA fragments."""
+    b, k = x_i8.shape
+    n = w_i8.shape[1]
+    rows = -(-b // 8) * 8
+    g, t = np.meshgrid(np.arange(8), np.arange(4), indexing="ij")  # a warp's lanes
+    sums = np.zeros((rows, n), np.int64)
+    for n0, n1, k0, k1 in split_units(plan, k, n):
+        xs = np.zeros((rows, plan.split_k), np.int8)  # the split's x_i8 in shared memory
+        xs[:b, :k1 - k0] = x_i8[:, k0:k1]
+        for st in range(-(-(k1 - k0) // 32)):
+            kb = k0 + 32 * st
+            stage = np.zeros(32 * 128, np.uint8)
+            for r in range(32):  # 8 copies of 16 bytes a k row, zero past K and N
+                for c in range(8):
+                    src = np.zeros(16, np.int8)
+                    if kb + r < k and n0 + 16 * c < n:
+                        src = w_i8[kb + r, n0 + 16 * c:n0 + 16 * c + 16]
+                    off = r * 128 + 16 * (c ^ (((r >> 3) & 3) << 1))
+                    stage[off:off + 16] = src.view(np.uint8)
+            words = stage.view("<u4")
+            for wn in range(4):
+                wv = [words[((8 * t + q) * 128 + 16 * ((2 * wn + (g >> 2)) ^ (t << 1))
+                             + 4 * (g & 3)) // 4].astype(np.int64) for q in range(8)]
+                lo, hi = _transpose4x4(*wv[:4]), _transpose4x4(*wv[4:])
+                for mt in range(2):
+                    regs = [lo[mt], lo[2 + mt], hi[mt], hi[2 + mt]]  # [8 g, 4 t] each
+                    a = np.zeros((16, 32), np.int64)  # the MMA's A: rows x logical k
+                    for j, reg in enumerate(regs):
+                        by = _bytes(reg)  # [g, t, i]
+                        for i in range(4):
+                            a[(g + 8 * (j & 1)).ravel(), (4 * t + i + 16 * (j >> 1)).ravel()] = \
+                                by[..., i].ravel()
+                    for nt in range(rows // 8):  # B: x_i8 rows 8 nt + g, k 8t .. 8t + 7
+                        bm = np.zeros((32, 8), np.int64)
+                        for gg in range(8):
+                            for tt in range(4):
+                                row = xs[nt * 8 + gg, 32 * st + 8 * tt:32 * st + 8 * tt + 8]
+                                bm[4 * tt:4 * tt + 4, gg] = row[:4]  # b0: logical k 4t + i
+                                bm[16 + 4 * tt:20 + 4 * tt, gg] = row[4:]  # b1: 16 + 4t + i
+                        c = a @ bm  # [16 rows, 8 columns]
+                        for e in range(4):  # C element e of lane (g, t) -> (channel, batch row)
+                            r_ = g + 8 * (e >> 1)
+                            col = 2 * t + (e & 1)
+                            ch = n0 + 32 * wn + 4 * g + 2 * (e >> 1) + mt
+                            ok = ch < n
+                            sums[(nt * 8 + col)[ok], ch[ok]] += c[r_[ok], col[ok]]
+    return sums[:b]
+
+
+@pytest.mark.parametrize("b", [1, 8, 17, 48, 64])
+def test_a8_kernel_replay_is_the_plain_version_bitwise(b):
+    """#9c's byte transposes and its shared k order, replayed: the int32 sums
+    equal the exact product, and after the epilogue (float(acc) * sx * scale,
+    fp32, rounded to bf16) the output is w8a8_matmul_plain's bit for bit.  N
+    is ragged (the last 128-channel tile holds 16), K splits where the tiles
+    are few."""
+    k, n = 256, 1040
+    rng = np.random.default_rng(b)
+    x = torch.from_numpy(rng.standard_normal((b, k)) * 2.0).to(torch.bfloat16)
+    w_i8, scale = quantize_weight(torch.from_numpy(rng.standard_normal((k, n)) * 0.02))
+    x_i8, sx = quantize_act(x)
+    plan = int8_split_plan(b, k, n, "a8")
+    assert plan.warps_n == 4 and plan.tile_n == 128 and plan.tiles * 128 > n
+    sums = _a8_replay(x_i8.numpy(), w_i8.numpy(), plan)
+    assert np.array_equal(sums, x_i8.numpy().astype(np.int64) @ w_i8.numpy().astype(np.int64))
+    acc = torch.from_numpy(sums.astype(np.int32)).to(torch.float32)
+    got = ((acc * sx) * scale[None, :]).to(torch.bfloat16)
+    assert torch.equal(got.view(torch.int16),
+                       w8a8_matmul_plain(x, w_i8.T, scale).view(torch.int16))
+
+
+def test_a8_kernel_uses_the_replayed_selectors():
+    """The kernel's 4 x 4 byte transpose uses the selectors replayed above."""
+    src = (REPO / "tiny_audio_tpu_torch" / "csrc" / "int8_matmul.cu").read_text()
+    body = src[src.index("void transpose4x4"):src.index("template <int KIND, int NT, int WN, bool SHALLOW>\n__global__")]
+    assert [int(v, 16) for v in re.findall(r"0x([0-9a-fA-F]{4})\)", body)] == \
+        [A8_PRMT[0], A8_PRMT[1], A8_PRMT[0], A8_PRMT[1]] + [A8_PRMT[2], A8_PRMT[3]] * 2
+
+
+@pytest.mark.parametrize("b", [1, 4, 17, 48, 64])
+@pytest.mark.parametrize("k,n", [(1024, 151936), (1024, 151936 - 112), (1024, 1040),
+                                 (256, 4096), (64, 256), (4096, 16)])
+def test_a8_plan_covers_every_channel_once(b, k, n):
+    """#9c's units (tiles of 128 channels x splits of K, the kernel's
+    decode) cover every (channel, k) of the product exactly once, start on
+    32-k stages, and fill the card at the bench shape with one split."""
+    plan = int8_split_plan(b, k, n, "a8")
+    assert plan.warps_n == 4 and plan.tile_n == 128 and plan.tile_k == 32
+    assert plan.split_k % 32 == 0 and plan.tiles == -(-n // 128)
+    cover = np.zeros((n, -(-k // 32)), np.int64)  # (channel, 32-k stage)
+    for n0, n1, k0, k1 in split_units(plan, k, n):
+        assert k0 % 32 == 0 and n0 % 128 == 0 and n0 < n1 and k0 < k1
+        cover[n0:n1, k0 // 32:-(-k1 // 32)] += 1
+    assert (cover == 1).all()
+    if (k, n) == (1024, 151936):
+        assert plan.splits == 1 and plan.units == 1187 and fills_card(plan)
+
+
+@pytest.mark.parametrize("b,k,n", [(1, 64, 300), (4, 40, 256), (65, 64, 256), (4, 64, 0)])
+def test_a8_plan_refuses_what_the_kernel_cannot_take(b, k, n):
+    """N or K off a multiple of 16, or more rows than one launch takes."""
+    assert int8_split_plan(b, k, n, "a8") is None
+
+
+@pytest.fixture
+def recorded_a8(monkeypatch):
+    """CPU tensors that report ``is_cuda`` and a kernel library that records
+    each launch instead of running it."""
+    calls = []
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(kernels, "launch", lambda name, device, *args: calls.append((name, args)))
+    monkeypatch.setattr(kernels, "_counters", {})
+    a8_matmul.launches = 0
+    yield calls
+    a8_matmul.launches = 0
+
+
+@pytest.mark.parametrize("b,k,n", [(48, 1024, 151936), (17, 256, 1040), (130, 256, 304)])
+def test_a8_launches_follow_the_plan(recorded_a8, b, k, n):
+    """#9c on a CUDA tensor: quantize_act outside the kernel, then one launch
+    per 64 rows with the plan's arrangement and split, x_i8 / sx / out
+    offset to the launch's rows, scratch and counters only with a split; the
+    script's nt changes nothing."""
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal((b, k))).to(torch.bfloat16)
+    w = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
+    scale = torch.ones(n)
+    out = a8_matmul(x, w, scale, 2048)
+    assert out.shape == (b, n) and out.dtype == torch.bfloat16
+    first = [args for _, args in recorded_a8]
+    recorded_a8.clear()
+    a8_matmul(x, w, scale, 8192)
+    assert [args[7:] for _, args in recorded_a8] == [args[7:] for args in first]
+    rows = [(r0, min(b, r0 + SPLIT_MAX_ROWS)) for r0 in range(0, b, SPLIT_MAX_ROWS)]
+    assert len(first) == len(rows) and a8_matmul.launches == 2 * len(rows)
+    for (r0, r1), args in zip(rows, first):
+        plan = int8_split_plan(r1 - r0, k, n, "a8")
+        assert args[7:] == (r1 - r0, k, n, 4, plan.split_k)
+        assert args[2:4] == (w.data_ptr(), scale.data_ptr())
+        assert args[1] - first[0][1] == 4 * r0 and args[0] - first[0][0] == k * r0
+        assert args[4] - out.data_ptr() == 2 * n * r0
+        assert (args[5] != 0) == (args[6] != 0) == (plan.splits > 1)
 
 
 def test_script_quantize_act_is_the_ports(wq_script, wq_inputs):

@@ -14,6 +14,13 @@
 //                   (wq_matmul, pallas_call :92, body _kernel :63):
 //                   out = bf16((x . bf16(w_i8[:, n])) * scale[n]), int8
 //                   converted to bf16 exactly, fp32 sums; w is [K, N].
+//   ta_a8_matmul    kernel #9c, replaces scripts/bench_wq_head.py:142
+//                   (build_a8(nt), pallas_call :152, body _a8_kernel :133):
+//                   #5's function on an activation quantized beforehand
+//                   (x_i8 [B, K] int8, sx [B] fp32: quantize_act) and #6's
+//                   weight layout, w_i8 [K, N] with N contiguous; int32 sums
+//                   and #5's epilogue, so bitwise w8a8_matmul_xla on w_i8^T.
+//                   The third kind of the split design below (A8).
 //   ta_a8t_matmul   kernel #9d, replaces scripts/bench_wq_head.py:184
 //                   (build_a8t(nt), pallas_call :197, body _a8t_kernel
 //                   :174): #5's product on an activation quantized
@@ -36,7 +43,9 @@
 // reads of the head); #6 converted every weight with I2F (a quarter-rate
 // pipe) and both ran their products on the CUDA cores.
 //
-// The design here (one launch a product, any B up to 64 in one pass):
+// The design here (one launch a product, any B up to 64 in one pass), for
+// three kinds of product: W8A8 (#5), WQ (#6) and A8 (#9c: #6's [K, N] stage
+// layout with #5's s8 products and no quantizing prologue):
 //
 //   - a split over K sized by the launch (ops/wq_matmul.py int8_split_plan,
 //     from shapes only): a product whose 32-channel tiles number 64 or more
@@ -53,7 +62,8 @@
 //     block walks its units;
 //   - the weights stream through a ring of ~48 KB of stages in shared memory
 //     by 16-byte cp.async.cg copies (zero-filled past K and N), issued
-//     before #5 quantizes the activation, so that runs under the copies; the
+//     before #5 quantizes the activation (#9c loads its x_i8 and sx), so that
+//     runs under the copies; the
 //     ring runs on across a block's units, so a unit's epilogue overlaps the
 //     next unit's copies.  Each 128-byte run of a row lands in one 128-byte
 //     span of the stage (stage_offset: on the H100 a run spread over four
@@ -69,20 +79,26 @@
 //     others' maxima from their shared memory);
 //   - tensor-core products, weights as the MMA's 16 rows (output channels)
 //     and the batch as its 8 columns (B padded to 8): #5 mma.sync m16n8k32
-//     s8 -> s32 on the [N, K] rows; #6 mma.sync m16n8k16 bf16 -> fp32, the
+//     s8 -> s32 on the [N, K] rows; #9c the same MMA on the [K, N] stage, an
+//     A register (four k of one channel) made from four words of four k
+//     rows (four channels each) by a 4 x 4 byte transpose (__byte_perm,
+//     8 a group of 16 bytes); #6 mma.sync m16n8k16 bf16 -> fp32, the
 //     int8 converted in registers without I2F (bf16 of 128 + (v & 127) by
 //     a mask and an OR, minus 128 or 256 by v's sign: exact).  The order of
 //     k inside an MMA is free, so each thread reads whole words of the tile
 //     (#5 8 bytes of a row; #6 one word from each of 4 rows of the [K, N]
-//     tile), no ldmatrix.  wgmma (64 output channels as its A operand, x
+//     tile, #9c from each of 8), no ldmatrix: a thread's A register j of the
+//     s8 MMA holds k 8t + 4 (j / 2) .. + 3 of the warp's 32, and its B
+//     registers the same k of x_i8 read as one 8-byte word of the natural
+//     row (#5 and #9c alike).  wgmma (64 output channels as its A operand, x
 //     as B in shared memory) was not tried: the bytes bound these products,
 //     and mma.sync needs no descriptor layouts;
 //   - one deterministic merge inside the launch: a block with more than one
-//     split writes its part (int32 for #5, fp32 for #6) to a scratch the
+//     split writes its part (int32 for #5 and #9c, fp32 for #6) to a scratch the
 //     wrapper allocates, fences, and counts itself on its tile's counter;
 //     the last one sums the parts in split order (read with __ldcg: other
-//     SMs' writes never reach this SM's L1) and writes the output.  #5 stays
-//     bitwise; #6 is repeatable run to run.  The counters are the wrapper's
+//     SMs' writes never reach this SM's L1) and writes the output.  #5 and
+//     #9c stay bitwise; #6 is repeatable run to run.  The counters are the wrapper's
 //     (per device, never freed: a captured graph keeps their address), and
 //     every launch leaves them zero.
 //
@@ -129,7 +145,12 @@ cudaError_t allow_smem(Kernel kernel, int bytes, int& allowed) {
   return err;
 }
 
-// ------------------------------------------------- the split design (#5, #6)
+// -------------------------------------------- the split design (#5, #6, #9c)
+
+// the kinds of product (the template's first argument)
+constexpr int WQ = 0;    // #6: bf16 x, [K, N] weight, fp32 sums
+constexpr int W8A8 = 1;  // #5: bf16 x quantized in the launch, [N, K] weight, int32 sums
+constexpr int A8 = 2;    // #9c: x_i8 and sx given, [K, N] weight, int32 sums
 
 constexpr int THREADS = 128;             // 4 warps
 constexpr int SUB = 32;                  // output channels and k of a warp's sub-tile
@@ -146,11 +167,13 @@ constexpr unsigned AMAX_CLUSTER = 4;
 constexpr int SHALLOW_UNITS = 256;       // #5 at 32+ rows: more units take the shallow ring
 
 struct SplitArgs {
-  const __nv_bfloat16* x;  // [B, K]
-  const int8_t* w;         // #5: [N, K]; #6: [K, N]
+  const __nv_bfloat16* x;  // [B, K] (#5, #6)
+  const int8_t* x_i8;      // [B, K] and sx [B] (#9c)
+  const float* sx;
+  const int8_t* w;         // #5: [N, K]; #6, #9c: [K, N]
   const float* scale;      // [N]
   __nv_bfloat16* out;      // [B, N]
-  void* partial;           // [splits, B, n_part] int32 (#5) or fp32 (#6); null with one split
+  void* partial;           // [splits, B, n_part] int32 (#5, #9c) or fp32 (#6); null with one split
   int* counters;           // [tiles], zero between launches
   int B, K, N;
   int split_k;             // k of a split, a multiple of a stage's k
@@ -158,24 +181,27 @@ struct SplitArgs {
   int n_part;              // a partial row's length: N rounded up to 4
 };
 
-template <bool W8A8, int NT, int WN, bool SHALLOW>
+template <int KIND, int NT, int WN, bool SHALLOW>
 struct Layout {
+  static constexpr bool S8 = KIND != WQ;  // s8 products, int32 sums, x_i8 in shared memory
   static constexpr int WK = 4 / WN;     // warps along k
   static constexpr int TN = SUB * WN;   // output channels of a tile
   static constexpr int KT = SUB * WK;   // k of a stage
   static constexpr int BP = 8 * NT;     // x rows, padded to the MMA's 8 columns
   // #6: the stage's x slices, [wk][BP][32] bf16, 64 bytes a row
-  static constexpr int STAGE_X = W8A8 ? 0 : WK * BP * 64;
+  static constexpr int STAGE_X = S8 ? 0 : WK * BP * 64;
   static constexpr int STAGE = STAGE_W + STAGE_X;
   // the ring's depth: about RING_BYTES of stages, 3 to 12; SHALLOW: half as
-  // deep (#5 at 32 rows or more when its blocks walk many units: launch_split)
+  // deep (#5, #9c at 32 rows or more when the blocks walk many units: launch_nt)
   static constexpr int STAGES =
       std::min(12, std::max(3, (SHALLOW ? RING_BYTES / 2 : RING_BYTES) / STAGE));
   static constexpr int RING = STAGES * STAGE;
   static constexpr int RED = WK * BP * TN * 4;  // the warps' sums, [wk][BP][TN]
-  // #5 after these: x_i8 [BP][split_k + X_PAD], sx [64] fp32, the warps' amax [4][64]
+  // #5, #9c after these: x_i8 [BP][split_k + X_PAD], sx [64] fp32; #5 the
+  // warps' amax [4][64]
   static int smem(int split_k) {
-    return RING + RED + (W8A8 ? BP * (split_k + X_PAD) + 64 * 4 + 4 * 64 * 4 : 0);
+    return RING + RED + (S8 ? BP * (split_k + X_PAD) + 64 * 4 : 0) +
+           (KIND == W8A8 ? 4 * 64 * 4 : 0);
   }
 };
 
@@ -216,12 +242,15 @@ __device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t lo, uint32_t hi) {
 //       reads chunks 2 wk, 2 wk + 1 of 4 neighbouring rows at once;
 //   #6, WN = 4: 32 k rows x 128 channel bytes, chunk c at c ^ 2 ((row / 4) %
 //       4): warp wn reads its 32 channels of rows 4 t + q, t = 0..3;
+//   #9c (WN = 4): 32 k rows x 128 channel bytes, chunk c at c ^ 2 ((row / 8)
+//       % 4): warp wn reads its 32 channels of rows 8 t + q, t = 0..3;
 //   #6, WN = 1: 128 k rows x 32 channel bytes, sub-tile row / 32 of [32][32],
 //       k row 16 h + 4 t + q at row 16 h + 4 q + (t ^ q): a thread's 4 rows
 //       (q) for its t and the 4 rows of a copy's quarter-warp hit 32 banks.
-template <bool W8A8, int WN>
+template <int KIND, int WN>
 __device__ __forceinline__ int stage_offset(int row, int c) {
-  if (W8A8) return row * 128 + ((c ^ ((row & 3) << 1)) * 16);
+  if (KIND == W8A8) return row * 128 + ((c ^ ((row & 3) << 1)) * 16);
+  if (KIND == A8) return row * 128 + ((c ^ (((row >> 3) & 3) << 1)) * 16);
   if (WN == 4) return row * 128 + ((c ^ (((row >> 2) & 3) << 1)) * 16);
   const int r = row % SUB, h = r >> 4, t = (r >> 2) & 3, q = r & 3;
   return (row / SUB) * SUB_BYTES + (16 * h + 4 * q + (t ^ q)) * SUB + c * 16;
@@ -279,17 +308,31 @@ __device__ __forceinline__ unsigned absmax_bits(uint4 v) {
   return max(m & 0xFFFFu, m >> 16);
 }
 
-template <bool W8A8, int NT, int WN, bool SHALLOW>
+// 4 x 4 bytes transposed: word j of the result holds byte j of w0, w1, w2,
+// w3 (in that order), i.e. four k of channel j from four k rows' words
+__device__ __forceinline__ void transpose4x4(uint32_t w0, uint32_t w1, uint32_t w2, uint32_t w3,
+                                             uint32_t (&c)[4]) {
+  const uint32_t lo01 = __byte_perm(w0, w1, 0x5140), hi01 = __byte_perm(w0, w1, 0x7362);
+  const uint32_t lo23 = __byte_perm(w2, w3, 0x5140), hi23 = __byte_perm(w2, w3, 0x7362);
+  c[0] = __byte_perm(lo01, lo23, 0x5410);
+  c[1] = __byte_perm(lo01, lo23, 0x7632);
+  c[2] = __byte_perm(hi01, hi23, 0x5410);
+  c[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+template <int KIND, int NT, int WN, bool SHALLOW>
 __global__ void __launch_bounds__(THREADS) split_matmul_kernel(const SplitArgs a) {
-  using L = Layout<W8A8, NT, WN, SHALLOW>;
-  using Acc = typename std::conditional<W8A8, int, float>::type;
-  using Vec = typename std::conditional<W8A8, int4, float4>::type;
+  using L = Layout<KIND, NT, WN, SHALLOW>;
+  constexpr bool S8 = L::S8;           // #5, #9c: s8 products, int32 sums
+  constexpr bool KN = KIND != W8A8;    // #6, #9c: the weight is [K, N]
+  using Acc = typename std::conditional<S8, int, float>::type;
+  using Vec = typename std::conditional<S8, int4, float4>::type;
   constexpr int WK = L::WK, TN = L::TN, KT = L::KT, BP = L::BP, STAGES = L::STAGES;
   constexpr int OUTS = (BP * TN / 4 + THREADS - 1) / THREADS;  // 4-channel outputs a thread
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_last;
   Acc* red = reinterpret_cast<Acc*>(smem + L::RING);
-  const int xs = a.split_k + X_PAD;  // #5: bytes of an x_i8 row
+  const int xs = a.split_k + X_PAD;  // #5, #9c: bytes of an x_i8 row
   int8_t* s_x = reinterpret_cast<int8_t*>(smem + L::RING + L::RED);
   float* s_sx = reinterpret_cast<float*>(smem + L::RING + L::RED + BP * xs);
   unsigned* s_wmax = reinterpret_cast<unsigned*>(s_sx + 64);
@@ -317,11 +360,11 @@ __global__ void __launch_bounds__(THREADS) split_matmul_kernel(const SplitArgs a
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int i = tid + j * THREADS;
-        const int row = i / (W8A8 ? 8 : TN / 16);
-        const int c = i % (W8A8 ? 8 : TN / 16);
+        const int row = i / (KN ? TN / 16 : 8);
+        const int c = i % (KN ? TN / 16 : 8);
         int64_t off;
         bool ok;
-        if constexpr (W8A8) {  // channel row `row` of [N, K], k chunk c
+        if constexpr (!KN) {  // channel row `row` of [N, K], k chunk c
           const int n = n0 + row, k = kb + c * 16;
           ok = n < N && k < K;
           off = (int64_t)n * K + k;
@@ -330,9 +373,9 @@ __global__ void __launch_bounds__(THREADS) split_matmul_kernel(const SplitArgs a
           ok = k < K && n < N;
           off = (int64_t)k * N + n;
         }
-        cp_async_16_zfill(st + stage_offset<W8A8, WN>(row, c), ok ? a.w + off : a.w, ok);
+        cp_async_16_zfill(st + stage_offset<KIND, WN>(row, c), ok ? a.w + off : a.w, ok);
       }
-      if constexpr (!W8A8) {  // x [wk][BP][32] bf16, 16-byte chunks swizzled by row
+      if constexpr (KIND == WQ) {  // x [wk][BP][32] bf16, 16-byte chunks swizzled by row
         for (int gi = tid; gi < WK * BP * 4; gi += THREADS) {
           const int sw = gi / (BP * 4), b = (gi / 4) % BP, c = gi % 4;
           const int k = kb + sw * SUB + c * 8;
@@ -352,7 +395,10 @@ __global__ void __launch_bounds__(THREADS) split_matmul_kernel(const SplitArgs a
 #pragma unroll 1
   for (int i = 0; i < STAGES - 1; ++i) issue();
 
-  if constexpr (W8A8) {
+  if constexpr (KIND == A8) {  // sx as quantize_act gave it
+    if (tid < B) s_sx[tid] = __ldg(a.sx + tid);
+  }
+  if constexpr (KIND == W8A8) {
     // quantize_act's amax over each whole row, while the copies fly, shared
     // by the blocks of a cluster: block `rank` of `size` takes rows rank,
     // rank + size, ...  Slot s is its row rank + size (s / cpt), 16-byte
@@ -398,7 +444,7 @@ __global__ void __launch_bounds__(THREADS) split_matmul_kernel(const SplitArgs a
     if (size > 1) cluster_arrive();  // done with the other blocks' shared memory (wait at exit)
   }
 
-  int q_split = -1;  // #5: the split whose x_i8 is in shared memory
+  int q_split = -1;  // #5, #9c: the split whose x_i8 is in shared memory
   int c_slot = 0;
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const int tile = u % a.tiles, split = u / a.tiles;
@@ -408,7 +454,7 @@ __global__ void __launch_bounds__(THREADS) split_matmul_kernel(const SplitArgs a
     float scale4[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) scale4[j] = n4 + j < N ? __ldg(a.scale + n4 + j) : 0.f;
-    if constexpr (W8A8) {
+    if constexpr (S8) {
       if (split != q_split) {  // x_i8 of [k0, k0 + split_k), zero past K and B
         __syncthreads();       // sx is ready; nobody reads the last split's x_i8
         const int cpr = a.split_k / 8;
@@ -417,8 +463,12 @@ __global__ void __launch_bounds__(THREADS) split_matmul_kernel(const SplitArgs a
           const int b = i / cpr, c = i % cpr, k = k0 + c * 8;
           uint2 packed = make_uint2(0, 0);
           if (b < B && k < K) {
-            packed = quantize8(__ldg(reinterpret_cast<const uint4*>(a.x + (int64_t)b * K + k)),
-                               s_sx[b]);
+            if constexpr (KIND == W8A8) {
+              packed = quantize8(__ldg(reinterpret_cast<const uint4*>(a.x + (int64_t)b * K + k)),
+                                 s_sx[b]);
+            } else {  // #9c: K is a multiple of 16, so 8 bytes are all in or all out
+              packed = __ldg(reinterpret_cast<const uint2*>(a.x_i8 + (int64_t)b * K + k));
+            }
           }
           *reinterpret_cast<uint2*>(s_x + b * xs + c * 8) = packed;
         }
@@ -440,21 +490,49 @@ __global__ void __launch_bounds__(THREADS) split_matmul_kernel(const SplitArgs a
       __syncthreads();  // the stage landed for every thread; the slot refilled below is free
       issue();
       const unsigned char* st = smem + c_slot * L::STAGE;
-      if constexpr (W8A8) {
+      if constexpr (KIND == W8A8) {
         const int kc = s * KT + wk * SUB;  // this warp's 32 k: a column of x_i8
         const int cw = 2 * wk + (t >> 1), bw = 8 * (t & 1);  // its chunk and byte in it
         uint32_t af[2][4];
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
           const uint2 lo = *reinterpret_cast<const uint2*>(
-              st + stage_offset<true, 1>(mt * 16 + g, cw) + bw);
+              st + stage_offset<W8A8, 1>(mt * 16 + g, cw) + bw);
           const uint2 hi = *reinterpret_cast<const uint2*>(
-              st + stage_offset<true, 1>(mt * 16 + g + 8, cw) + bw);
+              st + stage_offset<W8A8, 1>(mt * 16 + g + 8, cw) + bw);
           af[mt][0] = lo.x;
           af[mt][1] = hi.x;
           af[mt][2] = lo.y;
           af[mt][3] = hi.y;
         }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint2 xv = *reinterpret_cast<const uint2*>(s_x + (nt * 8 + g) * xs + kc + 8 * t);
+          mma_s8(acc[0][nt], af[0], xv.x, xv.y);
+          mma_s8(acc[1][nt], af[1], xv.x, xv.y);
+        }
+      } else if constexpr (KIND == A8) {
+        // k rows 8t + q (q < 8) of the stage, channels 32 wn + 4g .. + 3
+        // (chunk 2 wn + g / 4, word g % 4), transposed: lo[j] is channel 4g +
+        // j at k 8t .. 8t + 3, hi[j] at 8t + 4 .. 8t + 7
+        uint32_t wv[8], lo[4], hi[4];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          wv[q] = *reinterpret_cast<const uint32_t*>(
+              st + stage_offset<A8, 4>(8 * t + q, 2 * wn + (g >> 2)) + 4 * (g & 3));
+        }
+        transpose4x4(wv[0], wv[1], wv[2], wv[3], lo);
+        transpose4x4(wv[4], wv[5], wv[6], wv[7], hi);
+        // rows g and g + 8 of MMA tile mt are channels 4g + mt and 4g + 2 + mt
+        uint32_t af[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          af[mt][0] = lo[mt];
+          af[mt][1] = lo[2 + mt];
+          af[mt][2] = hi[mt];
+          af[mt][3] = hi[2 + mt];
+        }
+        const int kc = s * KT;  // the stage's 32 k: a column of x_i8
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           const uint2 xv = *reinterpret_cast<const uint2*>(s_x + (nt * 8 + g) * xs + kc + 8 * t);
@@ -505,7 +583,7 @@ __global__ void __launch_bounds__(THREADS) split_matmul_kernel(const SplitArgs a
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int b = nt * 8 + 2 * t + (e & 1);
-          const int ch = W8A8 ? mt * 16 + g + 8 * (e >> 1) : 4 * g + 2 * (e >> 1) + mt;
+          const int ch = KN ? 4 * g + 2 * (e >> 1) + mt : mt * 16 + g + 8 * (e >> 1);
           red[(wk * BP + b) * TN + wn * SUB + ch] = acc[mt][nt][e];
         }
       }
@@ -527,7 +605,7 @@ __global__ void __launch_bounds__(THREADS) split_matmul_kernel(const SplitArgs a
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float r;
-        if constexpr (W8A8) {
+        if constexpr (S8) {
           r = __fmul_rn(__fmul_rn(__int2float_rn(e[j]), s_sx[b]), scale4[j]);
         } else {
           r = __fmul_rn(e[j], scale4[j]);
@@ -584,15 +662,15 @@ __global__ void __launch_bounds__(THREADS) split_matmul_kernel(const SplitArgs a
     if (tid == 0) a.counters[tile] = 0;  // ready for the next launch
   }
   cp_async_wait<0>();
-  if constexpr (W8A8) {
+  if constexpr (KIND == W8A8) {
     if (cluster_size() > 1) cluster_wait();  // no block leaves while another reads its amax
   }
 }
 
-template <bool W8A8, int NT, int WN, bool SHALLOW>
+template <int KIND, int NT, int WN, bool SHALLOW>
 int launch_split(const SplitArgs& a, cudaStream_t stream) {
-  using L = Layout<W8A8, NT, WN, SHALLOW>;
-  const auto kernel = split_matmul_kernel<W8A8, NT, WN, SHALLOW>;
+  using L = Layout<KIND, NT, WN, SHALLOW>;
+  const auto kernel = split_matmul_kernel<KIND, NT, WN, SHALLOW>;
   static int allowed = 0, occupancy_smem = -1, occupancy = 0;
   const int smem = L::smem(a.split_k);
   cudaError_t err = allow_smem(kernel, smem, allowed);
@@ -604,7 +682,7 @@ int launch_split(const SplitArgs& a, cudaStream_t stream) {
   }
   if (occupancy < 1) return (int)cudaErrorInvalidConfiguration;
   int grid = std::min(a.tiles * a.splits, occupancy * sm_count());
-  if (!W8A8 || a.B <= AMAX_SHARE_ROWS || a.splits == 1) {
+  if (KIND != W8A8 || a.B <= AMAX_SHARE_ROWS || a.splits == 1) {
     kernel<<<grid, THREADS, smem, stream>>>(a);
     return (int)cudaGetLastError();
   }
@@ -630,45 +708,66 @@ int launch_split(const SplitArgs& a, cudaStream_t stream) {
 }
 
 // The instance for the batch: 8, 16, 32, 48 or 64 rows of x in the MMA.
-// #5 at 32 rows or more takes ~75 KB of shared memory besides the ring:
-// where its blocks walk many units (more than SHALLOW_UNITS: the head), the shallow
-// ring lets two blocks share an SM (faster on the H100 at B = 48); a block
-// with one unit keeps the deep ring, every stage of its unit in flight at
-// once (the shallow one was slower there).
-template <bool W8A8, int NT, int WN>
+// #5 and #9c at 32 rows or more take ~75 KB of shared memory besides the
+// ring: where the blocks walk many units (more than SHALLOW_UNITS: the
+// head), the shallow ring lets two blocks share an SM (faster for #5 on the
+// H100 at B = 48); a block with one unit keeps the deep ring, every stage of
+// its unit in flight at once (the shallow one was slower there).
+template <int KIND, int NT, int WN>
 int launch_nt(const SplitArgs& a, cudaStream_t s) {
-  if constexpr (W8A8 && NT >= 4) {
-    if (a.tiles * a.splits > SHALLOW_UNITS) return launch_split<W8A8, NT, WN, true>(a, s);
+  if constexpr (KIND != WQ && NT >= 4) {
+    if (a.tiles * a.splits > SHALLOW_UNITS) return launch_split<KIND, NT, WN, true>(a, s);
   }
-  return launch_split<W8A8, NT, WN, false>(a, s);
+  return launch_split<KIND, NT, WN, false>(a, s);
 }
 
-template <bool W8A8, int WN>
+template <int KIND, int WN>
 int launch_rows(const SplitArgs& a, cudaStream_t s) {
-  if (a.B <= 8) return launch_nt<W8A8, 1, WN>(a, s);
-  if (a.B <= 16) return launch_nt<W8A8, 2, WN>(a, s);
-  if (a.B <= 32) return launch_nt<W8A8, 4, WN>(a, s);
-  if (a.B <= 48) return launch_nt<W8A8, 6, WN>(a, s);
-  return launch_nt<W8A8, 8, WN>(a, s);
+  if (a.B <= 8) return launch_nt<KIND, 1, WN>(a, s);
+  if (a.B <= 16) return launch_nt<KIND, 2, WN>(a, s);
+  if (a.B <= 32) return launch_nt<KIND, 4, WN>(a, s);
+  if (a.B <= 48) return launch_nt<KIND, 6, WN>(a, s);
+  return launch_nt<KIND, 8, WN>(a, s);
 }
 
-int launch_split_design(bool w8a8, const void* x, const void* w, const void* scale, void* out,
-                        void* partial, void* counters, int B, int K, int N, int wn, int split_k,
-                        void* stream) {
-  if (B < 1 || B > MAX_ROWS || K <= 0 || N <= 0 || K % 8 || split_k <= 0 ||
-      (wn != 1 && wn != 4) || split_k % (SUB * (4 / wn)) || (w8a8 ? wn != 1 : N % 16)) {
+// The block arrangements: #5 wn = 1 ([N, K] rows), #9c wn = 4 (128-byte runs
+// of its [K, N] rows), #6 either.
+int launch_split_design(int kind, SplitArgs a, int wn, void* stream) {
+  const bool wn_ok = kind == W8A8 ? wn == 1 : kind == A8 ? wn == 4 : wn == 1 || wn == 4;
+  if (a.B < 1 || a.B > MAX_ROWS || a.K <= 0 || a.N <= 0 || a.K % 8 || a.split_k <= 0 ||
+      !wn_ok || a.split_k % (SUB * (4 / wn)) || (kind != W8A8 && a.N % 16) ||
+      (kind != WQ && a.K % 16)) {
     return (int)cudaErrorInvalidValue;
   }
-  SplitArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-              static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), partial,
-              static_cast<int*>(counters), B, K, N, split_k,
-              (K + split_k - 1) / split_k, (N + SUB * wn - 1) / (SUB * wn), (N + 3) / 4 * 4};
-  if (a.splits > 1 && (partial == nullptr || counters == nullptr)) {
+  a.splits = (a.K + a.split_k - 1) / a.split_k;
+  a.tiles = (a.N + SUB * wn - 1) / (SUB * wn);
+  a.n_part = (a.N + 3) / 4 * 4;
+  if (a.splits > 1 && (a.partial == nullptr || a.counters == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w8a8) return launch_rows<true, 1>(a, s);
-  return wn == 4 ? launch_rows<false, 4>(a, s) : launch_rows<false, 1>(a, s);
+  if (kind == W8A8) return launch_rows<W8A8, 1>(a, s);
+  if (kind == A8) return launch_rows<A8, 4>(a, s);
+  return wn == 4 ? launch_rows<WQ, 4>(a, s) : launch_rows<WQ, 1>(a, s);
+}
+
+SplitArgs split_args(const void* x, const void* x_i8, const void* sx, const void* w,
+                     const void* scale, void* out, void* partial, void* counters, int B, int K,
+                     int N, int split_k) {
+  SplitArgs a{};
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.x_i8 = static_cast<const int8_t*>(x_i8);
+  a.sx = static_cast<const float*>(sx);
+  a.w = static_cast<const int8_t*>(w);
+  a.scale = static_cast<const float*>(scale);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.partial = partial;
+  a.counters = static_cast<int*>(counters);
+  a.B = B;
+  a.K = K;
+  a.N = N;
+  a.split_k = split_k;
+  return a;
 }
 
 // ------------------------------------- #9d, and #5's first design's tiles
@@ -947,9 +1046,23 @@ extern "C" {
 // `counters` ceil(N / 32) zeros.  Returns the launch's CUDA error code.
 int ta_w8a8_matmul(const void* x, const void* wt, const void* scale, void* out, void* partial,
                    void* counters, int B, int K, int N, int wn, int split_k, void* stream) {
-  if (K % 16) return (int)cudaErrorInvalidValue;
-  return launch_split_design(true, x, wt, scale, out, partial, counters, B, K, N, wn, split_k,
-                             stream);
+  return launch_split_design(
+      W8A8, split_args(x, nullptr, nullptr, wt, scale, out, partial, counters, B, K, N, split_k),
+      wn, stream);
+}
+
+// x_i8 [B, K] int8 and sx [B] fp32 (quantize_act's), w [K, N] int8, scale
+// [N] fp32 -> out [B, N] bf16, by the split design with `split_k` k a split
+// (a multiple of 32; wn = 4).  B <= 64, K and N multiples of 16; x_i8 and w
+// 16-byte aligned, every tensor contiguous.  With more than one split,
+// `partial` holds splits x B x N int32 and `counters` ceil(N / 128) zeros.
+// Returns the launch's CUDA error code.
+int ta_a8_matmul(const void* x_i8, const void* sx, const void* w, const void* scale, void* out,
+                 void* partial, void* counters, int B, int K, int N, int wn, int split_k,
+                 void* stream) {
+  return launch_split_design(
+      A8, split_args(nullptr, x_i8, sx, w, scale, out, partial, counters, B, K, N, split_k), wn,
+      stream);
 }
 
 // x_i8 [B, K] int8 and sx [B] fp32 (quantize_act's), wt [N, K] int8, scale
@@ -985,8 +1098,9 @@ int ta_a8t_matmul(const void* x_i8, const void* sx, const void* wt, const void* 
 int ta_wq_matmul(const void* x, const void* w, const void* scale, void* out, void* partial,
                  void* counters, int B, int K, int N, int wn, int split_k, void* stream) {
   if (wn != 0) {
-    return launch_split_design(false, x, w, scale, out, partial, counters, B, K, N, wn, split_k,
-                               stream);
+    return launch_split_design(
+        WQ, split_args(x, nullptr, nullptr, w, scale, out, partial, counters, B, K, N, split_k),
+        wn, stream);
   }
   if (B <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   WqArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),

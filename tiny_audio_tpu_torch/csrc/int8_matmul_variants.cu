@@ -1,5 +1,5 @@
-// Kernels #9b and #9c for Hopper (sm_90a): the LM head's int8 products as
-// the TPU bench scripts/bench_wq_head.py builds them (B, K, N = 48, 1024,
+// Kernel #9b for Hopper (sm_90a): the LM head's weight-only int8 product as
+// the TPU bench scripts/bench_wq_head.py builds it (B, K, N = 48, 1024,
 // 151936: x [48, 1024], the int8 head [1024, 151936], bf16 logits out).
 //
 //   ta_wq_matmul_pipe  replaces build_pipe(nc, nt) (pallas_call :104, body
@@ -8,13 +8,10 @@
 //                      scale[n]) with w [K, N], fp32 sums, by one block per
 //                      nc-wide chunk of the output that streams its weight
 //                      through shared memory by hand, double-buffered.
-//   ta_a8_matmul       replaces build_a8(nt) (pallas_call :152, body
-//                      _a8_kernel :133): x quantized per row beforehand
-//                      (quantize_act, x_i8 [B, K] and sx [B] fp32), times
-//                      w_i8 [K, N] with int32 sums, then bf16((acc * sx[b]) *
-//                      scale[n]); one block per nt output channels.
 //
-// (build_a8t, #9d, is ta_a8t_matmul in int8_matmul.cu: it shares #5's tiles.)
+// (build_a8, #9c, is ta_a8_matmul and build_a8t, #9d, ta_a8t_matmul, both in
+// int8_matmul.cu: #9c is a kind of #5's and #6's split design, #9d shares
+// #5's first tiles.)
 //
 // #9b's pipeline: the TPU kernel fetched [K, nt] int8 tiles (2 MB at
 // nt = 2,048) into VMEM two at a time.  Shared memory holds 228 KB, and the
@@ -30,14 +27,7 @@
 // parameter.  Unlike the TPU grid (N // nc programs), the last chunk is
 // ragged and computed, so every one of the N columns is written.
 //
-// #9c: the weight is [K, N] (N contiguous), but __dp4a wants four K values
-// of one column in one word, so each [64, 256] slab of the weight is staged
-// in shared memory (coalesced 16-byte reads) and a thread, which owns one
-// column, gathers its column's bytes (a byte transpose); the int8
-// activations sit in shared memory and are read as broadcasts.  The sums
-// are int32, exact, so the result is bitwise the plain version's.
-//
-// What bounds them on the H100: the int8 weight (155.6 MB at the bench
+// What bounds it on the H100: the int8 weight (155.6 MB at the bench
 // shape) read once, with the output (14.6 MB), x and the scales: ~170.9 MB
 // at 3.35 TB/s, 0.051 ms; 14.9 G operations do not bind.  One block per
 // chunk (19 blocks at nc = 8,192) puts a fraction of the SMs on the stream,
@@ -168,83 +158,6 @@ __global__ void __launch_bounds__(PIPE_THREADS) wq_matmul_pipe_kernel(PipeArgs a
   }
 }
 
-// --------------------------------------------------------------- a8 (#9c)
-
-constexpr int A8K_THREADS = 256;  // one output column a thread
-constexpr int A8K_SLAB = 64;      // rows of K per staged weight slab
-constexpr int A8K_ROWS = 48;      // activation rows per pass
-
-struct A8kArgs {
-  const int8_t* x;      // [B, K] int8
-  const float* sx;      // [B] fp32
-  const int8_t* w;      // [K, N]
-  const float* scale;   // [N]
-  __nv_bfloat16* out;   // [B, N]
-  int B, K, N, nt;
-};
-
-__global__ void __launch_bounds__(A8K_THREADS) a8_matmul_kernel(A8kArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* w_s = reinterpret_cast<int8_t*>(smem);                   // [A8K_SLAB][A8K_THREADS]
-  float* s_sx = reinterpret_cast<float*>(w_s + A8K_SLAB * A8K_THREADS);  // [A8K_ROWS]
-  int8_t* x_s = reinterpret_cast<int8_t*>(s_sx + A8K_ROWS);        // [A8K_ROWS][K]
-  const int K = a.K, N = a.N;
-  const int n_begin = blockIdx.x * a.nt;
-  const int n_end = min(N, n_begin + a.nt);
-
-  for (int b0 = 0; b0 < a.B; b0 += A8K_ROWS) {
-    const int bc = min(A8K_ROWS, a.B - b0);
-    __syncthreads();  // the previous pass is done with x_s
-    for (int i = threadIdx.x * 16; i < bc * K; i += A8K_THREADS * 16) {
-      *reinterpret_cast<int4*>(x_s + i) = *reinterpret_cast<const int4*>(a.x + (int64_t)b0 * K + i);
-    }
-    if (threadIdx.x < bc) s_sx[threadIdx.x] = a.sx[b0 + threadIdx.x];
-
-    for (int c0 = n_begin; c0 < n_end; c0 += A8K_THREADS) {
-      const int n = c0 + threadIdx.x;
-      int acc[A8K_ROWS];
-#pragma unroll
-      for (int b = 0; b < A8K_ROWS; ++b) acc[b] = 0;
-      for (int k0 = 0; k0 < K; k0 += A8K_SLAB) {
-        __syncthreads();  // every thread is done with the previous slab
-        // rows k0 .. k0 + 63, columns c0 .. c0 + 255, 16 bytes a copy
-        for (int j = threadIdx.x; j < A8K_SLAB * (A8K_THREADS / 16); j += A8K_THREADS) {
-          const int row = j / (A8K_THREADS / 16);
-          const int col = (j % (A8K_THREADS / 16)) * 16;
-          int4 val = make_int4(0, 0, 0, 0);
-          if (k0 + row < K && c0 + col < N) {
-            val = *reinterpret_cast<const int4*>(a.w + (int64_t)(k0 + row) * N + c0 + col);
-          }
-          *reinterpret_cast<int4*>(w_s + row * A8K_THREADS + col) = val;
-        }
-        __syncthreads();
-        const int rows = min(A8K_SLAB, K - k0);
-        for (int kk = 0; kk < rows; kk += 4) {
-          // this column's four K values as one word (the byte transpose)
-          const uint8_t* wc = reinterpret_cast<const uint8_t*>(w_s) + kk * A8K_THREADS + threadIdx.x;
-          const int w4 = (int)((uint32_t)wc[0] | ((uint32_t)wc[A8K_THREADS] << 8) |
-                               ((uint32_t)wc[2 * A8K_THREADS] << 16) |
-                               ((uint32_t)wc[3 * A8K_THREADS] << 24));
-#pragma unroll
-          for (int b = 0; b < A8K_ROWS; ++b) {
-            if (b < bc) acc[b] = __dp4a(w4, *reinterpret_cast<const int*>(x_s + b * K + k0 + kk), acc[b]);
-          }
-        }
-      }
-      if (n < n_end) {
-        const float sc = a.scale[n];
-#pragma unroll
-        for (int b = 0; b < A8K_ROWS; ++b) {
-          if (b < bc) {
-            const float v = __fmul_rn(__fmul_rn(__int2float_rn(acc[b]), s_sx[b]), sc);
-            a.out[(int64_t)(b0 + b) * N + n] = __float2bfloat16_rn(v);
-          }
-        }
-      }
-    }
-  }
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& allowed) {
   if (bytes <= 48 * 1024 || bytes <= allowed) return cudaSuccess;
@@ -276,28 +189,6 @@ int ta_wq_matmul_pipe(const void* x, const void* w, const void* scale, void* out
                    static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), B, K, N,
                    nc};
   wq_matmul_pipe_kernel<<<(N + nc - 1) / nc, PIPE_THREADS, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// x_i8 [B, K] int8 and sx [B] fp32 (quantize_act's), w [K, N] int8, scale
-// [N] fp32 -> out [B, N] bf16; one block per nt output channels.  K, N and
-// nt multiples of 16 (the weight's 16-byte loads start at a block's first
-// channel); x_i8 and w 16-byte aligned, every tensor contiguous.  Returns
-// the launch's CUDA error code.
-int ta_a8_matmul(const void* x_i8, const void* sx, const void* w, const void* scale, void* out,
-                 int B, int K, int N, int nt, void* stream) {
-  if (B <= 0 || K <= 0 || N <= 0 || K % 16 || N % 16 || nt <= 0 || nt % 16) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = A8K_SLAB * A8K_THREADS + A8K_ROWS * 4 + (size_t)A8K_ROWS * K;
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  static size_t allowed = 0;
-  const cudaError_t err = allow_smem(a8_matmul_kernel, smem, allowed);
-  if (err != cudaSuccess) return (int)err;
-  const A8kArgs a{static_cast<const int8_t*>(x_i8), static_cast<const float*>(sx),
-                  static_cast<const int8_t*>(w), static_cast<const float*>(scale),
-                  static_cast<__nv_bfloat16*>(out), B, K, N, nt};
-  a8_matmul_kernel<<<(N + nt - 1) / nt, A8K_THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -42,7 +42,7 @@ _PREFILL_ARGS = (_PTR,) * 5 + (_INT,) * 5 + (ctypes.c_float, _PTR)
 _SIGNATURES = {
     "ta_encoder_ffn": (_PTR,) * 8 + (_INT,) * 3 + (_PTR,),
     "ta_encoder_ffn_smem_bytes": (),
-    "ta_log_mel": (_PTR,) * 4 + (_INT,) * 4 + (_PTR,),
+    "ta_log_mel": (_PTR,) * 5 + (_INT,) * 5 + (_PTR,),
     **{name + suffix: argtypes
        for suffix in ("", "_f32")
        for name, argtypes in (
@@ -57,7 +57,7 @@ _SIGNATURES = {
     "ta_wq_matmul": _MATMUL_ARGS,
     "ta_encoder_attention_variant": (_PTR,) * 5 + (_INT,) * 6 + (ctypes.c_float, _PTR),
     "ta_wq_matmul_pipe": (_PTR,) * 4 + (_INT,) * 4 + (_PTR,),
-    "ta_a8_matmul": (_PTR,) * 5 + (_INT,) * 4 + (_PTR,),
+    "ta_a8_matmul": (_PTR,) * 7 + (_INT,) * 5 + (_PTR,),
     "ta_a8t_matmul": (_PTR,) * 5 + (_INT,) * 4 + (_PTR,),
     "ta_attention_sm90_smem_bytes": (_INT, _INT),
     "ta_encoder_attention_variant_smem_bytes": (_INT, _INT),

@@ -9,9 +9,16 @@ the mel filterbank and log10 per tile of frames, so that only the
 The kernel (``csrc/mel.cu``, ``ta_log_mel``) keeps the same split: the
 reflect (or, below 201 samples, constant) padding before it and the
 per-row ``max - 8`` clamp and affine step after it stay in plain torch, as
-the JAX function keeps them in XLA.  All its arithmetic is fp32 on the CUDA
-cores (no TF32: the squaring in the power spectrum amplifies its lost
-digits); the source's header has the design and its bound.
+the JAX function keeps them in XLA.  Its bound is its bytes (the padded
+audio read once, the features written once: under 20 FLOP a byte), so it
+does no dense DFT: a block of ``FRAME_TILE`` frames takes each frame's
+even and odd samples as one 200-point complex sequence, transforms it in
+fp32 registers (radix-8 butterflies, one exchange through shared memory,
+25-point DFTs as 5 x 5), splits it into the 201 real-FFT bins and applies
+the filterbank as a banded gather.  No TF32 anywhere: the squaring in the
+power spectrum amplifies lost digits.  The kernel's operands are
+:func:`kernel_constants`: the window and twiddle tables, computed in float64
+and rounded to fp32 once, and the filterbank's bands.
 
 The plain version is the port's :func:`tiny_audio_tpu_torch.ops.mel.log_mel_spectrogram`,
 which computes the same function.  No path of the port calls this module:
@@ -37,7 +44,6 @@ from tiny_audio_tpu_torch.ops.mel import (
     FRAME_CHUNKS,
     HOP_LENGTH,
     N_FFT,
-    _dft_basis,
     log_mel_spectrogram,
     log_spec_from_padded,
     mel_filter_bank,
@@ -46,27 +52,63 @@ from tiny_audio_tpu_torch.ops.mel import (
 )
 
 N_FREQ = N_FFT // 2 + 1  # 201
-BINS_PAD = 256           # the kernel's bins: 4 tiles of 64, zero past 201
 MAX_MELS = 128
+#: frames a block of the kernel transforms (its 32 lanes store a mel's row)
+FRAME_TILE = 32
+#: the complex transform: frame sample 2n is the real part of z[n], sample
+#: 2n + 1 the imaginary part, n < FFT_LEN; FFT_LEN = FFT_N1 x FFT_N2 with
+#: n = FFT_N2 n1 + n2 and bin k = k1 + FFT_N1 k2; the 25-point DFTs are
+#: 5 x 5 with n2 = 5 p + q and k2 = r + 5 s
+FFT_LEN = N_FFT // 2  # 200
+FFT_N1, FFT_N2 = 8, 25
+#: float2 entries of the table :func:`kernel_constants` returns: the window
+#: pairs (w[2n], w[2n + 1]); the twiddles W200^(n2 k1) at TAB_STAGE + 25 k1 +
+#: n2, W25^(q r) at TAB_W25 + 5 q + r and W400^k at TAB_POST + k (W_N^j =
+#: exp(-2 pi i j / N)); the butterflies' W8^1, W5^1 and W5^2 at TAB_W8,
+#: TAB_W5 and TAB_W5 + 1.  The kernel reads the window, W200 and W400 from
+#: the table and has W25, W8 and W5 as fp32 literals equal to its entries.
+TAB_WINDOW, TAB_STAGE, TAB_W25, TAB_POST, TAB_W8, TAB_W5 = 0, 200, 400, 425, 625, 626
+TAB_LEN = 628
 
 
-@functools.lru_cache(maxsize=4)
-def kernel_constants(num_mel_bins: int) -> tuple[np.ndarray, np.ndarray]:
-    """The kernel's operands, float32: the windowed DFT basis
-    ``[N_FFT, 2 * BINS_PAD]`` with bin b's cos and sin in columns 2b and
-    2b + 1 (zero past bin 200), and the filterbank ``[N_FREQ, mels]``."""
-    cos_b, sin_b = _dft_basis()  # each [N_FREQ, N_FFT]
-    basis = np.zeros((N_FFT, 2 * BINS_PAD), np.float32)
-    basis[:, 0 : 2 * N_FREQ : 2] = cos_b.T
-    basis[:, 1 : 2 * N_FREQ : 2] = sin_b.T
+def _twiddle(n: int, j) -> np.ndarray:
+    ang = -2.0 * np.pi * np.asarray(j, np.float64) / n
+    return np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+
+
+@functools.lru_cache(maxsize=16)
+def kernel_constants(num_mel_bins: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The kernel's operands: the table ``[TAB_LEN, 2]`` float32 (the
+    periodic Hann window of 400 in (even, odd) pairs and every twiddle, in
+    float64 rounded once); each mel's band of the filterbank as
+    ``[mels, 2]`` int32 (first bin, bin count) and its weights
+    ``[mels, width]`` float32 (zero past the count), ``width`` the widest
+    band rounded up to 4 (the kernel copies them in 16-byte pieces).  The
+    bands hold every nonzero weight of ``mel_filter_bank(201, mels)``, whose
+    triangles are contiguous runs of bins."""
+    window = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(N_FFT) / N_FFT)
+    table = np.zeros((TAB_LEN, 2), np.float64)
+    table[TAB_WINDOW:TAB_WINDOW + FFT_LEN] = window.reshape(FFT_LEN, 2)
+    k1, n2 = np.meshgrid(np.arange(FFT_N1), np.arange(FFT_N2), indexing="ij")
+    table[TAB_STAGE:TAB_STAGE + FFT_LEN] = _twiddle(FFT_LEN, k1 * n2).reshape(-1, 2)
+    q, r = np.meshgrid(np.arange(5), np.arange(5), indexing="ij")
+    table[TAB_W25:TAB_W25 + 25] = _twiddle(25, q * r).reshape(-1, 2)
+    table[TAB_POST:TAB_POST + FFT_LEN] = _twiddle(N_FFT, np.arange(FFT_LEN))
+    table[TAB_W8] = _twiddle(8, 1)
+    table[TAB_W5:TAB_W5 + 2] = _twiddle(5, [1, 2])
     fb = mel_filter_bank(N_FREQ, num_mel_bins).astype(np.float32)
-    return basis, np.ascontiguousarray(fb)
+    nonzero = [np.flatnonzero(fb[:, m]) for m in range(num_mel_bins)]
+    band = np.array([(nz[0], nz[-1] + 1 - nz[0]) if nz.size else (0, 0) for nz in nonzero],
+                    np.int32).reshape(num_mel_bins, 2)
+    weights = np.zeros((num_mel_bins, -(-max(1, int(band[:, 1].max())) // 4) * 4), np.float32)
+    for m, (first, count) in enumerate(band):
+        weights[m, :count] = fb[first:first + count, m]
+    return table.astype(np.float32), band, weights
 
 
 @functools.lru_cache(maxsize=8)
 def _device_constants(num_mel_bins: int, device: torch.device):
-    basis, fb = kernel_constants(num_mel_bins)
-    return torch.from_numpy(basis).to(device), torch.from_numpy(fb).to(device)
+    return tuple(torch.from_numpy(a).to(device) for a in kernel_constants(num_mel_bins))
 
 
 def log_mel_spectrogram_fused(audio: torch.Tensor, num_mel_bins: int = 128) -> torch.Tensor:
@@ -126,13 +168,14 @@ def launch_log_mel(padded: torch.Tensor, n_frames: int, num_mel_bins: int) -> to
     if padded.shape[1] != (n_frames + FRAME_CHUNKS) * HOP_LENGTH:
         raise ValueError(f"padded audio must hold {n_frames + FRAME_CHUNKS} hops, "
                          f"got {padded.shape[1]} samples")
-    basis, fb = _device_constants(num_mel_bins, padded.device)
+    table, band, weights = _device_constants(num_mel_bins, padded.device)
     log_spec = torch.empty((padded.shape[0], num_mel_bins, n_frames), dtype=torch.float32,
                            device=padded.device)
     kernels.launch(
         "ta_log_mel", padded.device,
-        padded.data_ptr(), basis.data_ptr(), fb.data_ptr(), log_spec.data_ptr(),
-        padded.shape[0], padded.shape[1], n_frames, num_mel_bins,
+        padded.data_ptr(), table.data_ptr(), band.data_ptr(), weights.data_ptr(),
+        log_spec.data_ptr(), padded.shape[0], padded.shape[1], n_frames, num_mel_bins,
+        weights.shape[1],
     )
     log_mel_spectrogram_fused.launches += 1
     return log_spec

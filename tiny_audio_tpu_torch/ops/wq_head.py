@@ -125,7 +125,7 @@ def w8a8_matmul(x: torch.Tensor, wt_i8: torch.Tensor, scale: torch.Tensor) -> to
     (b, k), n = x.shape, wt_i8.shape[0]
     out = torch.empty((b, n), dtype=torch.bfloat16, device=x.device)
     for r0, r1 in split_rows(b):
-        launch_split("ta_w8a8_matmul", "w8a8", x[r0:r1], wt_i8, scale, out[r0:r1],
+        launch_split("ta_w8a8_matmul", "w8a8", (x[r0:r1],), wt_i8, scale, out[r0:r1],
                      int8_split_plan(r1 - r0, k, n, "w8a8"))
         w8a8_matmul.launches += 1
     return out

@@ -12,11 +12,19 @@ flagship's LM head (x ``[48, 1024]``, an int8 head ``[1024, 151936]``):
   so the stages are ``[512, 32]`` slabs whatever ``nt`` was);
 - :func:`a8_matmul` (#9c, ``build_a8(nt)``): W8A8 with the activation
   quantized per row beforehand (``quantize_act``), the weight ``[K, N]``,
-  int32 sums, ``bf16((acc * sx) * scale)``, one block per ``nt`` channels
-  (``csrc/int8_matmul_variants.cu``);
-- :func:`a8t_matmul` (#9d, ``build_a8t(nt)``): #9c with the weight stored
-  ``[N, K]``, #5's layout, on the CUDA-core tiles #5 had before its
-  redesign (``csrc/int8_matmul.cu``).
+  int32 sums, ``bf16((acc * sx) * scale)``.  Its bound is the weight's
+  bytes (155.6 MB at the bench shape: 0.051 ms at 3.35 TB/s), so it is the
+  third kind of #5's and #6's split design (``csrc/int8_matmul.cu``,
+  ``split_matmul_kernel<A8, ...>``): persistent blocks over
+  :func:`~tiny_audio_tpu_torch.ops.wq_matmul.int8_split_plan`'s ``"a8"``
+  units (1,187 tiles of 128 channels at the bench shape, one split), the
+  weight streamed through #6's ``cp.async`` ring, s8 tensor-core products
+  with a 4 x 4 byte transpose per A register, and the merge inside the
+  launch where K is split.  The script's tile width ``nt`` sets nothing in
+  it;
+- :func:`a8t_matmul` (#9d, ``build_a8t(nt)``): #9c's function with the
+  weight stored ``[N, K]``, #5's layout, on the CUDA-core tiles #5 had
+  before its redesign, one block per ``nt`` channels (``csrc/int8_matmul.cu``).
 
 The plain versions are the ones the port already has: #6's
 :func:`~tiny_audio_tpu_torch.ops.wq_matmul.wq_matmul_plain` for #9b, #5's
@@ -36,7 +44,12 @@ import torch
 
 from tiny_audio_tpu_torch import kernels
 from tiny_audio_tpu_torch.ops.wq_head import quantize_act, w8a8_matmul_plain
-from tiny_audio_tpu_torch.ops.wq_matmul import wq_matmul_plain
+from tiny_audio_tpu_torch.ops.wq_matmul import (
+    int8_split_plan,
+    launch_split,
+    split_rows,
+    wq_matmul_plain,
+)
 
 #: the bench's sweep points: the chunk widths nc of #9b, nt of #9c and #9d
 PIPE_SWEEP = (8192, 16384)
@@ -83,29 +96,40 @@ def wq_matmul_pipe(x, w_i8, scale, nc: int = 8192) -> torch.Tensor:
     return out
 
 
-def _a8_launch(entry: str, x, w, scale, nt: int, k_dim: int) -> torch.Tensor:
+def _quantized(entry: str, x, w, scale, k_dim: int):
+    """quantize_act outside the kernel, as the TPU bench does; the checked
+    shapes and an empty output."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{entry} takes bf16 x, got {x.dtype}")
-    x_i8, sx = quantize_act(x)  # outside the kernel, as the TPU bench does
+    x_i8, sx = quantize_act(x)
     sx = sx.reshape(-1).contiguous()
     b, k, n = _check(entry, x, w, scale, k_dim,
                      (("x_i8", x_i8), ("sx", sx), ("weight", w), ("scale", scale)))
-    out = torch.empty((b, n), dtype=torch.bfloat16, device=x.device)
-    kernels.launch(entry, x.device, x_i8.data_ptr(), sx.data_ptr(), w.data_ptr(),
-                   scale.data_ptr(), out.data_ptr(), b, k, n, nt)
-    return out
+    return x_i8, sx, torch.empty((b, n), dtype=torch.bfloat16, device=x.device)
 
 
 def a8_matmul(x, w_i8, scale, nt: int = 2048) -> torch.Tensor:
-    """W8A8 on the ``[K, N]`` weight, one block per ``nt`` channels (a
-    multiple of 16: the weight's 16-byte loads start at a block's first
-    channel).  x [B, K] bf16 -> [B, N] bf16."""
+    """W8A8 on the ``[K, N]`` weight.  x [B, K] bf16 -> [B, N] bf16.  ``nt``
+    is the script's tile width, kept as its sweep's parameter (a positive
+    multiple of 16, as the script's tiles take it); the launch is the split
+    design's ``"a8"`` plan whatever it is (:func:`launch_a8`)."""
     if not x.is_cuda:
         return w8a8_matmul_plain(x, w_i8.T, scale)
     if nt <= 0 or nt % 16:
         raise ValueError(f"nt must be a positive multiple of 16, got {nt}")
-    out = _a8_launch("ta_a8_matmul", x, w_i8, scale, nt, 0)
-    a8_matmul.launches += 1
+    x_i8, sx, out = _quantized("ta_a8_matmul", x, w_i8, scale, 0)
+    return launch_a8(x_i8, sx, w_i8, scale, out)
+
+
+def launch_a8(x_i8, sx, w_i8, scale, out) -> torch.Tensor:
+    """The kernel alone on an activation already quantized (``quantize_act``'s
+    x_i8 [B, K] and sx [B], CUDA tensors, checked as :func:`a8_matmul`
+    checks them) into ``out`` [B, N] bf16: one launch per 64 rows."""
+    (b, k), n = x_i8.shape, w_i8.shape[1]
+    for r0, r1 in split_rows(b):
+        launch_split("ta_a8_matmul", "a8", (x_i8[r0:r1], sx[r0:r1]), w_i8, scale, out[r0:r1],
+                     int8_split_plan(r1 - r0, k, n, "a8"))
+        a8_matmul.launches += 1
     return out
 
 
@@ -116,7 +140,10 @@ def a8t_matmul(x, wt_i8, scale, nt: int = 2048) -> torch.Tensor:
         return w8a8_matmul_plain(x, wt_i8, scale)
     if nt <= 0 or nt % 64:
         raise ValueError(f"nt must be a positive multiple of 64, got {nt}")
-    out = _a8_launch("ta_a8t_matmul", x, wt_i8, scale, nt, 1)
+    x_i8, sx, out = _quantized("ta_a8t_matmul", x, wt_i8, scale, 1)
+    b, k = x.shape
+    kernels.launch("ta_a8t_matmul", x.device, x_i8.data_ptr(), sx.data_ptr(), wt_i8.data_ptr(),
+                   scale.data_ptr(), out.data_ptr(), b, k, out.shape[1], nt)
     a8t_matmul.launches += 1
     return out
 

@@ -11,7 +11,8 @@ the conversion in registers and the products on the tensor cores; its
 source states the bound and the design.
 
 The kernel splits K over blocks (:func:`int8_split_plan`, from shapes only,
-shared with #5 in ``ops/wq_head.py``) and merges the splits inside the same
+shared with #5 in ``ops/wq_head.py`` and #9c in ``ops/wq_head_variants.py``)
+and merges the splits inside the same
 launch, through a scratch this wrapper allocates and the merge counters of
 ``kernels.counter_buffer`` (per device, never freed, zero
 between launches): calls on one device must not run concurrently on two
@@ -49,7 +50,7 @@ NT = 512
 WQ_RTOL = 2.0**-6
 WQ_ATOL = 1e-3
 
-#: The split over K of #5 and #6 (:func:`int8_split_plan`): a product
+#: The split over K of #5, #6 and #9c (:func:`int8_split_plan`): a product
 #: whose output tiles alone reach half SPLIT_TARGET_UNITS takes one split (a
 #: split more adds its part's store, a fence, a counter and a reload from L2
 #: to the launch's latency); a
@@ -63,12 +64,15 @@ SPLIT_MERGE_VALUES = 16384
 SPLIT_MAX_ROWS = 64
 #: a warp's sub-tile: 32 output channels x 32 k; a block is 4 warps
 SPLIT_SUB = 32
-#: #5's int8 activation chunk in shared memory, rows x (split k + 32) bytes
+#: #5's and #9c's int8 activation chunk in shared memory, rows x (split k +
+#: 32) bytes
 SPLIT_X_BYTES = 96 * 1024
+#: the kinds of product of the split design: #6, #5 and #9c
+SPLIT_KINDS = ("wq", "w8a8", "a8")
 
 
 class Int8SplitPlan(NamedTuple):
-    """How #5 or #6 cuts one launch: a block's 4 warps stand ``warps_n``
+    """How #5, #6 or #9c cuts one launch: a block's 4 warps stand ``warps_n``
     across the output channels (a tile of ``tile_n = 32 warps_n``) and
     ``4 / warps_n`` along k (a stage of ``tile_k`` k); ``split_k`` k a split
     (a multiple of ``tile_k``), ``splits`` of them over K; ``units`` = tiles
@@ -91,33 +95,35 @@ class Int8SplitPlan(NamedTuple):
 def int8_split_plan(b: int, k: int, n: int, kind: str) -> Optional[Int8SplitPlan]:
     """The split of one launch of ``x [b, K] @ W [K -> N]``, from shapes
     alone (never from data, so a launch fits a CUDA graph); ``kind`` is
-    ``"wq"`` (#6, weight ``[K, N]``) or ``"w8a8"`` (#5, ``[N, K]``).  For
-    each block arrangement the kind takes (#5: one warp across 32 channels,
-    128-byte runs of its [N, K] rows; #6: also four warps across 128
-    channels, 128-byte runs of its [K, N] rows): one split where the tiles
+    ``"wq"`` (#6, weight ``[K, N]``), ``"w8a8"`` (#5, ``[N, K]``) or ``"a8"``
+    (#9c, ``[K, N]``).  For each block arrangement the kind takes (#5: one
+    warp across 32 channels, 128-byte runs of its [N, K] rows; #9c: four
+    warps across 128 channels, 128-byte runs of its [K, N] rows; #6: both
+    of those): one split where the tiles
     alone reach half SPLIT_TARGET_UNITS, else enough that tiles x splits
     reach it, at most as many as keep a tile's merge within
     SPLIT_MERGE_VALUES values; of the arrangements that fill the card so,
     the one with the fewest splits (the widest on a tie), else the one with
     the most units.  Splits start on a stage, a multiple of 32 k
-    (#5's s8 products take 32, #6's bf16 16).  None where the kernel's
-    copies cannot take the shape (#6: N not a multiple of 16 or K of 8;
-    #5: K not a multiple of 16) or ``b`` exceeds SPLIT_MAX_ROWS."""
-    if kind not in ("wq", "w8a8"):
-        raise ValueError(f"kind must be 'wq' or 'w8a8', got {kind!r}")
+    (the s8 products of #5 and #9c take 32, #6's bf16 16).  None where the
+    kernel's copies cannot take the shape (#6: N not a multiple of 16 or K
+    of 8; #5: K not a multiple of 16; #9c: either not of 16) or ``b``
+    exceeds SPLIT_MAX_ROWS."""
+    if kind not in SPLIT_KINDS:
+        raise ValueError(f"kind must be one of {SPLIT_KINDS}, got {kind!r}")
     if not 1 <= b <= SPLIT_MAX_ROWS or k <= 0 or n <= 0:
         return None
-    if (kind == "wq" and (n % 16 or k % 8)) or (kind == "w8a8" and k % 16):
+    if (kind != "w8a8" and n % 16) or k % (8 if kind == "wq" else 16):
         return None
     rows = -(-b // 8) * 8
     plans = []
-    for warps_n in ((4, 1) if kind == "wq" else (1,)):
+    for warps_n in {"wq": (4, 1), "w8a8": (1,), "a8": (4,)}[kind]:
         tile_n, tile_k = SPLIT_SUB * warps_n, SPLIT_SUB * (4 // warps_n)
         tiles, stages = -(-n // tile_n), -(-k // tile_k)
         want = 1 if 2 * tiles >= SPLIT_TARGET_UNITS else -(-SPLIT_TARGET_UNITS // tiles)
         want = min(want, stages, max(1, SPLIT_MERGE_VALUES // (b * tile_n)))
         per = -(-stages // want)  # stages a split
-        if kind == "w8a8":  # the split's int8 activation fits its shared memory
+        if kind != "wq":  # the split's int8 activation fits its shared memory
             while per > 1 and rows * (per * tile_k + SPLIT_SUB) > SPLIT_X_BYTES:
                 per -= 1
         splits = -(-stages // per)
@@ -139,22 +145,38 @@ def fills_card(plan: Int8SplitPlan) -> bool:
         plan.splits == 1 and 2 * plan.tiles >= SPLIT_TARGET_UNITS)
 
 
-def launch_split(name: str, kind: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+def launch_split(name: str, kind: str, xs: tuple, w: torch.Tensor, scale: torch.Tensor,
                  out: torch.Tensor, plan: Int8SplitPlan) -> None:
-    """One launch of #5 or #6's split design (entry point ``name``) on
-    checked CUDA tensors: the partial sums' scratch allocated here (int32
-    for #5, fp32 for #6), the merge counters from ``counter_buffer``."""
-    b, k = x.shape
+    """One launch of the split design (entry point ``name``) on checked CUDA
+    tensors: ``xs`` is ``(x,)`` for #5 and #6, ``(x_i8, sx)`` for #9c; the
+    partial sums' scratch allocated here (int32 for #5 and #9c, fp32 for
+    #6), the merge counters from ``counter_buffer``."""
+    b, k = xs[0].shape
     n = out.shape[1]
     partial = counters = None
     if plan.splits > 1:
-        dtype = torch.int32 if kind == "w8a8" else torch.float32
-        partial = torch.empty(plan.scratch, dtype=dtype, device=x.device)
-        counters = kernels.counter_buffer(x.device, plan.counters)
-    kernels.launch(name, x.device, x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        dtype = torch.float32 if kind == "wq" else torch.int32
+        partial = torch.empty(plan.scratch, dtype=dtype, device=out.device)
+        counters = kernels.counter_buffer(out.device, plan.counters)
+    kernels.launch(name, out.device, *(t.data_ptr() for t in xs), w.data_ptr(),
+                   scale.data_ptr(), out.data_ptr(),
                    partial.data_ptr() if partial is not None else 0,
                    counters.data_ptr() if counters is not None else 0,
                    b, k, n, plan.warps_n, plan.split_k)
+
+
+def split_units(plan: Int8SplitPlan, k: int, n: int) -> list[tuple[int, int, int, int]]:
+    """What each work unit of ``plan`` computes, in unit order, as the
+    kernel decodes it (a persistent block walks units blockIdx, blockIdx +
+    grid, ...): unit u is tile ``u % tiles`` and split ``u // tiles``, the
+    output channels ``[n0, n1)`` and the k ``[k0, k1)``, clipped to N and K
+    (the copies zero-fill past them)."""
+    units = []
+    for u in range(plan.units):
+        tile, split = u % plan.tiles, u // plan.tiles
+        units.append((tile * plan.tile_n, min(n, (tile + 1) * plan.tile_n),
+                      split * plan.split_k, min(k, (split + 1) * plan.split_k)))
+    return units
 
 
 def split_rows(b: int) -> list[tuple[int, int]]:
@@ -232,7 +254,7 @@ def wq_matmul(x: torch.Tensor, w_i8: torch.Tensor, scale: torch.Tensor) -> torch
         wq_matmul.launches += 1
         return out
     for r0, r1 in split_rows(b):
-        launch_split("ta_wq_matmul", "wq", x[r0:r1], w_i8, scale, out[r0:r1],
+        launch_split("ta_wq_matmul", "wq", (x[r0:r1],), w_i8, scale, out[r0:r1],
                      int8_split_plan(r1 - r0, k, n, "wq"))
         wq_matmul.launches += 1
     return out

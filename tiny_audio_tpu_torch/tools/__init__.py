@@ -35,3 +35,25 @@ def time_ms(fn, reps: int, device: torch.device) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` on the card replayed from one CUDA graph
+    of ``reps`` calls (captured after a warmup call), timed with CUDA
+    events: the host's dispatch is left out, as the TPU scripts' jitted
+    loops leave it out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps

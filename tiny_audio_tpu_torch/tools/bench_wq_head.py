@@ -12,7 +12,10 @@ It times, with CUDA events over ``--reps`` calls after warmup, the bf16
 (``w8a8_matmul``) and the three bench variants at each point of the
 script's sweep: #9b ``wq_matmul_pipe`` (the chunk width nc; the script's
 tile width nt has no counterpart in the port's kernel), #9c ``a8_matmul``
-and #9d ``a8t_matmul`` (nt), each with the int8 bytes' rate; then each one's
+and #9d ``a8t_matmul`` (nt), each with the int8 bytes' rate and, on the card, its time replayed
+from a CUDA graph (the host's dispatch left out, as the script's jitted loop
+leaves it out; #9c's ``nt`` sets nothing, so its three points read alike
+there); then each one's
 ``rel_err`` (Frobenius, against the bf16 product) and greedy-argmax
 agreement, its difference from its plain version (#9c, #9d bitwise), and the
 fastest.  It runs on the card unless ``--device cpu`` is passed (then every
@@ -44,7 +47,7 @@ from tiny_audio_tpu_torch.ops.wq_matmul import (
     wq_matmul,
     wq_matmul_plain,
 )
-from tiny_audio_tpu_torch.tools import time_ms
+from tiny_audio_tpu_torch.tools import graph_ms, time_ms
 
 # scripts/bench_wq_head.py's shape and reps
 B, K, N = 48, 1024, 151936
@@ -89,7 +92,8 @@ def run(b: int = B, k: int = K, n: int = N, device="cuda", reps: int = REPS,
         got = call()
         ms = time_ms(call, reps, device)
         gbs = k * n / (ms * 1e-3) / 1e9
-        r = {"ms": ms, "int8_gb_per_s": gbs, "finite": bool(torch.isfinite(got).all())}
+        r = {"ms": ms, "int8_gb_per_s": gbs, "finite": bool(torch.isfinite(got).all()),
+             "graph_ms": graph_ms(call, reps) if device.type == "cuda" else None}
         g32 = got.float()
         r["rel_err"] = float(torch.linalg.norm(g32 - ref) / (torch.linalg.norm(ref) or 1.0))
         r["argmax_agree"] = float((g32.argmax(1) == ref.argmax(1)).float().mean())
@@ -102,7 +106,8 @@ def run(b: int = B, k: int = K, n: int = N, device="cuda", reps: int = REPS,
                            bool((diff <= WQ_ATOL + WQ_RTOL * want.float().abs()).all()))
             r["rule"] = rule
         results[name] = r
-        out(f"{name:26s} {ms:7.3f} ms   ({gbs:6.1f} GB/s int8-bytes)")
+        graph = "" if r["graph_ms"] is None else f"   graph {r['graph_ms']:7.3f} ms"
+        out(f"{name:26s} {ms:7.3f} ms   ({gbs:6.1f} GB/s int8-bytes){graph}")
     for name, r in results.items():
         vs_plain = ("" if "rule" not in r else
                     f"  vs_plain={'bitwise' if r['rule'] == 'bitwise' and r['within'] else r['max_abs_err_vs_plain']}")
