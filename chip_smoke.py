@@ -6,9 +6,10 @@
 Builds the Hopper kernels from ``tiny_audio_tpu_torch/csrc`` (one ``nvcc`` per
 source, started together) and shows that #1 and #2 are the Hopper design of
 ``csrc/attention_sm90.cu``, #2b and #2c that of
-``csrc/attention_bwd_sm90.cu``, #8 that of ``csrc/encoder_ffn.cu`` and
-each of #9a's 13 modes that of ``csrc/encoder_attention_variants.cu``: for
-each instance of their kernels,
+``csrc/attention_bwd_sm90.cu``, #8 that of ``csrc/encoder_ffn.cu``,
+each of #9a's 13 modes that of ``csrc/encoder_attention_variants.cu`` and
+#9b that of ``csrc/int8_matmul_variants.cu``: for each instance of their
+kernels,
 registers, shared memory and spills from the ``ptxas -v`` log (no spill),
 and its HGMMA (wgmma), UTMALDG (TMA) and USETMAXREG instructions counted
 with ``cuobjdump -sass`` (neither of the first two may be 0).  It holds each kernel against its plain PyTorch version on random
@@ -71,8 +72,9 @@ design's times and SDPA on a bf16 cache.  ``torch._weight_int8pack_mm``, one cal
 computing #6's function, is timed beside #6 at its head shape.
 
 The int8 products #5 and #6 (``csrc/int8_matmul.cu``, a split over K merged
-inside the launch): the registers, shared memory and spills of the 26
-instances of ``split_matmul_kernel`` (#5, #6 and #9c's; none may spill); each product against
+inside the launch): the registers, shared memory and spills of the 34
+instances of ``split_matmul_kernel`` (#5, #6, #9c and #9d's; none may
+spill); each product against
 its plain version at the flagship's layer and head shapes, B = 4, 16 and 48
 (#5 bitwise, #6 within ``WQ_ATOL``/``WQ_RTOL``); the instance each path
 shape takes at B = 4 and 48 (the split design, or the run fails), three runs
@@ -98,10 +100,12 @@ run through their entry points, ``tools/bench_encoder_attention.py`` and
 sweep point against its plain version (#9c and #9d bitwise, ``packed2``
 bitwise ``shift_post``), #9a also against an fp64 oracle, each #9a mode's
 time beside its previous design's (``PREVIOUS_VARIANT_MS``) and #1's; #9c
-(the split design's third kind) also bitwise at B = 1, 4, 17, 48, 64, at
-ragged N and replayed from a CUDA graph, timed alone and through its entry
-point, back to back and from a graph, beside its previous design, #5 and #6
-at B = 48 and its bound.
+and #9d (the split design's third and fourth kinds) also bitwise at B = 1,
+4, 17, 48, 64, at ragged N and replayed from a CUDA graph, #9b (the TMA-fed
+pipe) within #6's tolerance there and bitwise repeatable, and each of the
+three timed alone back to back and from a graph, at B = 48 and 1, beside
+its previous design (``PREVIOUS_VARIANT_MS``), its bound and, at B = 48,
+#5, #6, #9c, bf16 ``F.linear`` and (#9b) ``torch._weight_int8pack_mm``.
 
 Every kernel's launch count is set to 0 just before each path and read just
 after; the inputs the path gave each kernel in its first call are kept,
@@ -307,14 +311,17 @@ FP32_EMBED_RTOL = 1e-4
 # output against the fp64 oracle on the real rows: at most 2.5e-3 measured on
 # the card over the 13 modes (bf16 P and output roundings), twice that here.
 BENCH_VARIANTS = ("encoder_attention_variant", "wq_matmul_pipe", "a8_matmul", "a8t_matmul")
-# #9b-#9d at their numerics points before the redesign of #5 and #6, from
-# this script on that tree (ms; NVIDIA H100 80GB HBM3, 700.00 W); then #9a's
-# previous design (mma.sync, 16 warps a 256-row block, V copied transposed)
-# by mode and hg, and #1 and SDPA at its shape, from the tool's timings on
-# that tree in the same run as PREVIOUS_FFN_MS (ms; NVIDIA H100 80GB HBM3,
-# 700.00 W)
-PREVIOUS_VARIANT_MS = {"wq_matmul_pipe": 2.2355056762695313, "a8_matmul": 3.1405344009399414,
-                       "a8t_matmul": 1.719843292236328,
+# The previous designs of #9b (one block per nc-wide chunk) and #9d (#5's
+# first CUDA-core tiles, one block per nt channels), each alone from a CUDA
+# graph at the bench shape (nc 8,192, nt 2,048), timed by this script's
+# alone_times on the package of the tree before their redesign (one run on
+# the card); #9c at its numerics point before the redesign of #5 and #6,
+# from this script on that tree; then #9a's previous design (mma.sync, 16
+# warps a 256-row block, V copied transposed) by mode and hg, and #1 and SDPA
+# at its shape, from the tool's timings on that tree in the same run as
+# PREVIOUS_FFN_MS (ms; NVIDIA H100 80GB HBM3, 700.00 W)
+PREVIOUS_VARIANT_MS = {"wq_matmul_pipe": 2.2131631851196287, "a8_matmul": 3.1405344009399414,
+                       "a8t_matmul": 1.5968688011169434,
                        "loop-fp32(hg=10)": 7.6249137878417965, "loop-bf16(hg=10)": 8.999305725097656,
                        "loop-rcp(hg=10)": 5.438627243041992, "loop-nomax(hg=10)": 6.589358520507813,
                        "loop-shift(hg=10)": 6.450341033935547,
@@ -579,11 +586,14 @@ def compare_prefill_kernel(gen: torch.Generator) -> dict:
 # the backward (csrc/attention_bwd_sm90.cu; head_dim) behind #2b and #2c
 SM90_KERNEL = "attention_fwd_sm90"
 SM90_BWD_KERNELS = ("attention_bwd_dkv_sm90", "attention_bwd_dq_sm90")
-# #8 (csrc/encoder_ffn.cu, one instance) and #9a (csrc/encoder_attention_
+# #8 (csrc/encoder_ffn.cu, one instance), #9a (csrc/encoder_attention_
 # variants.cu: variant_sm90<shift, exp bf16, norm, guard, heads a stage>, one
-# instance a mode, in ta_encoder_attention_variant's numbering)
+# instance a mode, in ta_encoder_attention_variant's numbering) and #9b
+# (csrc/int8_matmul_variants.cu: wq_pipe_sm90<NB>, x padded to NB rows)
 FFN_KERNEL = "encoder_ffn_sm90"
 VARIANT_KERNEL = "variant_sm90"
+PIPE_KERNEL = "wq_pipe_sm90"
+PIPE_NB = (16, 32, 48)
 VARIANT_INSTANCE_MODES = {
     (0, 0, 0, 0, 1): "fp32", (0, 1, 0, 0, 1): "bf16", (0, 0, 1, 0, 1): "rcp",
     (1, 0, 0, 0, 1): "nomax", (2, 0, 0, 1, 1): "shift", (3, 0, 0, 1, 1): "tilemax",
@@ -593,7 +603,8 @@ VARIANT_INSTANCE_MODES = {
 SM90_INSTANCES = {(SM90_KERNEL, 64, 0, 0), (SM90_KERNEL, 64, 1, 0), (SM90_KERNEL, 64, 1, 1),
                   (SM90_KERNEL, 128, 1, 0), (SM90_KERNEL, 128, 1, 1),
                   *((name, d) for name in SM90_BWD_KERNELS for d in (64, 128)),
-                  (FFN_KERNEL,), *((VARIANT_KERNEL, *key) for key in VARIANT_INSTANCE_MODES)}
+                  (FFN_KERNEL,), *((VARIANT_KERNEL, *key) for key in VARIANT_INSTANCE_MODES),
+                  *((PIPE_KERNEL, nb) for nb in PIPE_NB)}
 # the flagship prefill at the JAX bench's batch (bench.py: 48 x 30 s)
 BENCH_BATCH = 48
 
@@ -601,8 +612,8 @@ BENCH_BATCH = 48
 def sm90_instance(mangled: str):
     """The instance of the Hopper design a kernel symbol names:
     (attention_fwd_sm90, head_dim, causal, stats), (attention_bwd_*_sm90,
-    head_dim), (encoder_ffn_sm90,) or (variant_sm90, shift, exp bf16, norm,
-    guard, heads a stage); None for any other kernel."""
+    head_dim), (encoder_ffn_sm90,), (variant_sm90, shift, exp bf16, norm,
+    guard, heads a stage) or (wq_pipe_sm90, NB); None for any other kernel."""
     found = re.search(SM90_KERNEL + r"ILi(\d+)E.*?Lb([01])ELb([01])E", mangled)
     if found:
         return (SM90_KERNEL, *(int(x) for x in found.groups()))
@@ -611,6 +622,9 @@ def sm90_instance(mangled: str):
         return (found.group(1), int(found.group(2)))
     if FFN_KERNEL in mangled:
         return (FFN_KERNEL,)
+    found = re.search(PIPE_KERNEL + r"ILi(\d+)E", mangled)
+    if found:
+        return (PIPE_KERNEL, int(found.group(1)))
     found = re.search(VARIANT_KERNEL + r"ILi(\d)ELb([01])ELi(\d)ELb([01])ELi(\d)E", mangled)
     return None if found is None else (VARIANT_KERNEL, *(int(x) for x in found.groups()))
 
@@ -622,6 +636,8 @@ def instance_text(inst: tuple) -> str:
         return f"{FFN_KERNEL} (#8)"
     if inst[0] == VARIANT_KERNEL:
         return f"{VARIANT_KERNEL}<{VARIANT_INSTANCE_MODES[inst[1:]]}> (#9a)"
+    if inst[0] == PIPE_KERNEL:
+        return f"{PIPE_KERNEL}<NB={inst[1]}> (#9b)"
     return f"{inst[0]}<D={inst[1]}>"
 
 
@@ -687,13 +703,13 @@ def decode_design_facts(log: str) -> None:
         fail(f"decode_kernel instances spill: {spilling}")
 
 
-# #5, #6 and #9c: split_matmul_kernel<KIND, NT, WN, SHALLOW> of
-# csrc/int8_matmul.cu (KIND 0 = #6, 1 = #5, 2 = #9c), one instance per batch
-# size class (NT 8-row MMA columns), block arrangement and (#5, #9c at 32+
-# rows) ring depth
-INT8_KINDS = {0: "wq (#6)", 1: "w8a8 (#5)", 2: "a8 (#9c)"}
+# #5, #6, #9c and #9d: split_matmul_kernel<KIND, NT, WN, SHALLOW> of
+# csrc/int8_matmul.cu (KIND 0 = #6, 1 = #5, 2 = #9c, 3 = #9d), one instance
+# per batch size class (NT 8-row MMA columns), block arrangement and (the s8
+# kinds at 32+ rows) ring depth
+INT8_KINDS = {0: "wq (#6)", 1: "w8a8 (#5)", 2: "a8 (#9c)", 3: "a8t (#9d)"}
 INT8_INSTANCES = {(kind, nt, wn, shallow) for kind in INT8_KINDS for nt in (1, 2, 4, 6, 8)
-                  for wn in {0: (1, 4), 1: (1,), 2: (4,)}[kind]
+                  for wn in {0: (1, 4), 1: (1,), 2: (4,), 3: (1,)}[kind]
                   for shallow in ((0, 1) if kind and nt >= 4 else (0,))}
 
 
@@ -706,7 +722,7 @@ def int8_instance_of(mangled: str):
 
 def int8_design_facts(log: str) -> dict:
     """Registers, static shared memory and spills of every instance of the
-    split design of #5, #6 and #9c (``ptxas -v``).  Fails before any launch
+    split design of #5, #6, #9c and #9d (``ptxas -v``).  Fails before any launch
     if an instance is missing or spills; returns the facts by instance."""
     ptxas = ptxas_facts(log, int8_instance_of)
     if set(ptxas) != INT8_INSTANCES:
@@ -739,17 +755,18 @@ def mel_design_facts(log: str) -> dict:
     return facts
 
 
-def hopper_design_facts(log: str) -> None:
-    """What shows that #1, #2, #2b, #2c, #8 and #9a are the Hopper design:
-    for each instance of attention_fwd_sm90, attention_bwd_dkv_sm90,
-    attention_bwd_dq_sm90, encoder_ffn_sm90 and variant_sm90 (one a #9a
-    mode), its registers, static shared memory and spills
+def hopper_design_facts(log: str) -> dict:
+    """What shows that #1, #2, #2b, #2c, #8, #9a and #9b are the Hopper
+    design: for each instance of attention_fwd_sm90, attention_bwd_dkv_sm90,
+    attention_bwd_dq_sm90, encoder_ffn_sm90, variant_sm90 (one a #9a mode)
+    and wq_pipe_sm90 (one a padded batch), its registers, static shared memory and spills
     from the build's ``ptxas -v`` log, its dynamic shared memory, and its
     HGMMA (wgmma), UTMALDG (TMA load) and USETMAXREG instructions counted in
     the library's SASS with cuobjdump.  Fails before any launch if an
     instance is missing, spills, or has no HGMMA or no UTMALDG, if ptxas
     serialized a wgmma or ignored a setmaxnreg, or if dkv's or a #9a
-    instance's entry registers are not the count its setmaxnreg balances."""
+    instance's entry registers are not the count its setmaxnreg balances.
+    Returns the facts by instance."""
     from tiny_audio_tpu_torch import kernels
 
     for line in log.splitlines():
@@ -783,11 +800,16 @@ def hopper_design_facts(log: str) -> None:
     dkv_entry_registers = lib.ta_attention_bwd_sm90_dkv_entry_registers()
     # likewise #9a's instances, whose setmaxnreg split assumes this count
     variant_entry_registers = lib.ta_encoder_attention_variant_entry_registers()
+    facts = {}
     for inst in sorted(SM90_INSTANCES):
         if inst[0] == SM90_KERNEL:
             smem = lib.ta_attention_sm90_smem_bytes(inst[1], inst[2])
         elif inst[0] == FFN_KERNEL:
             smem = lib.ta_encoder_ffn_smem_bytes()
+        elif inst[0] == PIPE_KERNEL:  # at the bench's K = 1,024, B = NB
+            from tiny_audio_tpu_torch.ops.wq_head_variants import pipe_plan
+
+            smem = pipe_plan(inst[1], 1024, 151936).smem
         elif inst[0] == VARIANT_KERNEL:  # at the bench's T = 1,536
             from tiny_audio_tpu_torch.ops.encoder_attention_variants import MODES
 
@@ -808,6 +830,9 @@ def hopper_design_facts(log: str) -> None:
                 ptxas[inst]["registers"] != entry or not counts[inst]["USETMAXREG"]):
             fail(f"{instance_text(inst)} enters with {ptxas[inst]['registers']} registers and "
                  f"{counts[inst]['USETMAXREG']} USETMAXREG; its setmaxnreg balances {entry}")
+        facts[inst] = {**ptxas[inst], "dynamic_smem_bytes": smem,
+                       **{f"sass_{op}": counts[inst][op] for op in ops}}
+    return facts
 
 
 def prefill_at_bench_batch(gen: torch.Generator) -> None:
@@ -2658,15 +2683,20 @@ def encoder_variants_phase(reset_counts, read_counts) -> dict:
     return {"stats": stats, "launches": counts["encoder_attention_variant"]}
 
 
-def a8_checks(x, w_i8, scale) -> dict:
-    """#9c bitwise its plain version beyond the tool's sweep: at the bench
-    shape for every A8_CHECK_BATCHES row count (fresh x), at ragged N (the
-    last 128-channel tile part-filled, and a narrow product whose K is
-    split), and replayed from a CUDA graph.  Returns {label: launches}."""
+def given_x_checks(kind: str, x, w_i8, scale) -> dict:
+    """#9c (``kind`` "a8", the weight [K, N]) or #9d ("a8t", [N, K]) bitwise
+    its plain version beyond the tool's sweep: at the bench shape for every
+    A8_CHECK_BATCHES row count (fresh x), at ragged N (the last tile
+    part-filled, and a narrow product whose K is split), and replayed from a
+    CUDA graph; one launch per call (64 rows or fewer).  Returns {label:
+    launches and plan}."""
     from tiny_audio_tpu_torch.ops.wq_head import w8a8_matmul_plain
-    from tiny_audio_tpu_torch.ops.wq_head_variants import a8_matmul
+    from tiny_audio_tpu_torch.ops.wq_head_variants import a8_matmul, a8t_matmul
     from tiny_audio_tpu_torch.ops.wq_matmul import int8_split_plan
 
+    fn, label = {"a8": (a8_matmul, "a8_matmul (#9c)"),
+                 "a8t": (a8t_matmul, "a8t_matmul (#9d)")}[kind]
+    layout = (lambda w: w) if kind == "a8" else (lambda w: w.T.contiguous())  # noqa: E731
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     k = x.shape[1]
     cases = [(f"B={b}", (torch.randn((b, k), generator=gen, device="cuda") * 2).to(torch.bfloat16),
@@ -2675,44 +2705,110 @@ def a8_checks(x, w_i8, scale) -> dict:
         w = w_i8[:, :n].contiguous()
         cases.append((f"B=17 N={n}", cases[2][1], w, scale[:n].contiguous()))
     done = {}
-    for label, xb, w, sc in cases:
-        before = a8_matmul.launches
-        got = a8_matmul(xb, w, sc)
+    for case, xb, w, sc in cases:
+        before = fn.launches
+        got = fn(xb, layout(w), sc)
         want = w8a8_matmul_plain(xb, w.T, sc)
         if not same_bytes(got, want):
-            fail(f"a8_matmul (#9c) is not bitwise its plain version at {label}: "
+            fail(f"{label} is not bitwise its plain version at {case}: "
                  f"{(got.float() - want.float()).abs().max().item()}")
-        plan = int8_split_plan(min(xb.shape[0], 64), k, w.shape[1], "a8")
-        done[label] = {"launches": a8_matmul.launches - before, "splits": plan.splits,
-                       "tiles": plan.tiles}
-    xg = x.clone()
-    static = a8_matmul(xg, w_i8, scale)
+        plan = int8_split_plan(min(xb.shape[0], 64), k, w.shape[1], kind)
+        done[case] = {"launches": fn.launches - before, "splits": plan.splits,
+                      "tiles": plan.tiles}
+        if done[case]["launches"] != 1:
+            fail(f"{label} launched {done[case]['launches']} times at {case}")
+    xg, wl = x.clone(), layout(w_i8)
+    static = fn(xg, wl, scale)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        static = a8_matmul(xg, w_i8, scale)
+        static = fn(xg, wl, scale)
     for xb in (cases[3][1], x):  # another x of 48 rows, then the tool's
         xg.copy_(xb)
         graph.replay()
         torch.cuda.synchronize()
         if not same_bytes(static, w8a8_matmul_plain(xb, w_i8.T, scale)):
-            fail("a8_matmul (#9c) replayed from a CUDA graph is not bitwise its plain version")
-    print(f"a8_matmul (#9c) bitwise_vs_plain=true cases={json.dumps(done)} graph_replays=2 "
+            fail(f"{label} replayed from a CUDA graph is not bitwise its plain version")
+    print(f"{label} bitwise_vs_plain=true cases={json.dumps(done)} graph_replays=2 "
           f"graph_bitwise=true")
     return done
 
 
-def wq_head_variants_phase(int8_ptxas: dict, reset_counts, read_counts) -> dict:
+def pipe_checks(x, w_i8, scale) -> float:
+    """#9b within #6's tolerance of its plain version beyond the tool's
+    sweep (B = 1, 4, 17 and 48 on fresh x at the bench shape, and B = 17 at
+    ragged N), and bitwise repeatable: a second call, and a CUDA graph
+    replayed on the tool's x and on another, each equal to an eager call's
+    bits.  Returns the largest error against the plain version."""
+    from tiny_audio_tpu_torch.ops.wq_head_variants import wq_matmul_pipe
+    from tiny_audio_tpu_torch.ops.wq_matmul import WQ_ATOL, WQ_RTOL, wq_matmul_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    k = x.shape[1]
+    xs = {b: (torch.randn((b, k), generator=gen, device="cuda") * 2).to(torch.bfloat16)
+          for b in (1, 4, 17, 48)}
+    cases = [(f"B={b}", xb, w_i8, scale) for b, xb in xs.items()]
+    cases += [(f"B=17 N={n}", xs[17], w_i8[:, :n].contiguous(), scale[:n].contiguous())
+              for n in A8_RAGGED_N]
+    worst = 0.0
+    for case, xb, w, sc in cases:
+        got, want = wq_matmul_pipe(xb, w, sc), wq_matmul_plain(xb, w, sc)
+        diff = (got.float() - want.float()).abs()
+        worst = max(worst, diff.max().item())
+        if not bool((diff <= WQ_ATOL + WQ_RTOL * want.float().abs()).all()) or \
+                not bool(torch.isfinite(got).all()):
+            fail(f"wq_matmul_pipe (#9b) disagrees with its plain version at {case}: "
+                 f"{diff.max().item()}")
+        if not same_bytes(got, wq_matmul_pipe(xb, w, sc, 16384)):
+            fail(f"wq_matmul_pipe (#9b) is not bitwise repeatable at {case}")
+    xg = x.clone()
+    static = wq_matmul_pipe(xg, w_i8, scale)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = wq_matmul_pipe(xg, w_i8, scale)
+    for xb in (x, xs[48]):
+        xg.copy_(xb)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not same_bytes(static, wq_matmul_pipe(xb, w_i8, scale)):
+            fail("wq_matmul_pipe (#9b) replayed from a CUDA graph differs from an eager call")
+    print(f"wq_matmul_pipe (#9b) within_wq_tolerance=true max_abs_err_vs_plain={worst!r} "
+          f"cases={json.dumps([c[0] for c in cases])} repeat_bitwise=true graph_replays=2 "
+          f"graph_bitwise=true")
+    return worst
+
+
+def alone_times(calls: dict) -> dict:
+    """Each of ``calls`` (name -> one launch of a kernel alone, its inputs
+    and output made beforehand) from a CUDA graph of VARIANT_REPS launches
+    and back to back (CUDA events over VARIANT_REPS launches): name ->
+    {"graph_ms", "back_to_back_ms"}."""
+    return {name: {"graph_ms": graph_ms(fn, VARIANT_REPS),
+                   "back_to_back_ms": cuda_ms(fn, VARIANT_REPS)} for name, fn in calls.items()}
+
+
+def wq_head_variants_phase(int8_ptxas: dict, sm90_facts: dict, library_ms, reset_counts,
+                           read_counts) -> dict:
     """Kernels #9b-#9d through their entry point, the port's
     tools/bench_wq_head.py at scripts/bench_wq_head.py's shape, every sweep
     point: #9c and #9d bitwise their plain versions, #9b within #6's
-    tolerance; #9c also at more row counts, ragged N and from a CUDA graph
-    (``a8_checks``); then each one's plain time and bound at the script's
-    numerics points, nc = 8192 (#9b) and nt = 2048 (#9c, #9d), and #9c timed
-    alone (on x quantized beforehand) and through its entry point, back to
-    back and from a CUDA graph, beside its previous design and #5 and #6 at
-    B = 48."""
+    tolerance; #9c and #9d also at more row counts, ragged N and from a CUDA
+    graph (``given_x_checks``), #9b at more row counts and ragged N, bitwise
+    repeatable and from a graph (``pipe_checks``); then each one's plain
+    time and bound at the script's numerics points, nc = 8192 (#9b) and nt =
+    2048 (#9c, #9d), and each kernel timed alone (#9c and #9d on x quantized
+    beforehand) from a CUDA graph and back to back beside its previous
+    design, its bound and, from graphs at B = 48, #5, #6, #9c and bf16
+    ``F.linear`` (#9b also ``torch._weight_int8pack_mm``, ``library_ms``),
+    and again at B = 1 beside #5 and #6."""
+    import torch.nn.functional as F
+
     from tiny_audio_tpu_torch.ops.wq_head import quantize_act, w8a8_matmul, w8a8_matmul_plain
-    from tiny_audio_tpu_torch.ops.wq_head_variants import a8_matmul, launch_a8
+    from tiny_audio_tpu_torch.ops.wq_head_variants import (
+        launch_a8,
+        launch_a8t,
+        launch_pipe,
+        pipe_plan,
+    )
     from tiny_audio_tpu_torch.ops.wq_matmul import int8_split_plan, wq_matmul, wq_matmul_plain
     from tiny_audio_tpu_torch.tools import bench_wq_head as tool
 
@@ -2729,7 +2825,9 @@ def wq_head_variants_phase(int8_ptxas: dict, reset_counts, read_counts) -> dict:
             fail(f"{name} disagrees with its plain version ({p['rule']}): {p['max_abs_err_vs_plain']}")
     d = r["inputs"]
     x, w_i8, wt_i8, scale = d["x"], d["w_i8"], d["wt_i8"], d["scale"]
-    a8_checks(x, w_i8, scale)
+    given_x_checks("a8", x, w_i8, scale)
+    given_x_checks("a8t", x, w_i8, scale)
+    pipe_err = pipe_checks(x, w_i8, scale)
     x_i8, sx = quantize_act(x)
     sx = sx.reshape(-1).contiguous()
     out = torch.empty((x.shape[0], scale.shape[0]), dtype=torch.bfloat16, device=x.device)
@@ -2745,46 +2843,76 @@ def wq_head_variants_phase(int8_ptxas: dict, reset_counts, read_counts) -> dict:
         group = [p for n, p in r["products"].items() if n.split()[0] == label.split()[0]]
         entries[kernel] = {
             "max_abs_err": max(p["max_abs_err_vs_plain"] for p in group),
-            "ms": r["products"][label]["ms"], "plain_ms": cuda_ms(lambda: plain(*args), 5),
+            "entry_ms": r["products"][label]["ms"], "plain_ms": cuda_ms(lambda: plain(*args), 5),
             **bound(moved, ops, peak), "library_ms": None}
-    # #9c alone and through its entry point, and #5 / #6 at B = 48, from graphs
+    entries["wq_matmul_pipe"].update(max_abs_err=max(entries["wq_matmul_pipe"]["max_abs_err"],
+                                                     pipe_err), library_ms=library_ms)
+    # each kernel alone, and the yardsticks at B = 48, from graphs
     reset_counts()
-    alone = lambda: launch_a8(x_i8, sx, w_i8, scale, out)  # noqa: E731
-    a8 = entries["a8_matmul"]
-    a8.update(entry_ms=a8["ms"], ms=graph_ms(alone, VARIANT_REPS),
-              back_to_back_ms=cuda_ms(alone, VARIANT_REPS),
-              entry_graph_ms=graph_ms(lambda: a8_matmul(x, w_i8, scale), VARIANT_REPS))
+    alone = alone_times({
+        "wq_matmul_pipe": lambda: launch_pipe(x, w_i8, scale, out),
+        "a8_matmul": lambda: launch_a8(x_i8, sx, w_i8, scale, out),
+        "a8t_matmul": lambda: launch_a8t(x_i8, sx, wt_i8, scale, out)})
+    w_linear = d["w"].T.contiguous()
     yard = {"w8a8_matmul (#5)": graph_ms(lambda: w8a8_matmul(x, wt_i8, scale), VARIANT_REPS),
-            "wq_matmul (#6)": graph_ms(lambda: wq_matmul(x, w_i8, scale), VARIANT_REPS)}
-    plan = int8_split_plan(x.shape[0], x.shape[1], scale.shape[0], "a8")
-    nt = next(c for c in (1, 2, 4, 6, 8) if x.shape[0] <= 8 * c)
-    inst = (2, nt, plan.warps_n, int(nt >= 4 and plan.units > 256))
-    sweep = {name: p["ms"] for name, p in r["products"].items() if name.startswith("a8 ")}
-    sweep_graph = {name: p["graph_ms"] for name, p in r["products"].items()
-                   if name.startswith("a8 ")}
-    print(f"a8_matmul (#9c) at B={x.shape[0]} K={x.shape[1]} N={scale.shape[0]}: "
-          f"kernel_graph_ms={a8['ms']!r} kernel_ms={a8['back_to_back_ms']!r} "
-          f"entry_point_ms={a8['entry_ms']!r} entry_point_graph_ms={a8['entry_graph_ms']!r} "
-          f"sweep_entry_point_ms={json.dumps(sweep)} "
-          f"sweep_entry_point_graph_ms={json.dumps(sweep_graph)} "
-          f"previous_design_ms={PREVIOUS_VARIANT_MS['a8_matmul']!r} "
-          f"bound_ms={a8['bound_ms']!r} share_of_bound={a8['bound_ms'] / a8['ms']!r} "
-          f"w8a8_matmul_ms={r['products']['w8a8 shipped (#5)']['ms']!r} "
-          f"wq_matmul_ms={r['products']['wq shipped (#6)']['ms']!r} "
-          f"graph_ms={json.dumps(yard)} plan={json.dumps(plan._asdict())} "
-          f"instance=split_matmul_kernel<KIND={INT8_KINDS[2]}, NT={inst[1]}, WN={inst[2]}, "
-          f"SHALLOW={bool(inst[3])}> ptxas={json.dumps(int8_ptxas[inst])}")
+            "wq_matmul (#6)": graph_ms(lambda: wq_matmul(x, w_i8, scale), VARIANT_REPS),
+            "a8_matmul alone (#9c)": alone["a8_matmul"]["graph_ms"],
+            "bf16 F.linear": graph_ms(lambda: F.linear(x, w_linear), VARIANT_REPS),
+            "torch._weight_int8pack_mm": library_ms}
+    del w_linear
+    b, k, n = x.shape[0], x.shape[1], scale.shape[0]
+    # the same kernels at B = 1: the same weight bytes, 48 times fewer products
+    x1, out1 = x[:1].contiguous(), out[:1]
+    x1_i8, sx1 = quantize_act(x1)
+    sx1 = sx1.reshape(-1).contiguous()
+    one = alone_times({
+        "wq_matmul_pipe": lambda: launch_pipe(x1, w_i8, scale, out1),
+        "a8_matmul": lambda: launch_a8(x1_i8, sx1, w_i8, scale, out1),
+        "a8t_matmul": lambda: launch_a8t(x1_i8, sx1, wt_i8, scale, out1),
+        "wq_matmul (#6)": lambda: wq_matmul(x1, w_i8, scale),
+        "w8a8_matmul (#5)": lambda: w8a8_matmul(x1, wt_i8, scale)})
+    one_bound = bound(nbytes(x1_i8, sx1, w_i8, scale, out1), 2.0 * k * n, INT8_TENSOR_OPS)
+    print(f"wq_head variants alone at B=1 K={k} N={n}: graph_ms="
+          f"{json.dumps({name: t['graph_ms'] for name, t in one.items()})} back_to_back_ms="
+          f"{json.dumps({name: t['back_to_back_ms'] for name, t in one.items()})} "
+          f"bound_ms={one_bound['bound_ms']!r} bound_by={one_bound['bound_by']}")
+    nt = next(c for c in (1, 2, 4, 6, 8) if b <= 8 * c)
+    for name, label in (("wq_matmul_pipe", "pipe"), ("a8_matmul", "a8"), ("a8t_matmul", "a8t")):
+        e = entries[name]
+        e.update(ms=alone[name]["graph_ms"], back_to_back_ms=alone[name]["back_to_back_ms"])
+        sweep = {p_name: p["ms"] for p_name, p in r["products"].items()
+                 if p_name.split()[0] == label}
+        sweep_graph = {p_name: p["graph_ms"] for p_name, p in r["products"].items()
+                       if p_name.split()[0] == label}
+        if name == "wq_matmul_pipe":
+            plan = pipe_plan(b, k, n, torch.cuda.get_device_properties(0).multi_processor_count)
+            design = (f"plan={json.dumps(plan._asdict())} instance=wq_pipe_sm90<NB={plan.nb}> "
+                      f"facts={json.dumps(sm90_facts[(PIPE_KERNEL, plan.nb)])}")
+        else:
+            plan = int8_split_plan(b, k, n, label)
+            inst = ({"a8": 2, "a8t": 3}[label], nt, plan.warps_n,
+                    int(nt >= 4 and plan.units > 256))
+            design = (f"plan={json.dumps(plan._asdict())} instance=split_matmul_kernel<"
+                      f"KIND={INT8_KINDS[inst[0]]}, NT={inst[1]}, WN={inst[2]}, "
+                      f"SHALLOW={bool(inst[3])}> ptxas={json.dumps(int8_ptxas[inst])}")
+        print(f"{name} at B={b} K={k} N={n}: kernel_graph_ms={e['ms']!r} "
+              f"kernel_ms={e['back_to_back_ms']!r} sweep_entry_point_ms={json.dumps(sweep)} "
+              f"sweep_entry_point_graph_ms={json.dumps(sweep_graph)} "
+              f"previous_design_ms={PREVIOUS_VARIANT_MS[name]!r} bound_ms={e['bound_ms']!r} "
+              f"bound_by={e['bound_by']} share_of_bound={e['bound_ms'] / e['ms']!r} "
+              f"plain_ms={e['plain_ms']!r} library_ms={e['library_ms']!r} "
+              f"yardsticks_graph_ms={json.dumps(yard)} {design}")
     print("wq_head variants at the script's numerics points "
-          + " ".join(f"{n}_ms={e['ms']!r} {n}_previous_ms={PREVIOUS_VARIANT_MS[n]!r} "
-                     f"{n}_plain_ms={e['plain_ms']!r} "
-                     f"{n}_bound_ms={e['bound_ms']!r}" for n, e in entries.items())
+          + " ".join(f"{n_}_entry_ms={e['entry_ms']!r} {n_}_plain_ms={e['plain_ms']!r} "
+                     f"{n_}_bound_ms={e['bound_ms']!r}" for n_, e in entries.items())
           + f" bf16_linear_ms={r['products']['bf16 dot']['ms']!r} "
           f"wq_matmul_ms={r['products']['wq shipped (#6)']['ms']!r} "
           f"w8a8_matmul_ms={r['products']['w8a8 shipped (#5)']['ms']!r} "
-          f"launches={json.dumps(counts)} (no PyTorch call computes these int8 functions)")
+          f"launches={json.dumps(counts)} (no PyTorch call computes #9c's or #9d's int8 x int8 "
+          f"product with both scales)")
     del r, d, x, w_i8, wt_i8, out
     torch.cuda.empty_cache()
-    return {"stats": entries, "launches": {n: counts[n] for n in mine}}
+    return {"stats": entries, "launches": {n_: counts[n_] for n_ in mine}}
 
 
 def main() -> None:
@@ -2805,7 +2933,7 @@ def main() -> None:
     ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     print(f"build nvcc_s={nvcc_s!r} total_s={time.perf_counter() - t0!r} "
           f"ptxas={json.dumps(ptxas)}")
-    hopper_design_facts(log)
+    sm90_facts = hopper_design_facts(log)
     decode_design_facts(log)
     int8_ptxas = int8_design_facts(log)
     mel_ptxas = mel_design_facts(log)
@@ -3150,7 +3278,8 @@ def main() -> None:
     # ---- 13. kernels #9a-#9d through the two bench entry points ----
     variants_9a = encoder_variants_phase(reset_counts, read_counts)
     phase_done()
-    variants_9bcd = wq_head_variants_phase(int8_ptxas, reset_counts, read_counts)
+    variants_9bcd = wq_head_variants_phase(int8_ptxas, sm90_facts, int8pack.get(BENCH_BATCH),
+                                           reset_counts, read_counts)
     phase_done()
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax",

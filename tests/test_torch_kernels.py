@@ -1344,6 +1344,28 @@ def test_wq_matmul_pipe_kernel_matches_plain(cuda_device, b, k, n):
         torch.testing.assert_close(got.float(), want.float(), atol=WQ_ATOL, rtol=WQ_RTOL)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,n", HEAD_SHAPES + [(17, 1024, 151936), (1, 2048, 4096)])
+def test_wq_matmul_pipe_kernel_is_repeatable_and_replays_bitwise(cuda_device, b, k, n):
+    """#9b sums in one fixed order (no split, no atomics): two calls and a
+    CUDA graph replay on a new x give the same bits as eager calls."""
+    x, w_i8, scale = _head_inputs(cuda_device, b, k, n, n + 2)
+    first = wq_matmul_pipe(x, w_i8, scale)
+    assert torch.equal(first.view(torch.int16), wq_matmul_pipe(x, w_i8, scale, 512).view(torch.int16))
+    xg = x.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = wq_matmul_pipe(xg, w_i8, scale)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static.view(torch.int16), first.view(torch.int16))
+    xg.copy_(x.flip(0))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static.view(torch.int16),
+                       wq_matmul_pipe(x.flip(0), w_i8, scale).view(torch.int16))
+
+
 # #9c at the bench shape for every row count its instances take, at ragged N
 # (the head's last 128-channel tile part-filled; a narrow product with K split)
 # and past 64 rows (two launches)
@@ -1355,8 +1377,8 @@ A8_SHAPES = HEAD_SHAPES + [(b, 1024, 151936) for b in (1, 4, 17, 64)] + [
 @pytest.mark.parametrize("b,k,n", A8_SHAPES)
 def test_a8_kernels_are_plain_bitwise(cuda_device, b, k, n):
     """#9c ([K, N] weight) and #9d ([N, K]) equal their plain versions bit
-    for bit: integer sums, the same epilogue order; #9c also replayed from a
-    CUDA graph on a new x."""
+    for bit: integer sums, the same epilogue order; both launch once per 64
+    rows (kinds of the split design) and replay from a CUDA graph on a new x."""
     x, w_i8, scale = _head_inputs(cuda_device, b, k, n, n + 1)
     wt_i8 = w_i8.T.contiguous()
     want = w8a8_matmul_plain(x, wt_i8, scale)  # #5's function
@@ -1364,14 +1386,16 @@ def test_a8_kernels_are_plain_bitwise(cuda_device, b, k, n):
     for nt in (2048, 4096, 8192, 64):
         before = (a8_matmul.launches, a8t_matmul.launches)
         got_c, got_d = a8_matmul(x, w_i8, scale, nt), a8t_matmul(x, wt_i8, scale, nt)
-        assert (a8_matmul.launches, a8t_matmul.launches) == (before[0] + launches, before[1] + 1)
+        assert (a8_matmul.launches, a8t_matmul.launches) == (before[0] + launches,
+                                                             before[1] + launches)
         assert torch.equal(got_c, want) and torch.equal(got_d, want)
-    xg = x.clone()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        static = a8_matmul(xg, w_i8, scale)
-    xg.copy_(x.flip(0))
-    graph.replay()
-    torch.cuda.synchronize()
-    assert torch.equal(static.view(torch.int16),
-                       w8a8_matmul_plain(x.flip(0), wt_i8, scale).view(torch.int16))
+    for fn, w in ((a8_matmul, w_i8), (a8t_matmul, wt_i8)):
+        xg = x.clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = fn(xg, w, scale)
+        xg.copy_(x.flip(0))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static.view(torch.int16),
+                           w8a8_matmul_plain(x.flip(0), wt_i8, scale).view(torch.int16))

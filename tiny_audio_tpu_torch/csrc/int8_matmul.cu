@@ -24,9 +24,14 @@
 //   ta_a8t_matmul   kernel #9d, replaces scripts/bench_wq_head.py:184
 //                   (build_a8t(nt), pallas_call :197, body _a8t_kernel
 //                   :174): #5's product on an activation quantized
-//                   beforehand (x_i8, sx), one block per nt output channels,
-//                   on the CUDA-core tiles #5 had before its redesign (kept:
-//                   the port's counterpart of the TPU script's variant).
+//                   beforehand (x_i8, sx) and #5's weight layout, wt [N, K];
+//                   bitwise w8a8_matmul_xla.  The fourth kind of the split
+//                   design below (A8T): #5's stage and products, #9c's
+//                   given x_i8 and sx.  Its first design (CUDA-core __dp4a
+//                   tiles, one block per nt channels, x re-read every 16
+//                   rows) took 1.6 ms at the bench shape, this kind ~0.09
+//                   ms from a CUDA graph (~0.57 of its bound; #9c ~0.086,
+//                   ~0.59; H100 80GB HBM3, 700 W, chip_smoke.py).
 //
 // The bound on the H100: a product reads each weight byte once and, at the
 // decode batch, does 2 B operations with it, far below the card's ridge, so
@@ -44,8 +49,9 @@
 // pipe) and both ran their products on the CUDA cores.
 //
 // The design here (one launch a product, any B up to 64 in one pass), for
-// three kinds of product: W8A8 (#5), WQ (#6) and A8 (#9c: #6's [K, N] stage
-// layout with #5's s8 products and no quantizing prologue):
+// four kinds of product: W8A8 (#5), WQ (#6), A8 (#9c: #6's [K, N] stage
+// layout with #5's s8 products and no quantizing prologue) and A8T (#9d:
+// #5's [N, K] stage and products, no quantizing prologue):
 //
 //   - a split over K sized by the launch (ops/wq_matmul.py int8_split_plan,
 //     from shapes only): a product whose 32-channel tiles number 64 or more
@@ -55,23 +61,23 @@
 //     units were no faster than 128.
 //     A block is 4 warps; a warp owns a sub-tile of 32 output channels x 32
 //     k a stage, and the block's warps stand WN across the channels and
-//     4 / WN along k (#5: WN = 1, 32 channels x 128 k a stage; #6: WN = 4
-//     for the head, 128 channels x 32 k, WN = 1 for the layers): 128-byte
+//     4 / WN along k (#5, #9d: WN = 1, 32 channels x 128 k a stage; #6: WN =
+//     4 for the head, 128 channels x 32 k, WN = 1 for the layers): 128-byte
 //     runs of each weight row but #6's layers' 32-byte ones.  Blocks are
 //     persistent: the grid is at most what the SMs hold at once, and a
 //     block walks its units;
 //   - the weights stream through a ring of ~48 KB of stages in shared memory
 //     by 16-byte cp.async.cg copies (zero-filled past K and N), issued
-//     before #5 quantizes the activation (#9c loads its x_i8 and sx), so that
-//     runs under the copies; the
+//     before #5 quantizes the activation (#9c and #9d load their x_i8 and
+//     sx), so that runs under the copies; the
 //     ring runs on across a block's units, so a unit's epilogue overlaps the
 //     next unit's copies.  Each 128-byte run of a row lands in one 128-byte
 //     span of the stage (stage_offset: on the H100 a run spread over four
 //     sub-tiles slowed the head markedly), its chunks XOR-permuted so the
-//     products' reads hit 32 banks.  #6's activation rows ride in the same stages.  #5 at
-//     32 rows or more, whose quantized activation and sums take ~75 KB,
-//     uses a ring half as deep where its blocks walk many units (the head),
-//     so that two blocks share an SM;
+//     products' reads hit 32 banks.  #6's activation rows ride in the same
+//     stages.  The s8 kinds at 32 rows or more, whose int8 activation and
+//     sums take ~75 KB, use a ring half as deep where their blocks walk many
+//     units (the head), so that two blocks share an SM;
 //   - #5's prologue: every block takes each row's amax over the whole K (sx
 //     must be bitwise quantize_act's) and quantizes only its split's chunk.
 //     Above 8 rows, where a product has splits, a cluster of 4 blocks shares
@@ -79,7 +85,8 @@
 //     others' maxima from their shared memory);
 //   - tensor-core products, weights as the MMA's 16 rows (output channels)
 //     and the batch as its 8 columns (B padded to 8): #5 mma.sync m16n8k32
-//     s8 -> s32 on the [N, K] rows; #9c the same MMA on the [K, N] stage, an
+//     s8 -> s32 on the [N, K] rows (#9d the same); #9c the same MMA on the
+//     [K, N] stage, an
 //     A register (four k of one channel) made from four words of four k
 //     rows (four channels each) by a 4 x 4 byte transpose (__byte_perm,
 //     8 a group of 16 bytes); #6 mma.sync m16n8k16 bf16 -> fp32, the
@@ -90,15 +97,15 @@
 //     tile, #9c from each of 8), no ldmatrix: a thread's A register j of the
 //     s8 MMA holds k 8t + 4 (j / 2) .. + 3 of the warp's 32, and its B
 //     registers the same k of x_i8 read as one 8-byte word of the natural
-//     row (#5 and #9c alike).  wgmma (64 output channels as its A operand, x
-//     as B in shared memory) was not tried: the bytes bound these products,
-//     and mma.sync needs no descriptor layouts;
+//     row (#5, #9c and #9d alike).  wgmma (64 output channels as its A
+//     operand, x as B in shared memory) is #9b's design
+//     (int8_matmul_variants.cu, TMA-fed), not this one's;
 //   - one deterministic merge inside the launch: a block with more than one
-//     split writes its part (int32 for #5 and #9c, fp32 for #6) to a scratch the
+//     split writes its part (int32 for the s8 kinds, fp32 for #6) to a scratch the
 //     wrapper allocates, fences, and counts itself on its tile's counter;
 //     the last one sums the parts in split order (read with __ldcg: other
-//     SMs' writes never reach this SM's L1) and writes the output.  #5 and
-//     #9c stay bitwise; #6 is repeatable run to run.  The counters are the wrapper's
+//     SMs' writes never reach this SM's L1) and writes the output.  #5, #9c
+//     and #9d stay bitwise; #6 is repeatable run to run.  The counters are the wrapper's
 //     (per device, never freed: a captured graph keeps their address), and
 //     every launch leaves them zero.
 //
@@ -118,6 +125,7 @@
 
 namespace {
 
+using ta::i8x2_to_bf16x2;
 using ta::mma_16816;
 using ta::sm90::cp_async_16_zfill;
 using ta::sm90::cp_async_commit;
@@ -145,12 +153,13 @@ cudaError_t allow_smem(Kernel kernel, int bytes, int& allowed) {
   return err;
 }
 
-// -------------------------------------------- the split design (#5, #6, #9c)
+// --------------------------------------- the split design (#5, #6, #9c, #9d)
 
 // the kinds of product (the template's first argument)
 constexpr int WQ = 0;    // #6: bf16 x, [K, N] weight, fp32 sums
 constexpr int W8A8 = 1;  // #5: bf16 x quantized in the launch, [N, K] weight, int32 sums
 constexpr int A8 = 2;    // #9c: x_i8 and sx given, [K, N] weight, int32 sums
+constexpr int A8T = 3;   // #9d: x_i8 and sx given, [N, K] weight, int32 sums
 
 constexpr int THREADS = 128;             // 4 warps
 constexpr int SUB = 32;                  // output channels and k of a warp's sub-tile
@@ -164,16 +173,16 @@ constexpr int AMAX_BATCH = 8;            // #5: 16-byte loads of x a thread has 
 // the amax (each block reads B / AMAX_CLUSTER rows of x instead of B)
 constexpr int AMAX_SHARE_ROWS = 8;
 constexpr unsigned AMAX_CLUSTER = 4;
-constexpr int SHALLOW_UNITS = 256;       // #5 at 32+ rows: more units take the shallow ring
+constexpr int SHALLOW_UNITS = 256;       // s8 kinds at 32+ rows: more units take the shallow ring
 
 struct SplitArgs {
   const __nv_bfloat16* x;  // [B, K] (#5, #6)
-  const int8_t* x_i8;      // [B, K] and sx [B] (#9c)
+  const int8_t* x_i8;      // [B, K] and sx [B] (#9c, #9d)
   const float* sx;
-  const int8_t* w;         // #5: [N, K]; #6, #9c: [K, N]
+  const int8_t* w;         // #5, #9d: [N, K]; #6, #9c: [K, N]
   const float* scale;      // [N]
   __nv_bfloat16* out;      // [B, N]
-  void* partial;           // [splits, B, n_part] int32 (#5, #9c) or fp32 (#6); null with one split
+  void* partial;           // [splits, B, n_part] int32 (s8 kinds) or fp32 (#6); null with one split
   int* counters;           // [tiles], zero between launches
   int B, K, N;
   int split_k;             // k of a split, a multiple of a stage's k
@@ -192,13 +201,13 @@ struct Layout {
   static constexpr int STAGE_X = S8 ? 0 : WK * BP * 64;
   static constexpr int STAGE = STAGE_W + STAGE_X;
   // the ring's depth: about RING_BYTES of stages, 3 to 12; SHALLOW: half as
-  // deep (#5, #9c at 32 rows or more when the blocks walk many units: launch_nt)
+  // deep (#5, #9c, #9d at 32 rows or more when the blocks walk many units: launch_nt)
   static constexpr int STAGES =
       std::min(12, std::max(3, (SHALLOW ? RING_BYTES / 2 : RING_BYTES) / STAGE));
   static constexpr int RING = STAGES * STAGE;
   static constexpr int RED = WK * BP * TN * 4;  // the warps' sums, [wk][BP][TN]
-  // #5, #9c after these: x_i8 [BP][split_k + X_PAD], sx [64] fp32; #5 the
-  // warps' amax [4][64]
+  // #5, #9c, #9d after these: x_i8 [BP][split_k + X_PAD], sx [64] fp32; #5
+  // the warps' amax [4][64]
   static int smem(int split_k) {
     return RING + RED + (S8 ? BP * (split_k + X_PAD) + 64 * 4 : 0) +
            (KIND == W8A8 ? 4 * 64 * 4 : 0);
@@ -221,25 +230,12 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// bf16 pair (byte J of lo, byte J of hi), each an int8 v, exactly: the bf16
-// 0x4300 | (v & 127) is 128 + (v & 127), and 0x4300 | (v & 128) is 128 or,
-// for v < 0, 256; their difference is v.
-template <int J>
-__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t lo, uint32_t hi) {
-  const uint32_t two = __byte_perm(lo, hi, J | ((4 + J) << 8));
-  const uint32_t mag = (two & 0x007F007Fu) | 0x43004300u;
-  const uint32_t off = (two & 0x00800080u) | 0x43004300u;
-  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&mag),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&off));
-  return *reinterpret_cast<const uint32_t*>(&d);
-}
-
 // Where 16-byte chunk c of tile row `row` sits in a stage.  Each row's run
 // from global memory lands in one span (the copy unit writes a returning
 // line into as few shared-memory lines as it can), and the chunks are
 // XOR-permuted so the products' reads hit 32 banks:
-//   #5: 32 channel rows x 128 k bytes, chunk c at c ^ 2 (row % 4): warp wk
-//       reads chunks 2 wk, 2 wk + 1 of 4 neighbouring rows at once;
+//   #5, #9d: 32 channel rows x 128 k bytes, chunk c at c ^ 2 (row % 4): warp
+//       wk reads chunks 2 wk, 2 wk + 1 of 4 neighbouring rows at once;
 //   #6, WN = 4: 32 k rows x 128 channel bytes, chunk c at c ^ 2 ((row / 4) %
 //       4): warp wn reads its 32 channels of rows 4 t + q, t = 0..3;
 //   #9c (WN = 4): 32 k rows x 128 channel bytes, chunk c at c ^ 2 ((row / 8)
@@ -249,7 +245,7 @@ __device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t lo, uint32_t hi) {
 //       (q) for its t and the 4 rows of a copy's quarter-warp hit 32 banks.
 template <int KIND, int WN>
 __device__ __forceinline__ int stage_offset(int row, int c) {
-  if (KIND == W8A8) return row * 128 + ((c ^ ((row & 3) << 1)) * 16);
+  if (KIND == W8A8 || KIND == A8T) return row * 128 + ((c ^ ((row & 3) << 1)) * 16);
   if (KIND == A8) return row * 128 + ((c ^ (((row >> 3) & 3) << 1)) * 16);
   if (WN == 4) return row * 128 + ((c ^ (((row >> 2) & 3) << 1)) * 16);
   const int r = row % SUB, h = r >> 4, t = (r >> 2) & 3, q = r & 3;
@@ -323,8 +319,9 @@ __device__ __forceinline__ void transpose4x4(uint32_t w0, uint32_t w1, uint32_t 
 template <int KIND, int NT, int WN, bool SHALLOW>
 __global__ void __launch_bounds__(THREADS) split_matmul_kernel(const SplitArgs a) {
   using L = Layout<KIND, NT, WN, SHALLOW>;
-  constexpr bool S8 = L::S8;           // #5, #9c: s8 products, int32 sums
-  constexpr bool KN = KIND != W8A8;    // #6, #9c: the weight is [K, N]
+  constexpr bool S8 = L::S8;           // #5, #9c, #9d: s8 products, int32 sums
+  constexpr bool KN = KIND == WQ || KIND == A8;  // #6, #9c: the weight is [K, N]
+  constexpr bool GIVEN = KIND == A8 || KIND == A8T;  // #9c, #9d: x_i8 and sx given
   using Acc = typename std::conditional<S8, int, float>::type;
   using Vec = typename std::conditional<S8, int4, float4>::type;
   constexpr int WK = L::WK, TN = L::TN, KT = L::KT, BP = L::BP, STAGES = L::STAGES;
@@ -332,7 +329,7 @@ __global__ void __launch_bounds__(THREADS) split_matmul_kernel(const SplitArgs a
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_last;
   Acc* red = reinterpret_cast<Acc*>(smem + L::RING);
-  const int xs = a.split_k + X_PAD;  // #5, #9c: bytes of an x_i8 row
+  const int xs = a.split_k + X_PAD;  // #5, #9c, #9d: bytes of an x_i8 row
   int8_t* s_x = reinterpret_cast<int8_t*>(smem + L::RING + L::RED);
   float* s_sx = reinterpret_cast<float*>(smem + L::RING + L::RED + BP * xs);
   unsigned* s_wmax = reinterpret_cast<unsigned*>(s_sx + 64);
@@ -395,7 +392,7 @@ __global__ void __launch_bounds__(THREADS) split_matmul_kernel(const SplitArgs a
 #pragma unroll 1
   for (int i = 0; i < STAGES - 1; ++i) issue();
 
-  if constexpr (KIND == A8) {  // sx as quantize_act gave it
+  if constexpr (GIVEN) {  // sx as quantize_act gave it
     if (tid < B) s_sx[tid] = __ldg(a.sx + tid);
   }
   if constexpr (KIND == W8A8) {
@@ -444,7 +441,7 @@ __global__ void __launch_bounds__(THREADS) split_matmul_kernel(const SplitArgs a
     if (size > 1) cluster_arrive();  // done with the other blocks' shared memory (wait at exit)
   }
 
-  int q_split = -1;  // #5, #9c: the split whose x_i8 is in shared memory
+  int q_split = -1;  // #5, #9c, #9d: the split whose x_i8 is in shared memory
   int c_slot = 0;
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const int tile = u % a.tiles, split = u / a.tiles;
@@ -466,7 +463,7 @@ __global__ void __launch_bounds__(THREADS) split_matmul_kernel(const SplitArgs a
             if constexpr (KIND == W8A8) {
               packed = quantize8(__ldg(reinterpret_cast<const uint4*>(a.x + (int64_t)b * K + k)),
                                  s_sx[b]);
-            } else {  // #9c: K is a multiple of 16, so 8 bytes are all in or all out
+            } else {  // #9c, #9d: K is a multiple of 16, so 8 bytes are all in or all out
               packed = __ldg(reinterpret_cast<const uint2*>(a.x_i8 + (int64_t)b * K + k));
             }
           }
@@ -490,16 +487,16 @@ __global__ void __launch_bounds__(THREADS) split_matmul_kernel(const SplitArgs a
       __syncthreads();  // the stage landed for every thread; the slot refilled below is free
       issue();
       const unsigned char* st = smem + c_slot * L::STAGE;
-      if constexpr (KIND == W8A8) {
+      if constexpr (KIND == W8A8 || KIND == A8T) {
         const int kc = s * KT + wk * SUB;  // this warp's 32 k: a column of x_i8
         const int cw = 2 * wk + (t >> 1), bw = 8 * (t & 1);  // its chunk and byte in it
         uint32_t af[2][4];
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
           const uint2 lo = *reinterpret_cast<const uint2*>(
-              st + stage_offset<W8A8, 1>(mt * 16 + g, cw) + bw);
+              st + stage_offset<KIND, 1>(mt * 16 + g, cw) + bw);
           const uint2 hi = *reinterpret_cast<const uint2*>(
-              st + stage_offset<W8A8, 1>(mt * 16 + g + 8, cw) + bw);
+              st + stage_offset<KIND, 1>(mt * 16 + g + 8, cw) + bw);
           af[mt][0] = lo.x;
           af[mt][1] = hi.x;
           af[mt][2] = lo.y;
@@ -708,7 +705,7 @@ int launch_split(const SplitArgs& a, cudaStream_t stream) {
 }
 
 // The instance for the batch: 8, 16, 32, 48 or 64 rows of x in the MMA.
-// #5 and #9c at 32 rows or more take ~75 KB of shared memory besides the
+// #5, #9c and #9d at 32 rows or more take ~75 KB of shared memory besides the
 // ring: where the blocks walk many units (more than SHALLOW_UNITS: the
 // head), the shallow ring lets two blocks share an SM (faster for #5 on the
 // H100 at B = 48); a block with one unit keeps the deep ring, every stage of
@@ -730,10 +727,11 @@ int launch_rows(const SplitArgs& a, cudaStream_t s) {
   return launch_nt<KIND, 8, WN>(a, s);
 }
 
-// The block arrangements: #5 wn = 1 ([N, K] rows), #9c wn = 4 (128-byte runs
-// of its [K, N] rows), #6 either.
+// The block arrangements: #5 and #9d wn = 1 ([N, K] rows), #9c wn = 4
+// (128-byte runs of its [K, N] rows), #6 either.
 int launch_split_design(int kind, SplitArgs a, int wn, void* stream) {
-  const bool wn_ok = kind == W8A8 ? wn == 1 : kind == A8 ? wn == 4 : wn == 1 || wn == 4;
+  const bool wn_ok = kind == W8A8 || kind == A8T ? wn == 1 : kind == A8 ? wn == 4
+                                                                        : wn == 1 || wn == 4;
   if (a.B < 1 || a.B > MAX_ROWS || a.K <= 0 || a.N <= 0 || a.K % 8 || a.split_k <= 0 ||
       !wn_ok || a.split_k % (SUB * (4 / wn)) || (kind != W8A8 && a.N % 16) ||
       (kind != WQ && a.K % 16)) {
@@ -748,6 +746,7 @@ int launch_split_design(int kind, SplitArgs a, int wn, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kind == W8A8) return launch_rows<W8A8, 1>(a, s);
   if (kind == A8) return launch_rows<A8, 4>(a, s);
+  if (kind == A8T) return launch_rows<A8T, 1>(a, s);
   return wn == 4 ? launch_rows<WQ, 4>(a, s) : launch_rows<WQ, 1>(a, s);
 }
 
@@ -770,119 +769,11 @@ SplitArgs split_args(const void* x, const void* x_i8, const void* sx, const void
   return a;
 }
 
-// ------------------------------------- #9d, and #5's first design's tiles
+// ------------------------------------------- #6's first design's tiles
 
 constexpr int MAX_PASS_ROWS = 16;          // activation rows per pass
 constexpr int SMEM_BUDGET = 200 * 1024;    // dynamic shared memory a block may take
 constexpr int BLOCKS_PER_SM = 4;
-
-constexpr int A8_WARPS = 4;
-constexpr int A8_THREADS = A8_WARPS * 32;
-constexpr int A8_HEADER = 64;  // sx[16] fp32, 16-byte aligned
-
-struct A8Args {
-  const int8_t* x_i8;      // [B, K] int8 and sx [B] fp32, quantized beforehand
-  const float* sx;
-  const int8_t* wt;        // [N, K]
-  const float* scale;      // [N]
-  __nv_bfloat16* out;      // [B, N]
-  int B, K, N;
-  int rows_per_pass;       // <= MAX_PASS_ROWS, limited by shared memory
-  int block_tiles;         // block i takes tiles [i, i + 1) * block_tiles
-};
-
-// A group of 8 lanes reads 128 contiguous bytes of a weight row per step (16
-// bytes a lane) and __dp4a's them against the int8 activations in shared
-// memory; a lane owns RPL rows, so a tile is 4 warps x 4 row groups x RPL
-// rows; the 8 lanes' int32 sums meet by shuffles.
-template <int RPL>
-__global__ void __launch_bounds__(A8_THREADS) a8t_matmul_kernel(A8Args a) {
-  constexpr int A8_TILE = A8_WARPS * 4 * RPL;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* s_sx = reinterpret_cast<float*>(smem);
-  int8_t* s_x = reinterpret_cast<int8_t*>(smem + A8_HEADER);
-  const int K = a.K, N = a.N;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int l8 = lane & 7;  // lane within its row group
-  const int tiles = (N + A8_TILE - 1) / A8_TILE;
-
-  for (int b0 = 0; b0 < a.B; b0 += a.rows_per_pass) {
-    const int bc = min(a.rows_per_pass, a.B - b0);
-    if (threadIdx.x < bc) s_sx[threadIdx.x] = a.sx[b0 + threadIdx.x];
-    for (int i = threadIdx.x * 16; i < bc * K; i += A8_THREADS * 16) {
-      *reinterpret_cast<int4*>(s_x + i) =
-          *reinterpret_cast<const int4*>(a.x_i8 + (int64_t)b0 * K + i);
-    }
-    __syncthreads();
-
-    const int first = blockIdx.x * a.block_tiles;
-    const int last = min(tiles, first + a.block_tiles);
-    for (int tile = first; tile < last; ++tile) {
-      const int n0 = tile * A8_TILE + warp * 4 * RPL + (lane >> 3) * RPL;
-      const int8_t* wrow[RPL];
-      bool ok[RPL];
-#pragma unroll
-      for (int r = 0; r < RPL; ++r) {
-        ok[r] = n0 + r < N;
-        wrow[r] = a.wt + (int64_t)(ok[r] ? n0 + r : 0) * K;
-      }
-      int acc[RPL][MAX_PASS_ROWS];
-#pragma unroll
-      for (int r = 0; r < RPL; ++r) {
-#pragma unroll
-        for (int b = 0; b < MAX_PASS_ROWS; ++b) acc[r][b] = 0;
-      }
-#pragma unroll 2
-      for (int k = l8 * 16; k < K; k += 128) {
-        int4 w[RPL];
-#pragma unroll
-        for (int r = 0; r < RPL; ++r) {
-          w[r] = ok[r] ? __ldg(reinterpret_cast<const int4*>(wrow[r] + k)) : make_int4(0, 0, 0, 0);
-        }
-#pragma unroll
-        for (int b = 0; b < MAX_PASS_ROWS; ++b) {
-          if (b < bc) {
-            const int4 xv = *reinterpret_cast<const int4*>(s_x + b * K + k);
-#pragma unroll
-            for (int r = 0; r < RPL; ++r) {
-              int s = acc[r][b];
-              s = __dp4a(w[r].x, xv.x, s);
-              s = __dp4a(w[r].y, xv.y, s);
-              s = __dp4a(w[r].z, xv.z, s);
-              acc[r][b] = __dp4a(w[r].w, xv.w, s);
-            }
-          }
-        }
-      }
-      // the 8 lanes of a row group hold partial sums of the same outputs
-#pragma unroll
-      for (int r = 0; r < RPL; ++r) {
-#pragma unroll
-        for (int b = 0; b < MAX_PASS_ROWS; ++b) {
-          if (b < bc) {
-#pragma unroll
-            for (int off = 4; off > 0; off >>= 1) {
-              acc[r][b] += __shfl_xor_sync(0xffffffffu, acc[r][b], off);
-            }
-          }
-        }
-      }
-      // lane l8 of the group stores the outputs (r, b) with (r * 16 + b) % 8 == l8
-#pragma unroll
-      for (int r = 0; r < RPL; ++r) {
-#pragma unroll
-        for (int b = 0; b < MAX_PASS_ROWS; ++b) {
-          if (b < bc && ((r * MAX_PASS_ROWS + b) & 7) == l8 && ok[r]) {
-            const float v = __fmul_rn(__fmul_rn(__int2float_rn(acc[r][b]), s_sx[b]),
-                                      a.scale[n0 + r]);
-            a.out[(int64_t)(b0 + b) * N + n0 + r] = __float2bfloat16_rn(v);
-          }
-        }
-      }
-    }
-    __syncthreads();  // the next pass overwrites s_x
-  }
-}
 
 // Whether tiles of `tile` output channels still give every SM two of them:
 // the wide tiling (more bytes in flight per lane) then reads the weight
@@ -893,8 +784,6 @@ int grid_for(int tiles) {
   const int cap = sm_count() * BLOCKS_PER_SM;
   return std::min(tiles, cap);
 }
-
-// ------------------------------------------- #6's first design's tiles
 
 constexpr int WQ_WARPS = 8;
 constexpr int WQ_THREADS = WQ_WARPS * 32;
@@ -1066,26 +955,17 @@ int ta_a8_matmul(const void* x_i8, const void* sx, const void* w, const void* sc
 }
 
 // x_i8 [B, K] int8 and sx [B] fp32 (quantize_act's), wt [N, K] int8, scale
-// [N] fp32 -> out [B, N] bf16; block i computes channels [i nt, (i + 1) nt).
-// K a multiple of 16, nt of 64; x_i8 and wt 16-byte aligned, every tensor
-// contiguous.  Returns the launch's CUDA error code.
-int ta_a8t_matmul(const void* x_i8, const void* sx, const void* wt, const void* scale, void* out,
-                  int B, int K, int N, int nt, void* stream) {
-  constexpr int tile = A8_WARPS * 4 * 4;
-  if (B <= 0 || K <= 0 || N <= 0 || K % 16 != 0 || nt <= 0 || nt % tile != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int rows = std::min(MAX_PASS_ROWS, (SMEM_BUDGET - A8_HEADER) / K);
-  if (rows < 1) return (int)cudaErrorInvalidValue;
-  const int smem = A8_HEADER + rows * K;
-  A8Args a{static_cast<const int8_t*>(x_i8), static_cast<const float*>(sx),
-           static_cast<const int8_t*>(wt), static_cast<const float*>(scale),
-           static_cast<__nv_bfloat16*>(out), B, K, N, rows, nt / tile};
-  static int allowed = 0;
-  const cudaError_t err = allow_smem(a8t_matmul_kernel<4>, smem, allowed);
-  if (err != cudaSuccess) return (int)err;
-  a8t_matmul_kernel<4><<<(N + nt - 1) / nt, A8_THREADS, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+// [N] fp32 -> out [B, N] bf16, by the split design with `split_k` k a split
+// (a multiple of 128; wn = 1).  B <= 64, K and N multiples of 16; x_i8 and
+// wt 16-byte aligned, every tensor contiguous.  With more than one split,
+// `partial` holds splits x B x N int32 and `counters` ceil(N / 32) zeros.
+// Returns the launch's CUDA error code.
+int ta_a8t_matmul(const void* x_i8, const void* sx, const void* wt, const void* scale,
+                  void* out, void* partial, void* counters, int B, int K, int N, int wn,
+                  int split_k, void* stream) {
+  return launch_split_design(
+      A8T, split_args(nullptr, x_i8, sx, wt, scale, out, partial, counters, B, K, N, split_k),
+      wn, stream);
 }
 
 // x [B, K] bf16, w [K, N] int8, scale [N] fp32 -> out [B, N] bf16; every

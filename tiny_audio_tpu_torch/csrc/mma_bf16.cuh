@@ -1,6 +1,7 @@
 // Helpers shared by the attention kernels (attention.cu, attention_bwd.cu,
 // attention_f32.cu): the bf16 tensor-core product mma.sync.m16n8k16 and its
-// fragment packing, and the masking and P / dS formulas of the backward.
+// fragment packing, and the masking and P / dS formulas of the backward; and
+// by the weight-only int8 products (#6, #9b): int8 pairs to bf16 pairs.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t4 = lane % 4), which every
 // kernel relies on:
@@ -41,6 +42,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// bf16 pair (byte J of lo, byte J of hi), each an int8 v, exactly: the bf16
+// 0x4300 | (v & 127) is 128 + (v & 127), and 0x4300 | (v & 128) is 128 or,
+// for v < 0, 256; their difference is v.
+template <int J>
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t lo, uint32_t hi) {
+  const uint32_t two = __byte_perm(lo, hi, J | ((4 + J) << 8));
+  const uint32_t mag = (two & 0x007F007Fu) | 0x43004300u;
+  const uint32_t off = (two & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&mag),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&off));
+  return *reinterpret_cast<const uint32_t*>(&d);
 }
 
 // A key's state: 1 real, 0 padding (scores MASK_VALUE), -1 past T (excluded).

@@ -58,7 +58,7 @@ _SIGNATURES = {
     "ta_encoder_attention_variant": (_PTR,) * 5 + (_INT,) * 6 + (ctypes.c_float, _PTR),
     "ta_wq_matmul_pipe": (_PTR,) * 4 + (_INT,) * 4 + (_PTR,),
     "ta_a8_matmul": (_PTR,) * 7 + (_INT,) * 5 + (_PTR,),
-    "ta_a8t_matmul": (_PTR,) * 5 + (_INT,) * 4 + (_PTR,),
+    "ta_a8t_matmul": (_PTR,) * 7 + (_INT,) * 5 + (_PTR,),
     "ta_attention_sm90_smem_bytes": (_INT, _INT),
     "ta_encoder_attention_variant_smem_bytes": (_INT, _INT),
     "ta_attention_bwd_sm90_smem_bytes": (_INT, _INT),

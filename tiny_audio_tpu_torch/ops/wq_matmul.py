@@ -11,7 +11,8 @@ the conversion in registers and the products on the tensor cores; its
 source states the bound and the design.
 
 The kernel splits K over blocks (:func:`int8_split_plan`, from shapes only,
-shared with #5 in ``ops/wq_head.py`` and #9c in ``ops/wq_head_variants.py``)
+shared with #5 in ``ops/wq_head.py`` and #9c and #9d in
+``ops/wq_head_variants.py``)
 and merges the splits inside the same
 launch, through a scratch this wrapper allocates and the merge counters of
 ``kernels.counter_buffer`` (per device, never freed, zero
@@ -50,7 +51,7 @@ NT = 512
 WQ_RTOL = 2.0**-6
 WQ_ATOL = 1e-3
 
-#: The split over K of #5, #6 and #9c (:func:`int8_split_plan`): a product
+#: The split over K of #5, #6, #9c and #9d (:func:`int8_split_plan`): a product
 #: whose output tiles alone reach half SPLIT_TARGET_UNITS takes one split (a
 #: split more adds its part's store, a fence, a counter and a reload from L2
 #: to the launch's latency); a
@@ -64,15 +65,15 @@ SPLIT_MERGE_VALUES = 16384
 SPLIT_MAX_ROWS = 64
 #: a warp's sub-tile: 32 output channels x 32 k; a block is 4 warps
 SPLIT_SUB = 32
-#: #5's and #9c's int8 activation chunk in shared memory, rows x (split k +
-#: 32) bytes
+#: the s8 kinds' (#5, #9c, #9d) int8 activation chunk in shared memory,
+#: rows x (split k + 32) bytes
 SPLIT_X_BYTES = 96 * 1024
-#: the kinds of product of the split design: #6, #5 and #9c
-SPLIT_KINDS = ("wq", "w8a8", "a8")
+#: the kinds of product of the split design: #6, #5, #9c and #9d
+SPLIT_KINDS = ("wq", "w8a8", "a8", "a8t")
 
 
 class Int8SplitPlan(NamedTuple):
-    """How #5, #6 or #9c cuts one launch: a block's 4 warps stand ``warps_n``
+    """How #5, #6, #9c or #9d cuts one launch: a block's 4 warps stand ``warps_n``
     across the output channels (a tile of ``tile_n = 32 warps_n``) and
     ``4 / warps_n`` along k (a stage of ``tile_k`` k); ``split_k`` k a split
     (a multiple of ``tile_k``), ``splits`` of them over K; ``units`` = tiles
@@ -95,20 +96,21 @@ class Int8SplitPlan(NamedTuple):
 def int8_split_plan(b: int, k: int, n: int, kind: str) -> Optional[Int8SplitPlan]:
     """The split of one launch of ``x [b, K] @ W [K -> N]``, from shapes
     alone (never from data, so a launch fits a CUDA graph); ``kind`` is
-    ``"wq"`` (#6, weight ``[K, N]``), ``"w8a8"`` (#5, ``[N, K]``) or ``"a8"``
-    (#9c, ``[K, N]``).  For each block arrangement the kind takes (#5: one
-    warp across 32 channels, 128-byte runs of its [N, K] rows; #9c: four
-    warps across 128 channels, 128-byte runs of its [K, N] rows; #6: both
-    of those): one split where the tiles
+    ``"wq"`` (#6, weight ``[K, N]``), ``"w8a8"`` (#5, ``[N, K]``), ``"a8"``
+    (#9c, ``[K, N]``) or ``"a8t"`` (#9d, ``[N, K]``).  For each block
+    arrangement the kind takes (#5 and #9d: one warp across 32 channels,
+    128-byte runs of its [N, K] rows; #9c: four warps across 128 channels,
+    128-byte runs of its [K, N] rows; #6: both of those): one split where the
+    tiles
     alone reach half SPLIT_TARGET_UNITS, else enough that tiles x splits
     reach it, at most as many as keep a tile's merge within
     SPLIT_MERGE_VALUES values; of the arrangements that fill the card so,
     the one with the fewest splits (the widest on a tie), else the one with
     the most units.  Splits start on a stage, a multiple of 32 k
-    (the s8 products of #5 and #9c take 32, #6's bf16 16).  None where the
-    kernel's copies cannot take the shape (#6: N not a multiple of 16 or K
-    of 8; #5: K not a multiple of 16; #9c: either not of 16) or ``b``
-    exceeds SPLIT_MAX_ROWS."""
+    (the s8 products of #5, #9c and #9d take 32, #6's bf16 16).  None where
+    the kernel's copies cannot take the shape (#6: N not a multiple of 16 or
+    K of 8; #5: K not a multiple of 16; #9c and #9d: either not of 16) or
+    ``b`` exceeds SPLIT_MAX_ROWS."""
     if kind not in SPLIT_KINDS:
         raise ValueError(f"kind must be one of {SPLIT_KINDS}, got {kind!r}")
     if not 1 <= b <= SPLIT_MAX_ROWS or k <= 0 or n <= 0:
@@ -117,7 +119,7 @@ def int8_split_plan(b: int, k: int, n: int, kind: str) -> Optional[Int8SplitPlan
         return None
     rows = -(-b // 8) * 8
     plans = []
-    for warps_n in {"wq": (4, 1), "w8a8": (1,), "a8": (4,)}[kind]:
+    for warps_n in {"wq": (4, 1), "w8a8": (1,), "a8": (4,), "a8t": (1,)}[kind]:
         tile_n, tile_k = SPLIT_SUB * warps_n, SPLIT_SUB * (4 // warps_n)
         tiles, stages = -(-n // tile_n), -(-k // tile_k)
         want = 1 if 2 * tiles >= SPLIT_TARGET_UNITS else -(-SPLIT_TARGET_UNITS // tiles)
@@ -148,9 +150,9 @@ def fills_card(plan: Int8SplitPlan) -> bool:
 def launch_split(name: str, kind: str, xs: tuple, w: torch.Tensor, scale: torch.Tensor,
                  out: torch.Tensor, plan: Int8SplitPlan) -> None:
     """One launch of the split design (entry point ``name``) on checked CUDA
-    tensors: ``xs`` is ``(x,)`` for #5 and #6, ``(x_i8, sx)`` for #9c; the
-    partial sums' scratch allocated here (int32 for #5 and #9c, fp32 for
-    #6), the merge counters from ``counter_buffer``."""
+    tensors: ``xs`` is ``(x,)`` for #5 and #6, ``(x_i8, sx)`` for #9c and
+    #9d; the partial sums' scratch allocated here (int32 for #5, #9c and
+    #9d, fp32 for #6), the merge counters from ``counter_buffer``."""
     b, k = xs[0].shape
     n = out.shape[1]
     partial = counters = None

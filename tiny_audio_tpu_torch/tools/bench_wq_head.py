@@ -14,8 +14,14 @@ script's sweep: #9b ``wq_matmul_pipe`` (the chunk width nc; the script's
 tile width nt has no counterpart in the port's kernel), #9c ``a8_matmul``
 and #9d ``a8t_matmul`` (nt), each with the int8 bytes' rate and, on the card, its time replayed
 from a CUDA graph (the host's dispatch left out, as the script's jitted loop
-leaves it out; #9c's ``nt`` sets nothing, so its three points read alike
-there); then each one's
+leaves it out).  The port's kernels are designs for the H100 whose launches
+nc and nt do not set (#9b: a TMA-fed pipe over 256- and 128-channel tiles;
+#9c and #9d: kinds of #5's and #6's split design; each is bound by the
+weight's 155.6 MB, 0.051 ms at 3.35 TB/s, and ``ops/wq_head_variants`` gives
+its measured share), so the points of a sweep read
+alike from a graph and differ back to back only by the host's dispatch
+(#9c's and #9d's entry points quantize x in nine torch ops first); then
+each one's
 ``rel_err`` (Frobenius, against the bf16 product) and greedy-argmax
 agreement, its difference from its plain version (#9c, #9d bitwise), and the
 fastest.  It runs on the card unless ``--device cpu`` is passed (then every
