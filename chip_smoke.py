@@ -40,6 +40,20 @@ flagship width (random weights from seed 0, int8 KV cache):
   towers bitwise unchanged, trainable parameters changed, the repeated
   batch's loss falling, and ``model/`` loaded back with ``from_pretrained``
   and generating on the card;
+- the MOSA, MoE and QFormer presets at the flagship width, each built as
+  ``python -m tiny_audio_tpu_torch.train +experiments=<kind>`` builds it
+  (int8 KV): ``generate`` on the serving batch twice (32 tokens, EOS
+  masked, the fused path: #1 32, #2 28, #4 28 per step, the same tokens
+  both times, 375 / 375 / 300 audio tokens), the projector alone in bf16
+  against its weights in fp32 on the CPU on the same encoder output
+  (within ``PROJECTOR_RTOL`` of the output's scale) and timed, then three
+  stage-1 Trainer steps (MoE's router loss logged and > 0, the others' 0,
+  the projector moved, the towers bitwise unchanged); stage 3
+  (``freeze_language_model=False``) for three steps (the decoder moved, the
+  encoder not); and the convergence gate of tests/test_convergence_gate.py
+  from its start (the JAX gate's seed-0 projector and decoder and the
+  CTC-pretrained encoder) with its thresholds, then 50 steps of the CTC
+  pretrain (#1's forward, its gradient by plain recompute);
 - the two kernels that only their own entry points reach (no path of the
   port or of the JAX package calls them; every path above launches them 0
   times): the fused log-mel front end (#7, ``log_mel_spectrogram_fused``,
@@ -343,6 +357,33 @@ VARIANT_ORACLE_ATOL = 5e-3
 # split)
 A8_CHECK_BATCHES = (1, 4, 17, 48, 64)
 A8_RAGGED_N = (151936 - 112, 1040)
+
+
+# The three projector presets (configs/experiments/{mosa,moe,qformer}.yaml
+# over configs/config.yaml, int8 KV) at the flagship width: new tokens of
+# their generate (EOS masked), training steps, and the audio tokens a 30 s
+# clip must give (1,500 encoder frames: two stride-2 convolutions, 4-frame
+# stacks, 100 windows of 15 frames with 3 queries each)
+PROJECTOR_KINDS = ("mosa", "moe", "qformer")
+PROJECTOR_NEW = 32
+PROJECTOR_TRAIN_STEPS = 3
+PROJECTOR_AUDIO_TOKENS = {"mosa": 375, "moe": 375, "qformer": 300}
+# The projector alone in bf16 on the card against the same fp32 weights in
+# fp32 on the CPU, fed the same encoder output: bf16 rounds every product's
+# inputs (2**-9 relative) and each layer's output (2**-8), so the outputs
+# agree to a few bf16 ulps of their scale: PROJECTOR_RTOL of the largest
+# |fp32 output| (the CPU tests hold O(1) bf16 outputs to 5e-2).
+PROJECTOR_RTOL = 5e-2
+STAGE3_STEPS = 3
+# The convergence ladder on the card: tests/test_convergence_gate.py's rows,
+# start, steps, learning rates and thresholds (tiny fp32 towers: the JAX
+# gate's seed-0 projector and decoder, the checked-in CTC-pretrained
+# encoder), then a short CTC pretrain of a fresh encoder
+LADDER_TRAIN_ROWS, LADDER_EVAL_ROWS = 256, 24
+LADDER_WARMUP = (300, 3e-3)
+LADDER_DEAD = (40, 0.0)
+LADDER_S1 = (300, 1e-3)
+LADDER_CTC_STEPS = 50
 
 
 def fail(msg: str) -> None:
@@ -1897,15 +1938,108 @@ def compare_backward_on_path_inputs(call: tuple) -> dict:
     }
 
 
+class StepClock:
+    """Host time at each logged optimizer step (logging reads the loss,
+    which waits for the device)."""
+
+    def __init__(self):
+        self.times = []
+
+    def on_log(self, trainer, record):
+        self.times.append(time.perf_counter())
+
+
+def trainer_run(label: str, model, rows, steps: int, out_root: Path, reset_counts, read_counts,
+                accum: int = 1, backward_store=None) -> dict:
+    """``steps`` optimizer steps of the Trainer at TRAIN_BATCH on ``rows``
+    (logging every step, no checkpoints), with every kernel's launches
+    counted from 0: the encoder's and the prefill's per micro-step (twice
+    the prefill's under gradient checkpointing), each backward kernel's per
+    micro-step and no other.  Fails on non-finite losses or gradient norms,
+    a frozen parameter that changed or no trainable one that did; prints the
+    run's line and returns its losses, aux losses, counts, changed
+    parameters and output directory."""
+    from tiny_audio_tpu_torch.train.collator import DataCollator
+    from tiny_audio_tpu_torch.train.optim import OptimizerConfig
+    from tiny_audio_tpu_torch.train.trainer import Trainer, TrainingConfig
+
+    collator = DataCollator(model.tokenizer, model.projector,
+                            num_mel_bins=model.config.encoder.num_mel_bins,
+                            system_prompt=model.config.system_prompt,
+                            encoder_conv_layers=model.config.encoder_conv_layers,
+                            device=model.device)
+    out_dir = out_root / label
+    config = TrainingConfig(
+        output_dir=str(out_dir), max_steps=steps, per_device_batch_size=TRAIN_BATCH,
+        gradient_accumulation_steps=accum, logging_steps=1, save_steps=0, eval_steps=0,
+        dataloader_workers=0, seed=SEED,
+        optimizer=OptimizerConfig(learning_rate=TRAIN_LR, lr_scheduler_type="constant"))
+    # snapshots on the host, so the device's peak memory is the run's own
+    snapshot = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    frozen = {n: t for n, t in snapshot.items() if not model.get_parameter(n).requires_grad}
+    trainable = {n: t for n, t in snapshot.items() if n not in frozen}
+    clock = StepClock()
+    trainer = Trainer(model, config, rows, collator, callbacks=[clock])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    if backward_store is not None:
+        with record_first_backward(backward_store):
+            trainer.train()
+    else:
+        trainer.train()
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    micro = steps * accum
+    forwards = 2 if model.config.gradient_checkpointing else 1
+    n_enc, n_dec = model.config.encoder.num_layers, model.config.decoder.num_layers
+    want = {name: 0 for name in counts}
+    want.update({"encoder_attention": n_enc * micro,
+                 "prefill_attention": n_dec * micro * forwards,
+                 "prefill_attention_bwd_dkv": n_dec * micro,
+                 "prefill_attention_bwd_dq": n_dec * micro})
+    if counts != want:
+        fail(f"training run {label} launches {counts}, expected {want}")
+    records = [json.loads(line)
+               for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["ce_loss"] for r in records]
+    aux = [r["aux_loss"] for r in records]
+    norms = [r["grad_norm"] for r in records]
+    if len(losses) != steps or not all(np.isfinite(losses + aux + norms)):
+        fail(f"training run {label}: losses {losses}, aux {aux}, grad norms {norms}")
+    params = dict(model.named_parameters())
+    for name, before in frozen.items():
+        if not same_bytes(before, params[name].detach().cpu()):
+            fail(f"training run {label} changed the frozen parameter {name}")
+    changed = [n for n, before in trainable.items()
+               if not torch.equal(params[n].detach().cpu(), before)]
+    if not changed:
+        fail(f"training run {label} changed no trainable parameter")
+    del frozen, trainable, snapshot
+    step_times = [float(x) for x in np.diff([t0] + clock.times)]
+    step_ms = float(np.mean(step_times[1:]) * 1e3) if len(step_times) > 1 else None
+    cfg = model.config
+    stage = "2 (LoRA)" if cfg.use_lora else ("1" if cfg.freeze_language_model else "3")
+    print(f"train run={label} stage={stage} projector={cfg.projector_type} "
+          f"batch={TRAIN_BATCH} clip_s={list(TRAIN_CLIP_S)} steps={steps} accum={accum} "
+          f"checkpointing={str(cfg.gradient_checkpointing).lower()} "
+          f"first_step_ms={step_times[0] * 1e3!r} step_ms_after_first={step_ms!r} "
+          f"peak_mem_gib={peak_gib!r} first_loss={losses[0]!r} last_loss={losses[-1]!r} "
+          f"aux_losses={aux!r} grad_norms={[round(x, 4) for x in norms]} "
+          f"trainable_changed={len(changed)} frozen_unchanged=true "
+          f"launches={json.dumps(counts)} micro_steps={micro}")
+    phase_done()
+    return {"losses": losses, "aux": aux, "counts": counts, "out_dir": out_dir,
+            "changed": changed, "step_ms": step_ms, "peak_gib": peak_gib}
+
+
 def train_phases(reset_counts, read_counts) -> dict:
     """Training at the flagship width on the card (see the module docstring).
     Returns the backward kernels' path numbers and the stage-1 run's counts."""
     from tiny_audio_tpu_torch import ASRConfig
     from tiny_audio_tpu_torch.models.asr import ASRModel
-    from tiny_audio_tpu_torch.train.collator import DataCollator
     from tiny_audio_tpu_torch.train.data import synthetic_dataset
-    from tiny_audio_tpu_torch.train.optim import OptimizerConfig
-    from tiny_audio_tpu_torch.train.trainer import Trainer, TrainingConfig
 
     rows = synthetic_dataset(TRAIN_BATCH, seed=SEED, min_s=TRAIN_CLIP_S[0],
                              max_s=TRAIN_CLIP_S[1])
@@ -1913,83 +2047,11 @@ def train_phases(reset_counts, read_counts) -> dict:
     results = {}
     tmp = tempfile.mkdtemp()
 
-    class StepClock:
-        """Host time at each logged optimizer step (logging reads the loss,
-        which waits for the device)."""
-
-        def __init__(self):
-            self.times = []
-
-        def on_log(self, trainer, record):
-            self.times.append(time.perf_counter())
-
     def run(label, model, steps, accum=1, record=False):
-        collator = DataCollator(model.tokenizer, model.projector,
-                                num_mel_bins=model.config.encoder.num_mel_bins,
-                                system_prompt=model.config.system_prompt,
-                                encoder_conv_layers=model.config.encoder_conv_layers,
-                                device=model.device)
-        out_dir = Path(tmp) / label
-        config = TrainingConfig(
-            output_dir=str(out_dir), max_steps=steps, per_device_batch_size=TRAIN_BATCH,
-            gradient_accumulation_steps=accum, logging_steps=1, save_steps=0, eval_steps=0,
-            dataloader_workers=0, seed=SEED,
-            optimizer=OptimizerConfig(learning_rate=TRAIN_LR, lr_scheduler_type="constant"))
-        # snapshots on the host, so the device's peak memory is the run's own
-        snapshot = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
-        frozen = {n: t for n, t in snapshot.items() if not model.get_parameter(n).requires_grad}
-        trainable = {n: t for n, t in snapshot.items() if n not in frozen}
-        clock = StepClock()
-        trainer = Trainer(model, config, rows, collator, callbacks=[clock])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.perf_counter()
-        if record:
-            with record_first_backward(path_inputs):
-                trainer.train()
-        else:
-            trainer.train()
-        counts = read_counts()
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        micro = steps * accum
-        forwards = 2 if model.config.gradient_checkpointing else 1
-        n_enc, n_dec = model.config.encoder.num_layers, model.config.decoder.num_layers
-        want = {name: 0 for name in counts}
-        want.update({"encoder_attention": n_enc * micro,
-                     "prefill_attention": n_dec * micro * forwards,
-                     "prefill_attention_bwd_dkv": n_dec * micro,
-                     "prefill_attention_bwd_dq": n_dec * micro})
-        if counts != want:
-            fail(f"training run {label} launches {counts}, expected {want}")
-        records = [json.loads(line)
-                   for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
-        losses = [r["ce_loss"] for r in records]
-        norms = [r["grad_norm"] for r in records]
-        if len(losses) != steps or not all(np.isfinite(losses + norms)):
-            fail(f"training run {label}: losses {losses}, grad norms {norms}")
-        params = dict(model.named_parameters())
-        for name, before in frozen.items():
-            if not same_bytes(before, params[name].detach().cpu()):
-                fail(f"training run {label} changed the frozen parameter {name}")
-        changed = [n for n, before in trainable.items()
-                   if not torch.equal(params[n].detach().cpu(), before)]
-        if not changed:
-            fail(f"training run {label} changed no trainable parameter")
-        del frozen, trainable
-        step_times = [float(x) for x in np.diff([t0] + clock.times)]
-        step_ms = float(np.mean(step_times[1:]) * 1e3) if len(step_times) > 1 else None
-        print(f"train run={label} stage={'2 (LoRA)' if model.config.use_lora else '1'} "
-              f"batch={TRAIN_BATCH} clip_s={list(TRAIN_CLIP_S)} steps={steps} accum={accum} "
-              f"checkpointing={str(model.config.gradient_checkpointing).lower()} "
-              f"first_step_ms={step_times[0] * 1e3!r} step_ms_after_first={step_ms!r} "
-              f"peak_mem_gib={peak_gib!r} first_loss={losses[0]!r} last_loss={losses[-1]!r} "
-              f"grad_norms={[round(x, 4) for x in norms]} trainable_changed={len(changed)} "
-              f"frozen_unchanged=true launches={json.dumps(counts)} "
-              f"micro_steps={micro}")
-        results[label] = {"losses": losses, "counts": counts, "out_dir": out_dir}
-        phase_done()
-        return losses
+        results[label] = trainer_run(label, model, rows, steps, Path(tmp), reset_counts,
+                                     read_counts, accum=accum,
+                                     backward_store=path_inputs if record else None)
+        return results[label]["losses"]
 
     t0 = time.perf_counter()
     model = ASRModel(ASRConfig(), seed=SEED)  # stage 1: freeze_language_model, the default
@@ -2040,6 +2102,247 @@ def train_phases(reset_counts, read_counts) -> dict:
     path = compare_backward_on_path_inputs(path_inputs["backward"])
     shutil.rmtree(tmp)
     return {"path": path, "counts": results["stage1"]["counts"]}
+
+
+def projector_phases(audio: list, reset_counts, read_counts) -> dict:
+    """The MOSA, MoE and QFormer presets at the flagship width on the card,
+    each built as ``python -m tiny_audio_tpu_torch.train +experiments=<kind>``
+    builds it (int8 KV cache): ``generate`` on the serving batch twice
+    (PROJECTOR_NEW tokens, EOS masked, the default fused path: kernel #1 per
+    encoder layer, #2 per decoder layer, #4 per layer and step, no other),
+    the same tokens both times and the preset's audio-token count; the
+    projector alone in bf16 against its weights in fp32 on the CPU on the
+    same encoder output (within PROJECTOR_RTOL) and timed; then
+    PROJECTOR_TRAIN_STEPS stage-1 Trainer steps (the projector moves, the
+    towers stay bitwise, MoE's router loss is logged and > 0, the others'
+    0).  Returns each kind's numbers."""
+    from tiny_audio_tpu_torch.models.projectors import create_projector
+    from tiny_audio_tpu_torch.processing import ASRProcessor
+    from tiny_audio_tpu_torch.train.__main__ import CONFIG_DIR, build_model
+    from tiny_audio_tpu_torch.train.config_loader import load_config
+    from tiny_audio_tpu_torch.train.data import synthetic_dataset
+
+    rows = synthetic_dataset(TRAIN_BATCH, seed=SEED, min_s=TRAIN_CLIP_S[0],
+                             max_s=TRAIN_CLIP_S[1])
+    tmp = Path(tempfile.mkdtemp())
+    out = {}
+    for kind in PROJECTOR_KINDS:
+        t0 = time.perf_counter()
+        composed = load_config(CONFIG_DIR, [f"+experiments={kind}", "model.kv_cache_dtype=int8"])
+        model = build_model(composed, device="cuda")
+        phase_done()
+        init_s = time.perf_counter() - t0
+        cfg = model.config
+        if cfg.projector_type != kind or cfg.kv_cache_dtype != "int8" or model.device.type != "cuda":
+            fail(f"+experiments={kind} built {cfg.projector_type} / {cfg.kv_cache_dtype} "
+                 f"on {model.device}")
+        n_params = sum(p.numel() for p in model.projector.parameters())
+        feats = ASRProcessor(model.projector, num_mel_bins=cfg.encoder.num_mel_bins,
+                             device=model.device).extract_features(audio)
+        mel_len = int(feats["mel_lengths"].max())
+        n_audio = model._num_audio_tokens(mel_len)
+        if n_audio != PROJECTOR_AUDIO_TOKENS[kind]:
+            fail(f"{kind}: {n_audio} audio tokens for 30 s, expected "
+                 f"{PROJECTOR_AUDIO_TOKENS[kind]}")
+        n_enc, n_dec = cfg.encoder.num_layers, cfg.decoder.num_layers
+        want = {name: 0 for name in read_counts()}
+        want.update({"encoder_attention": n_enc, "prefill_attention": n_dec,
+                     "decode_attention_update": n_dec * (PROJECTOR_NEW - 1)})
+        calls = []
+        for _ in range(2):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens = model.generate(feats["input_features"], feats["audio_attention_mask"],
+                                    mel_length=mel_len, min_new_tokens=PROJECTOR_NEW,
+                                    max_new_tokens=PROJECTOR_NEW)
+            torch.cuda.synchronize()
+            calls.append((tokens, time.perf_counter() - t0, read_counts()))
+        for tokens, _, counts in calls:
+            if counts != want:
+                fail(f"{kind} generate launches {counts}, expected {want}")
+            if tokens.shape != (BATCH, PROJECTOR_NEW) or tokens.min() < 0 \
+                    or tokens.max() >= cfg.decoder.vocab_size:
+                fail(f"{kind} generate gave tokens of shape {tokens.shape}")
+        if not np.array_equal(calls[0][0], calls[1][0]):
+            fail(f"two {kind} generate calls gave different tokens")
+
+        # the projector alone: bf16 on the card vs fp32 on the CPU
+        with torch.inference_mode():
+            hidden = model.encoder(feats["input_features"], feats["audio_attention_mask"])
+            got, aux = model.projector(hidden)
+            proj_ms = cuda_ms(lambda: model.projector(hidden), 5)
+        reference = create_projector(cfg, dtype=torch.float32, device="cpu")
+        reference.load_state_dict(model.projector.state_dict())
+        with torch.inference_mode():
+            want_out, _ = reference(hidden.float().cpu())
+        err = float((got.float().cpu() - want_out).abs().max())
+        scale = float(want_out.abs().max())
+        if got.shape != (BATCH, n_audio, cfg.llm_dim) or not torch.isfinite(got).all() \
+                or float(aux) != 0.0:
+            fail(f"{kind} projector gave {tuple(got.shape)} (finite "
+                 f"{bool(torch.isfinite(got).all())}, aux {float(aux)})")
+        if not err <= PROJECTOR_RTOL * scale:
+            fail(f"{kind} projector on the card is {err} off the fp32 CPU's (scale {scale})")
+        del hidden, got, reference, want_out
+        print(f"projector kind={kind} params={n_params} batch={BATCH} clip_s={CLIP_S} kv=int8 "
+              f"init_s={init_s!r} audio_tokens={n_audio} new_tokens={PROJECTOR_NEW} "
+              f"first_call_s={calls[0][1]!r} second_call_s={calls[1][1]!r} "
+              f"launches={json.dumps(calls[0][2])} deterministic=true "
+              f"projector_bf16_ms={proj_ms!r} max_abs_err_vs_cpu_fp32={err!r} "
+              f"tolerance={PROJECTOR_RTOL}*{scale!r}")
+        phase_done()
+
+        run = trainer_run(f"{kind}_stage1", model, rows, PROJECTOR_TRAIN_STEPS, tmp,
+                          reset_counts, read_counts)
+        if any(not n.startswith("projector.") for n in run["changed"]):
+            fail(f"{kind} stage 1 moved a tower: {run['changed'][:3]}")
+        aux_ok = all(a > 0 for a in run["aux"]) if kind == "moe" else \
+            all(a == 0 for a in run["aux"])
+        if not aux_ok:
+            fail(f"{kind} stage 1 logged aux losses {run['aux']}")
+        out[kind] = {"generate_s": calls[1][1], "projector_ms": proj_ms, "err": err,
+                     "step_ms": run["step_ms"], "peak_gib": run["peak_gib"]}
+        del model
+        torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    return out
+
+
+def stage3_phase(reset_counts, read_counts) -> dict:
+    """Stage 3 at the flagship width: the MLP model with
+    ``freeze_language_model=False`` (the decoder trains with the projector,
+    the encoder stays frozen), STAGE3_STEPS Trainer steps at TRAIN_BATCH."""
+    from tiny_audio_tpu_torch import ASRConfig
+    from tiny_audio_tpu_torch.models.asr import ASRModel
+    from tiny_audio_tpu_torch.train.data import synthetic_dataset
+
+    rows = synthetic_dataset(TRAIN_BATCH, seed=SEED, min_s=TRAIN_CLIP_S[0],
+                             max_s=TRAIN_CLIP_S[1])
+    tmp = Path(tempfile.mkdtemp())
+    model = ASRModel(ASRConfig(freeze_language_model=False), seed=SEED)
+    trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    run = trainer_run("stage3", model, rows, STAGE3_STEPS, tmp, reset_counts, read_counts)
+    moved = [n for n in run["changed"] if n.startswith("decoder.")]
+    if not moved or any(n.startswith("encoder.") for n in run["changed"]):
+        fail(f"stage 3 moved decoder {len(moved)} / encoder params: {run['changed'][:3]}")
+    n_decoder = sum(1 for n, _ in model.named_parameters() if n.startswith("decoder."))
+    print(f"train stage3 trainable_params={trainable} decoder_tensors_moved={len(moved)}/"
+          f"{n_decoder} encoder_unchanged=true step_ms_after_first={run['step_ms']!r} "
+          f"peak_mem_gib={run['peak_gib']!r}")
+    del model
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    return {"step_ms": run["step_ms"], "peak_gib": run["peak_gib"], "moved": len(moved)}
+
+
+def convergence_phase(reset_counts, read_counts) -> dict:
+    """The convergence gate of tests/test_convergence_gate.py on the card,
+    from its start (the JAX gate's seed-0 projector and decoder and the
+    CTC-pretrained encoder, ``convergence.load_gate_start``), thresholds
+    unchanged: held-out WER at init > 0.6, the warmup's last
+    logged loss under half its first, a zero-learning-rate stage 1 that does
+    not beat the warmup's eval loss, WER after stage 1 <= 0.85 x init and
+    the stage-1 eval loss under the warmup's; then LADDER_CTC_STEPS steps of
+    the CTC pretrain on a fresh encoder (kernel #1 forward, its gradient by
+    plain recompute).  Counts: the ladder's training and evaluation reach
+    #1, #2, #2b, #2c and #4; the CTC pretrain only #1."""
+    from tiny_audio_tpu_torch.config import tiny_test_config
+    from tiny_audio_tpu_torch.models.asr import ASRModel
+    from tiny_audio_tpu_torch.train import convergence as conv
+    from tiny_audio_tpu_torch.train.collator import DataCollator
+    from tiny_audio_tpu_torch.utils.speech_synth import labeled_speech_dataset
+
+    t0 = time.perf_counter()
+    train_rows = labeled_speech_dataset(LADDER_TRAIN_ROWS, conv.DEFAULT_VOCAB, seed=SEED)
+    eval_rows = labeled_speech_dataset(LADDER_EVAL_ROWS, conv.DEFAULT_VOCAB, seed=SEED + 10_000)
+    data_s = time.perf_counter() - t0
+    tmp = Path(tempfile.mkdtemp())
+    seconds, wers = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    model = ASRModel(tiny_test_config(model_dtype="float32"), seed=SEED)
+    conv.load_gate_start(model)
+    collator = DataCollator(model.tokenizer, model.projector,
+                            num_mel_bins=model.config.encoder.num_mel_bins,
+                            system_prompt=model.config.system_prompt,
+                            encoder_conv_layers=model.config.encoder_conv_layers,
+                            device=model.device)
+
+    def stage(name, steps_lr):
+        steps, lr = steps_lr
+        return timed(name, lambda: conv.train_stage(
+            model, collator, train_rows, eval_rows[:16], str(tmp / name), steps, lr,
+            seed=SEED, verbose=False))
+
+    reset_counts()
+    wers["init"] = timed("wer_init", lambda: conv._wer_eval(model, eval_rows))
+    model.config.freeze_language_model = False
+    model.config.freeze_projector = True
+    warm = stage("warmup", LADDER_WARMUP)
+    wers["warmup"] = timed("wer_warmup", lambda: conv._wer_eval(model, eval_rows))
+    model.config.freeze_language_model = True
+    model.config.freeze_projector = False
+    snapshot = {n: p.detach().clone() for n, p in model.named_parameters()}
+    dead = stage("stage1_dead", LADDER_DEAD)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(snapshot[name])
+    s1 = stage("stage1", LADDER_S1)
+    wers["s1"] = timed("wer_s1", lambda: conv._wer_eval(model, eval_rows))
+    counts = read_counts()
+    curves = {"warmup": warm["curve"], "stage1": s1["curve"]}
+    print(f"convergence ladder rows={LADDER_TRAIN_ROWS}/{LADDER_EVAL_ROWS} data_s={data_s!r} "
+          f"wer={json.dumps(wers)} eval_loss_warmup={warm['eval_loss']!r} "
+          f"eval_loss_dead={dead['eval_loss']!r} eval_loss_s1={s1['eval_loss']!r} "
+          f"seconds={json.dumps(seconds)} curves={json.dumps(curves)} "
+          f"launches={json.dumps(counts)}")
+    used = ("encoder_attention", "prefill_attention", "prefill_attention_bwd_dkv",
+            "prefill_attention_bwd_dq", "decode_attention_update")
+    if min(counts[name] for name in used) == 0 or \
+            any(counts[name] for name in counts if name not in used):
+        fail(f"the convergence ladder's launches {counts}")
+    if not wers["init"] > 0.6:
+        fail(f"held-out WER at init {wers['init']}: the task is degenerate")
+    if not warm["curve"][-1][1] < 0.5 * warm["curve"][0][1]:
+        fail(f"the decoder warmup's loss did not halve: {warm['curve']}")
+    if dead["eval_loss"] < warm["eval_loss"]:
+        fail(f"a zero-learning-rate stage 1 beat the warmup: {dead['eval_loss']} < "
+             f"{warm['eval_loss']}")
+    if not wers["s1"] <= 0.85 * wers["init"]:
+        fail(f"held-out WER did not fall: init {wers['init']} -> stage 1 {wers['s1']}")
+    if not s1["eval_loss"] < warm["eval_loss"]:
+        fail(f"stage 1's eval loss {s1['eval_loss']} not under the warmup's {warm['eval_loss']}")
+    del model, snapshot
+    shutil.rmtree(tmp)
+
+    # a short CTC pretrain of a fresh encoder
+    fresh = ASRModel(tiny_test_config(model_dtype="float32"), seed=SEED)
+    reset_counts()
+    ctc = timed("ctc", lambda: conv.pretrain_encoder_ctc(
+        fresh, train_rows, eval_rows, conv.DEFAULT_VOCAB, steps=LADDER_CTC_STEPS, batch=16,
+        seed=SEED, verbose=False))
+    counts = read_counts()
+    want = {name: 0 for name in counts}
+    want["encoder_attention"] = fresh.config.encoder.num_layers * (LADDER_CTC_STEPS + 1)
+    if counts != want:
+        fail(f"the CTC pretrain launched {counts}, expected {want}")
+    losses = [loss for _, loss in ctc["curve"]]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"the CTC pretrain's loss curve {ctc['curve']}")
+    print(f"convergence ctc steps={LADDER_CTC_STEPS} batch=16 wall_s={seconds['ctc']!r} "
+          f"ms_per_step={seconds['ctc'] / LADDER_CTC_STEPS * 1e3!r} curve={json.dumps(ctc['curve'])} "
+          f"token_error_rate={ctc['token_error_rate']!r} launches={json.dumps(counts)}")
+    del fresh
+    torch.cuda.empty_cache()
+    return {"wer": wers, "seconds": seconds}
 
 
 def mel_oracle_fp64(audio: torch.Tensor, mels: int) -> torch.Tensor:
@@ -2444,7 +2747,7 @@ def small_model_reference() -> None:
         with torch.inference_mode():
             embeds[name] = model._encode_audio(
                 feats["input_features"], feats["audio_attention_mask"]
-            ).float().cpu()
+            )[0].float().cpu()
         tokens[name] = model.generate(feats["input_features"], feats["audio_attention_mask"],
                                       max_new_tokens=16)
     rel = ((embeds["cuda"] - embeds["cpu"]).abs().max() / embeds["cpu"].abs().max()).item()
@@ -2489,7 +2792,7 @@ def tiny_towers_phase(reset_counts, read_counts) -> dict:
                                      device=model.device).extract_features(audio)
                 args = (feats["input_features"], feats["audio_attention_mask"])
                 with torch.inference_mode():
-                    embeds[where] = model._encode_audio(*args).float().cpu()
+                    embeds[where] = model._encode_audio(*args)[0].float().cpu()
                 paths = (("fused", True), ("module", False)) if where == "cuda" else (("cpu", None),)
                 for label, fused in paths:
                     reset_counts()
@@ -3264,6 +3567,14 @@ def main() -> None:
 
     # ---- 10. training at the flagship width ----
     trained = train_phases(reset_counts, read_counts)
+    phase_done()
+
+    # ---- 10b-d. the MOSA, MoE and QFormer presets; stage 3; convergence ----
+    projector_phases(audio, reset_counts, read_counts)
+    phase_done()
+    stage3_phase(reset_counts, read_counts)
+    phase_done()
+    convergence_phase(reset_counts, read_counts)
     phase_done()
 
     # ---- 11. kernel #7, the fused front end, through its entry point ----

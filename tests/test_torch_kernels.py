@@ -1399,3 +1399,27 @@ def test_a8_kernels_are_plain_bitwise(cuda_device, b, k, n):
         torch.cuda.synchronize()
         assert torch.equal(static.view(torch.int16),
                            w8a8_matmul_plain(x.flip(0), wt_i8, scale).view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mlp", "mosa", "moe", "qformer"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_projector_output_ignores_requires_grad(cuda_device, kind, dtype):
+    """On the card a 3-D activation that does not fold into rows takes a
+    batched GEMM when the weight is frozen and one GEMM over a copy when it
+    trains, and the two round differently: the projectors keep every
+    product's activation contiguous, so a frozen and a trainable projector
+    with the same weights give the same bits."""
+    from tiny_audio_tpu_torch.config import tiny_test_config
+    from tiny_audio_tpu_torch.models.projectors import create_projector
+
+    cfg = tiny_test_config(projector_type=kind)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    proj = create_projector(cfg, dtype=dtype, device=cuda_device)
+    x = torch.randn((8, 251, cfg.encoder_dim), generator=gen, device=cuda_device).to(dtype)
+    outs = []
+    for flag in (True, False, True):
+        proj.requires_grad_(flag)
+        with torch.no_grad():
+            outs.append(proj(x)[0])
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])

@@ -4,8 +4,9 @@ The JAX model's random params are carried into the port; greedy decoding
 must then give the same tokens, for both KV-cache dtypes and both decode
 paths, the pipelines the same texts and streaming the same fragments.  A
 subprocess imports every module of the port (the training package
-included) with jax, flax and the JAX package blocked, serves a checkpoint
-and runs a stage-2 train step.
+included) with jax, flax, msgpack, transformers and the JAX package
+blocked, serves a checkpoint, runs a stage-2 train step, builds the MOSA,
+MoE and QFormer projectors and runs the convergence ladder's pieces.
 """
 
 import os
@@ -237,7 +238,8 @@ import importlib, pkgutil, sys
 
 class BlockJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "tiny_audio_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "tiny_audio_tpu",
+                                  "transformers"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -304,8 +306,42 @@ assert not torch.equal(before, model.decoder.layers[0].q_proj_lora_b)
 model.save_pretrained(ckpt + "/stage2", save_towers=False)
 back = ASRModel.from_pretrained(ckpt + "/stage2", device="cpu")
 assert torch.equal(back.decoder.layers[0].q_proj_lora_b, model.decoder.layers[0].q_proj_lora_b)
+
+# the MOSA, MoE and QFormer projectors: generate, and a train-mode loss
+# whose draws come from a generator (MoE adds its router loss)
+from tiny_audio_tpu_torch.processing import ASRProcessor
+
+for kind in ("mosa", "moe", "qformer"):
+    model = ASRModel(tiny_test_config(projector_type=kind), seed=0, device="cpu")
+    feats = ASRProcessor(model.projector, num_mel_bins=80, device="cpu").extract_features(
+        [np.zeros(8000, np.float32)])
+    tokens = model.generate(feats["input_features"], feats["audio_attention_mask"],
+                            max_new_tokens=2)
+    assert tokens.shape == (1, 2), (kind, tokens.shape)
+    collator = DataCollator(model.tokenizer, model.projector, num_mel_bins=80, device="cpu")
+    loss, metrics = model.compute_loss(collator(synthetic_dataset(2, seed=0)), train=True,
+                                       generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(loss) and (float(metrics["aux_loss"]) > 0) == (kind == "moe")
+
+# WER scoring, synthetic speech and the convergence ladder's pieces
+from tiny_audio_tpu_torch.eval.normalizer import TextNormalizer
+from tiny_audio_tpu_torch.eval.wer import corpus_wer
+from tiny_audio_tpu_torch.train import convergence
+from tiny_audio_tpu_torch.utils.speech_synth import labeled_speech_dataset
+
+assert TextNormalizer()("The Colour, twenty-five!") == "the color 25"
+assert corpus_wer(["a b"], ["a c"]) == 0.5
+rows = labeled_speech_dataset(3, convergence.DEFAULT_VOCAB, seed=0)
+model = ASRModel(tiny_test_config(model_dtype="float32"), seed=0, device="cpu")
+convergence.load_pretrained_encoder(model, str(convergence.ENCODER_ARTIFACT))
+ctc = convergence.pretrain_encoder_ctc(model, rows, rows, convergence.DEFAULT_VOCAB, steps=1,
+                                       batch=2, verbose=False)
+assert 0.0 <= ctc["token_error_rate"] and len(ctc["curve"]) == 1
+assert convergence._wer_eval(model, rows[:1], max_new_tokens=2) >= 0.0
+
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "tiny_audio_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "tiny_audio_tpu",
+                                       "transformers"))
 assert not loaded, loaded
 print("OK", len(names))
 """

@@ -11,7 +11,9 @@ the port's modules:
 - a Conv ``kernel [k, in, out]`` becomes a Conv1d ``weight [out, in, k]``;
 - an Embed ``embedding`` becomes ``embed_tokens.weight`` (the tied LM head
   reads that same tensor);
-- every other leaf (norms, biases, ``embed_positions``, ``q_norm``) keeps its
+- every other leaf (norms, biases, ``embed_positions``, ``q_norm``, flax
+  ``LayerNorm``'s ``scale``, QFormer's ``query`` ``[1, nq, hidden]``, MoE's
+  stacked ``experts_fc{1,2}_{kernel,bias}`` ``[E, in, out]``) keeps its
   name and layout.
 
 Each value is converted to the dtype of the parameter it fills, so the fp32

@@ -1,4 +1,4 @@
-"""ASRModel: audio encoder + MLP projector + Qwen3 decoder, serving path.
+"""ASRModel: audio encoder + projector + Qwen3 decoder, serving and training.
 
 Port of the inference half of :class:`tiny_audio_tpu.models.asr.ASRModel`:
 mel mask -> encoder -> projector -> row-aligned ``<audio>`` splice ->
@@ -9,7 +9,7 @@ by token (:meth:`ASRModel.generate_streaming`); the opt-in int8 decode modes
 (:meth:`ASRModel.save_pretrained`, :meth:`ASRModel.from_pretrained`, LoRA
 adapters in ``adapter.msgpack``); and its training half:
 :meth:`ASRModel.compute_loss` (frozen encoder under ``no_grad``, frame
-dropout, projector, splice, causal decoder, shifted CE), with
+dropout, projector and its aux loss, splice, causal decoder, shifted CE), with
 ``requires_grad`` following the optimizer's labels (frozen towers get no
 gradient), LoRA on the decoder and gradient checkpointing.
 """
@@ -233,6 +233,22 @@ class ASRModel(nn.Module):
                 tmp = torch.empty(module.weight.shape, dtype=torch.float32, device=self.device)
                 tmp.normal_(0.0, math.sqrt(1.0 / module.embedding_dim), generator=gen)
                 module.weight.copy_(tmp)
+        # the projector's own leaves, with the JAX initializers: stacked MoE
+        # experts xavier_uniform / normal(0.01) with zero biases, QFormer's
+        # queries normal(1.0)
+        for name, param in self.projector.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            tmp = torch.empty(param.shape, dtype=torch.float32, device=self.device)
+            if leaf == "experts_fc1_kernel":
+                e, fan_in, fan_out = param.shape
+                limit = math.sqrt(6.0 / (e * fan_in + e * fan_out))
+                param.copy_(tmp.uniform_(-limit, limit, generator=gen))
+            elif leaf == "experts_fc2_kernel":
+                param.copy_(tmp.normal_(0.0, 0.01, generator=gen))
+            elif leaf == "query":
+                param.copy_(tmp.normal_(0.0, 1.0, generator=gen))
+            elif leaf.startswith("experts_") and leaf.endswith("_bias"):
+                param.zero_()
         # LoRA A ~ normal(0.02), B = 0 (the JAX initializers), drawn after the
         # towers so that a seed gives the same base weights with or without
         for name, param in self.decoder.named_parameters():
@@ -281,43 +297,52 @@ class ASRModel(nn.Module):
     # ------------------------------------------------------------- audio path
 
     def _encode_audio(
-        self, input_features: torch.Tensor, audio_attention_mask: torch.Tensor
-    ) -> torch.Tensor:
-        """Mel -> encoder -> projector: [B, T_proj, llm_dim] audio embeds."""
-        hidden = self.encoder(input_features, frame_mask=audio_attention_mask)
-        return self.projector(hidden)
+        self,
+        input_features,
+        audio_attention_mask,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Mel -> encoder (frozen, under ``no_grad``) -> frame dropout (train
+        mode, ``audio_token_dropout`` p > 0: frames kept with probability
+        1 - p) -> projector.  Returns ([B, T_proj, llm_dim] audio embeds, the
+        projector's 0-d fp32 aux loss).  Train-mode draws come from
+        ``generator``."""
+        dev = self.device
+        with torch.no_grad():
+            hidden = self.encoder(torch.as_tensor(input_features, device=dev),
+                                  frame_mask=torch.as_tensor(audio_attention_mask, device=dev))
+        p = float(self.config.audio_token_dropout)
+        if train and p > 0.0:
+            keep = torch.bernoulli(torch.full(hidden.shape[:-1], 1.0 - p, device=dev),
+                                   generator=generator)
+            hidden = hidden * keep[..., None].to(hidden.dtype)
+        return self.projector(hidden, train=train, generator=generator)
 
     # --------------------------------------------------------------- training
 
     def compute_loss(self, batch: dict, train: bool = True,
                      generator: Optional[torch.Generator] = None):
         """Causal-LM loss over the assistant tokens plus the projector's aux
-        loss (0 for the MLP projector), as the JAX package's ``compute_loss``.
+        loss (the MoE router's in train mode, else 0), as the JAX package's
+        ``compute_loss``.
 
         ``batch``: ``input_ids``, ``attention_mask``, ``labels`` [B, T]
         (-100 = unsupervised; numpy or tensors), ``input_features``
-        [B, mel, Tm] and ``audio_attention_mask`` [B, Tm].  The encoder runs
-        under ``no_grad`` (frozen, as the JAX package stop-gradients its
-        params and input).  With ``train`` and ``audio_token_dropout`` p > 0,
-        encoder frames are kept with probability 1 - p, drawn from
-        ``generator``.  Returns ``(loss, {"ce_loss", "aux_loss",
-        "num_label_tokens"})`` as 0-d tensors.
+        [B, mel, Tm] and ``audio_attention_mask`` [B, Tm].  The audio goes
+        through :meth:`_encode_audio` (the encoder frozen, as the JAX package
+        stop-gradients its params and input; train-mode frame dropout,
+        router jitter and QFormer dropout drawn from ``generator``).
+        Returns ``(loss, {"ce_loss", "aux_loss", "num_label_tokens"})`` as
+        0-d tensors.
         """
         dev = self.device
         as_long = lambda x: torch.as_tensor(x, device=dev).long()  # noqa: E731
         input_ids, labels, attn = (as_long(batch[key]) for key in
                                    ("input_ids", "labels", "attention_mask"))
-        with torch.no_grad():
-            hidden = self.encoder(torch.as_tensor(batch["input_features"], device=dev),
-                                  frame_mask=torch.as_tensor(batch["audio_attention_mask"],
-                                                             device=dev))
-        p = float(self.config.audio_token_dropout)
-        if train and p > 0.0:
-            keep = torch.bernoulli(torch.full(hidden.shape[:-1], 1.0 - p, device=dev),
-                                   generator=generator)
-            hidden = hidden * keep[..., None].to(hidden.dtype)
-        audio_embeds = self.projector(hidden)
-        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        audio_embeds, aux = self._encode_audio(batch["input_features"],
+                                               batch["audio_attention_mask"],
+                                               train=train, generator=generator)
 
         text_embeds = self.decoder.embed(input_ids)
         inputs_embeds = splice_audio(text_embeds, input_ids == self.tokenizer.audio_token_id,
@@ -419,7 +444,7 @@ class ASRModel(nn.Module):
         input_ids = torch.from_numpy(ids_np).to(self.device)
         prompt_mask = torch.arange(t_pad, device=self.device)[None, :] < t_real
 
-        audio_embeds = self._encode_audio(input_features, audio_attention_mask)
+        audio_embeds, _ = self._encode_audio(input_features, audio_attention_mask)
         text_embeds = self.decoder.embed(input_ids)
         audio_mask = (input_ids == self.tokenizer.audio_token_id) & prompt_mask
         inputs_embeds = splice_audio(text_embeds, audio_mask, audio_embeds)
@@ -482,7 +507,7 @@ class ASRModel(nn.Module):
         ids_np[0, :t_real] = ids
         input_ids = torch.from_numpy(ids_np).to(self.device)
 
-        audio_embeds = self._encode_audio(input_features, audio_attention_mask)
+        audio_embeds, _ = self._encode_audio(input_features, audio_attention_mask)
         text_embeds = self.decoder.embed(input_ids)
         audio_mask = input_ids == self.tokenizer.audio_token_id
         inputs_embeds = splice_audio(text_embeds, audio_mask, audio_embeds)

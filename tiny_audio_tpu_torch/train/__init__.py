@@ -1,2 +1,3 @@
 """Training on PyTorch: optimizer, collator, data, augmentation, config
-composition and the Trainer (``python -m tiny_audio_tpu_torch.train``)."""
+composition, the Trainer (``python -m tiny_audio_tpu_torch.train``) and the
+offline convergence ladder (:mod:`.convergence`)."""
