@@ -54,6 +54,21 @@ flagship width (random weights from seed 0, int8 KV cache):
   from its start (the JAX gate's seed-0 projector and decoder and the
   CTC-pretrained encoder) with its thresholds, then 50 steps of the CTC
   pretrain (#1's forward, its gradient by plain recompute);
+- the decoding modes at the flagship on the serving batch (32 tokens, EOS
+  masked, exact launches): beams (K = 4) on both decode steps with the same
+  tokens, ``top_k=1`` sampling drawing only largest logits (greedy's tokens
+  up to a tied top), a seeded generator repeating its tokens, top-p /
+  temperature sampling, ``no_repeat_ngram_size=3`` leaving no repeated
+  3-gram, and each row's best beam (``length_penalty=0``) reaching one
+  beam's (greedy's) summed log-probability; the same modes on the tiny fp32
+  towers giving the CPU's tokens;
+- the neural VAD on an 80 s clip against its numpy mirror, wav2vec2-CTC at
+  full width (seeded weights) and the CTC trellis and the synthetic ECAPA
+  tier against the CPU, each timed; then ``ASRPipeline`` with
+  ``return_timestamps`` and ``return_speakers`` on a 30 s two-voice
+  synthetic conversation, the aligner attached by ``_attach_aux_towers``
+  from a directory holding the seeded ``wav2vec2_aligner.msgpack`` (no
+  error key, the neural VAD, model-aligned words, speaker segments);
 - the two kernels that only their own entry points reach (no path of the
   port or of the JAX package calls them; every path above launches them 0
   times): the fused log-mel front end (#7, ``log_mel_spectrogram_fused``,
@@ -384,6 +399,26 @@ LADDER_WARMUP = (300, 3e-3)
 LADDER_DEAD = (40, 0.0)
 LADDER_S1 = (300, 1e-3)
 LADDER_CTC_STEPS = 50
+
+# The decoding modes (sampling, beams, n-gram bans) at the flagship: the
+# serving batch, MODES_NEW tokens with EOS masked, BEAMS beams.  A row's best
+# beam (length_penalty 0: the summed log-probability) must reach one beam's
+# (greedy's) sum less BEAM_SCORE_SLACK, the JAX package's own test property.
+MODES_NEW = 32
+BEAMS = 4
+BEAM_SCORE_SLACK = 1e-2
+# The auxiliary towers: the neural VAD on a clip past its largest bucket
+# (4,096 frames), wav2vec2-CTC at full width on VAD_CLIP_S / ALIGN_CLIP_S,
+# ECAPA on ECAPA_WINDOWS windows; card vs the numpy mirror or the CPU.
+VAD_CLIP_S = 80.0
+ALIGN_CLIP_S = (5.0, 30.0)
+ECAPA_WINDOWS = 256
+VAD_PROB_ATOL = 1e-4
+AUX_LOGP_ATOL = 1e-3
+ECAPA_ATOL = 1e-3
+TRELLIS_ATOL = 1e-3
+# The pipeline with timestamps and speakers: a two-voice synthetic clip
+CONVERSATION_S = 30.0
 
 
 def fail(msg: str) -> None:
@@ -3218,6 +3253,348 @@ def wq_head_variants_phase(int8_ptxas: dict, sm90_facts: dict, library_ms, reset
     return {"stats": entries, "launches": {n_: counts[n_] for n_ in mine}}
 
 
+
+def decoding_modes_phase(model, pipe, audio: list, no_int8: dict, reset_counts,
+                         read_counts) -> None:
+    """Sampling, beams and n-gram bans through ``ASRModel.generate`` at the
+    flagship width on the serving batch (int8 KV, MODES_NEW tokens, EOS
+    masked), each call's launches exact: beams on both decode steps with the
+    same tokens, ``top_k=1`` sampling equal to greedy, a seeded generator
+    repeating its tokens, top-p / temperature sampling, n-gram bans leaving
+    no repeated 3-gram; then the beams' score property against one beam
+    (greedy) on the exact prompt through ``generate_beams``."""
+    from tiny_audio_tpu_torch import generation
+    from tiny_audio_tpu_torch.models.asr import splice_audio
+
+    cfg = model.config
+    n_enc, n_dec = cfg.encoder.num_layers, cfg.decoder.num_layers
+    steps = MODES_NEW - 1
+    feats = pipe.processor.extract_features(audio)
+    args = (feats["input_features"], feats["audio_attention_mask"])
+    mel = int(feats["mel_lengths"].max())
+    def run(label: str, fused: bool = True, **kwargs):
+        want = {"encoder_attention": n_enc, "prefill_attention": n_dec,
+                "decode_attention": 0 if fused else n_dec * steps,
+                "decode_attention_update": n_dec * steps if fused else 0, **no_int8}
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = model.generate(*args, mel_length=mel, max_new_tokens=MODES_NEW,
+                                min_new_tokens=MODES_NEW, fused_decode=fused, **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if counts != want:
+            fail(f"decoding mode {label} launches {counts}, expected {want}")
+        if tokens.shape != (BATCH, MODES_NEW) or tokens.min() < 0 or \
+                tokens.max() >= cfg.decoder.vocab_size:
+            fail(f"decoding mode {label}: tokens {tokens.shape} outside the vocabulary")
+        print(f"decoding_modes mode={label} batch={BATCH} clip_s={CLIP_S} new_tokens={MODES_NEW} "
+              f"kv=int8 wall_s={wall!r} launches={json.dumps({k: v for k, v in counts.items() if v})}")
+        return tokens
+
+    greedy = run("greedy")
+    beams = run(f"beams{BEAMS}", num_beams=BEAMS)
+    beams_module = run(f"beams{BEAMS}_module", fused=False, num_beams=BEAMS)
+    if not np.array_equal(beams, beams_module):
+        fail("beams: the fused and the module decode steps gave different tokens")
+    # top_k = 1 keeps every logit equal to the largest (JAX's semantics), and
+    # bf16 logits over 151,936 ids tie at the top now and then: each draw
+    # must be a largest logit, and a row must give greedy's tokens up to its
+    # first tied step (all of them without one)
+    select, tied = generation._select_token, []
+
+    def checked_select(logits, gen, generator):
+        tok = select(logits, gen, generator)
+        top = logits.max(dim=-1).values
+        if not torch.equal(logits.gather(1, tok.long()[:, None])[:, 0], top):
+            fail("sampling with top_k=1 drew a token below the largest logit")
+        tied.append(((logits == top[:, None]).sum(dim=-1) > 1).cpu().numpy())
+        return tok
+
+    generation._select_token = checked_select
+    try:
+        top1 = run("sample_top_k1", do_sample=True, top_k=1)
+    finally:
+        generation._select_token = select
+    tied = np.stack(tied, axis=1)  # [B, steps]
+    for row in range(BATCH):
+        first_tie = int(np.argmax(tied[row])) if tied[row].any() else MODES_NEW
+        if not np.array_equal(top1[row, :first_tie], greedy[row, :first_tie]):
+            fail(f"sampling with top_k=1 left greedy's tokens before a tie (row {row})")
+    print(f"decoding_modes sample_top_k1 draws_are_largest_logit=true "
+          f"steps_with_tied_top={int(tied.sum())} of {tied.size} "
+          f"rows_equal_greedy={int((top1 == greedy).all(axis=1).sum())} of {BATCH}")
+    sampled = [run(f"sample_top_p_seed{i}", do_sample=True, top_p=0.9, temperature=0.7,
+                   generator=torch.Generator(device="cuda").manual_seed(seed))
+               for i, seed in enumerate((1, 1, 2))]
+    if not np.array_equal(sampled[0], sampled[1]):
+        fail("two sampling runs from one generator seed gave different tokens")
+    if np.array_equal(sampled[0], sampled[2]):
+        fail("sampling runs from two generator seeds gave the same tokens")
+    ngram = run("no_repeat_ngram3", no_repeat_ngram_size=3)
+    prompt = model.build_prompt_ids(model._num_audio_tokens(mel))
+    for row in ngram:
+        seq = [*prompt, *row.tolist()]
+        seen = {tuple(seq[i:i + 3]) for i in range(len(prompt) - 2)}
+        for i in range(len(prompt) - 2, len(seq) - 2):
+            gram = tuple(seq[i:i + 3])
+            if gram in seen:
+                fail(f"no_repeat_ngram_size=3 left a repeated 3-gram {gram}")
+            seen.add(gram)
+
+    # the score property, on the exact prompt through generate_beams
+    with torch.inference_mode():
+        ids = torch.tensor([prompt] * BATCH, device=model.device)
+        embeds = splice_audio(model.decoder.embed(ids), ids == model.tokenizer.audio_token_id,
+                              model._encode_audio(*args)[0])
+    gen = dataclasses.replace(model.gen_config, max_new_tokens=MODES_NEW,
+                              min_new_tokens=MODES_NEW, length_penalty=0.0)
+    one, one_score = generation.generate_beams(
+        model.decoder, embeds, dataclasses.replace(gen, num_beams=1), input_ids=ids)
+    exact_greedy, _ = generation.generate_tokens(model.decoder, embeds, ids, gen)
+    if not torch.equal(one, exact_greedy):
+        fail("one beam did not give greedy's tokens")
+    best, best_score = generation.generate_beams(
+        model.decoder, embeds, dataclasses.replace(gen, num_beams=BEAMS), input_ids=ids)
+    margin = (best_score - one_score).cpu().numpy()
+    print(f"decoding_modes beam_score num_beams={BEAMS} length_penalty=0 "
+          f"best_sum_logp={best_score.cpu().numpy().tolist()} "
+          f"greedy_sum_logp={one_score.cpu().numpy().tolist()} "
+          f"slack={BEAM_SCORE_SLACK} one_beam_is_greedy=true")
+    if not (margin >= -BEAM_SCORE_SLACK).all():
+        fail(f"a row's best beam scored below greedy's: {margin.tolist()}")
+    print(f"decoding_modes beams_fused_vs_module_identical=true "
+          f"generator_repeats=true ngram3_unrepeated=true "
+          f"token_agreement_beams_vs_greedy={float((beams == greedy).mean())!r}")
+
+
+def tiny_decoding_modes_phase(reset_counts, read_counts) -> None:
+    """The decoding modes on the tiny fp32 towers (``tiny_test_config``,
+    head_dim 16): the card's tokens equal the CPU's for beams (both steps),
+    sampling with ``top_k=1`` and n-gram bans, over both cache kinds."""
+    from tiny_audio_tpu_torch.config import tiny_test_config
+    from tiny_audio_tpu_torch.models.asr import ASRModel
+    from tiny_audio_tpu_torch.processing import ASRProcessor
+
+    rng = np.random.default_rng(SEED + 12)
+    audio = [(rng.standard_normal(int(s * 16000)) * 0.1).astype(np.float32) for s in TINY_CLIP_S]
+    modes = {"beams2": {"num_beams": 2}, "beams3_module": {"num_beams": 3, "fused_decode": False},
+             "beams4_penalties": {"num_beams": 4, "no_repeat_ngram_size": 2,
+                                  "repetition_penalty": 1.3, "length_penalty": 1.3},
+             "sample_top_k1": {"do_sample": True, "top_k": 1},
+             "ngram2": {"no_repeat_ngram_size": 2},
+             "ngram3_module": {"no_repeat_ngram_size": 3, "fused_decode": False}}
+    for kv in ("bfloat16", "int8"):  # "bfloat16": a cache of the model's dtype
+        cfg = tiny_test_config(model_dtype="float32", kv_cache_dtype=kv)
+        models = {"cuda": ASRModel(cfg, seed=SEED, device="cuda"),
+                  "cpu": ASRModel(cfg, seed=SEED, device="cpu")}
+        models["cpu"].load_state_dict(models["cuda"].state_dict())
+        tokens, counts = {}, {}
+        for where, model in models.items():
+            feats = ASRProcessor(model.projector, num_mel_bins=cfg.encoder.num_mel_bins,
+                                 device=model.device).extract_features(audio)
+            for mode, kwargs in modes.items():
+                kwargs = dict(kwargs)
+                if where == "cpu":
+                    kwargs.pop("fused_decode", None)  # the CPU takes its only step
+                reset_counts()
+                tokens[where, mode] = model.generate(
+                    feats["input_features"], feats["audio_attention_mask"],
+                    max_new_tokens=TINY_TOKENS, min_new_tokens=TINY_TOKENS // 2, **kwargs)
+                torch.cuda.synchronize()
+                counts[where, mode] = {k: v for k, v in read_counts().items() if v}
+        agree = {mode: bool(np.array_equal(tokens["cuda", mode], tokens["cpu", mode]))
+                 for mode in modes}
+        print(f"tiny_decoding_modes dtype=float32 kv={kv} head_dim=16 tokens={TINY_TOKENS} "
+              f"tokens_equal_cpu={json.dumps(agree)} "
+              f"launches={json.dumps({m: counts['cuda', m] for m in modes})}")
+        if not all(agree.values()):
+            fail(f"tiny towers kv={kv}: decoding modes' tokens differ from the CPU's: {agree}")
+        for mode in modes:
+            c = counts["cuda", mode]
+            step = "decode_attention" if "module" in mode else "decode_attention_update"
+            if min(c.get("encoder_attention", 0), c.get("prefill_attention", 0),
+                   c.get(step, 0)) == 0 or counts["cpu", mode]:
+                fail(f"tiny towers kv={kv} {mode} launches: card {c}, cpu {counts['cpu', mode]}")
+        del models
+    torch.cuda.empty_cache()
+
+
+def seeded_tower_tree(module, seed: int) -> dict:
+    """A tower's flax tree from numpy draws in its shapes: kernels
+    N(0, 1/fan_in), norm scales near 1, everything else near 0."""
+    from tiny_audio_tpu_torch.bridge import tower_flax_tree
+
+    rng = np.random.default_rng(seed)
+
+    def fill(tree):
+        out = {}
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                out[key] = fill(value)
+                continue
+            draw = rng.standard_normal(tuple(value.shape)).astype(np.float32)
+            if key == "kernel":
+                draw /= np.sqrt(np.prod(value.shape[:-1]))
+            elif key in ("scale", "var"):
+                draw = 1.0 + 0.1 * np.abs(draw)
+            else:
+                draw *= 0.1
+            out[key] = torch.from_numpy(draw)
+        return out
+
+    return fill(tower_flax_tree(module))
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Mean wall milliseconds of ``fn`` (ending in a device synchronize),
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def aux_towers_phase(aligner_dir: Path) -> None:
+    """The neural VAD, wav2vec2-CTC (full width, seeded weights written to
+    ``aligner_dir`` as the JAX package's ``wav2vec2_aligner.msgpack``), the CTC
+    trellis and the synthetic ECAPA tier on the card against the numpy
+    mirror or the CPU, each timed."""
+    from tiny_audio_tpu_torch import alignment, diarization, vad
+    from tiny_audio_tpu_torch.bridge import load_flax_tower
+    from tiny_audio_tpu_torch.models.wav2vec2 import Wav2Vec2CTC, conv_frame_count
+    from tiny_audio_tpu_torch.ops.ctc import ctc_trellis
+    from tiny_audio_tpu_torch.utils import msgpack_io
+    from tiny_audio_tpu_torch.utils.speech_synth import synth_conversation
+
+    long_clip, _, _ = synth_conversation(VAD_CLIP_S, n_speakers=2, seed=SEED)
+    # the VAD: the card against the numpy mirror, through the same tiling
+    model = vad.NeuralVAD.get("cuda")
+    if model is None or model.device.type != "cuda":
+        fail("the neural VAD did not load on the card")
+    params = vad._np_params(model.params)
+    probs = model.frame_probs(long_clip)
+    mirror = vad.frame_probs_with(long_clip, lambda f: vad.np_vadnet_forward(params, f[0]))
+    vad_err = float(np.abs(probs - mirror).max())
+    vad_ms = host_ms(lambda: model.frame_probs(long_clip))
+    print(f"aux vad clip_s={VAD_CLIP_S} frames={probs.size} max_prob_err_vs_numpy={vad_err!r} "
+          f"atol={VAD_PROB_ATOL} ms={vad_ms!r} speech_share={float((probs >= 0.5).mean())!r}")
+    if probs.size <= 4096 or not vad_err <= VAD_PROB_ATOL:
+        fail(f"the VAD on the card is off its numpy mirror by {vad_err}")
+
+    # wav2vec2-CTC at full width, fp32, seeded weights
+    tree = seeded_tower_tree(Wav2Vec2CTC(), SEED + 21)
+    msgpack_io.save(aligner_dir / "wav2vec2_aligner.msgpack", tree)
+    towers = {}
+    for where in ("cuda", "cpu"):
+        towers[where] = Wav2Vec2CTC(device=where).eval()
+        load_flax_tower(towers[where], tree)
+    n5 = int(ALIGN_CLIP_S[0] * 16000)
+    clip5 = torch.from_numpy(long_clip[None, :n5])
+    with torch.inference_mode():
+        logp = {where: m(clip5.to(where)).float().cpu() for where, m in towers.items()}
+        clip30 = torch.from_numpy(long_clip[None, : int(ALIGN_CLIP_S[1] * 16000)]).cuda()
+        w2v_ms = cuda_ms(lambda: towers["cuda"](clip30), 3)
+    logp_err = (logp["cuda"] - logp["cpu"]).abs().max().item()
+    print(f"aux wav2vec2 width=768x12 params={sum(p.numel() for p in towers['cpu'].parameters())} "
+          f"fp32 clip_s={ALIGN_CLIP_S[0]} frames={conv_frame_count(n5)} "
+          f"max_logp_err_vs_cpu={logp_err!r} atol={AUX_LOGP_ATOL} "
+          f"ms_{int(ALIGN_CLIP_S[1])}s={w2v_ms!r}")
+    if logp["cuda"].shape[1] != conv_frame_count(n5) or not logp_err <= AUX_LOGP_ATOL:
+        fail(f"wav2vec2 on the card is off the CPU by {logp_err}")
+
+    # the trellis, on the card's emission, against its CPU run
+    tokens = torch.tensor(alignment.ForcedAligner.tokenize_transcript(
+        "the quick brown fox jumps over the lazy dog " * 3))
+    emission = logp["cuda"][0]
+    with torch.inference_mode():
+        t_gpu, m_gpu = ctc_trellis(emission.cuda(), tokens)
+        t_cpu, m_cpu = ctc_trellis(emission, tokens)
+        trellis_ms = host_ms(lambda: ctc_trellis(emission.cuda(), tokens), 2)
+    finite = t_cpu > -1e29
+    trellis_err = (t_gpu.cpu()[finite] - t_cpu[finite]).abs().max().item()
+    moved_equal = bool(torch.equal(m_gpu.cpu(), m_cpu))
+    print(f"aux ctc_trellis frames={emission.shape[0]} tokens={tokens.numel()} "
+          f"max_err_vs_cpu={trellis_err!r} atol={TRELLIS_ATOL} moved_equal={str(moved_equal).lower()} "
+          f"ms={trellis_ms!r}")
+    if not trellis_err <= TRELLIS_ATOL or not moved_equal:
+        fail(f"the CTC trellis on the card is off the CPU: {trellis_err}, moved {moved_equal}")
+    del towers, logp
+
+    # ECAPA-TDNN, the synthetic tier
+    embedders = {where: diarization.EcapaEmbedder.get(where) for where in ("cuda", "cpu")}
+    if embedders["cuda"].tier != "synthetic" or embedders["cuda"].device.type != "cuda":
+        fail("the synthetic ECAPA tier did not load on the card")
+    segments = diarization.decisions_to_segments(diarization.frame_vad(long_clip))
+    windows, _ = diarization.sliding_windows(long_clip, segments)
+    windows = windows[:ECAPA_WINDOWS]
+    emb = {where: e.embed_windows(windows) for where, e in embedders.items()}
+    ecapa_err = float(np.abs(emb["cuda"] - emb["cpu"]).max())
+    feats = torch.from_numpy(diarization._speaker_fbank(windows)).cuda()
+    with torch.inference_mode():
+        ecapa_ms = cuda_ms(lambda: embedders["cuda"].module(feats), 5)
+    print(f"aux ecapa tier=synthetic channels={list(diarization.EcapaEmbedder.SYNTH_CHANNELS)} "
+          f"windows={len(windows)} max_embed_err_vs_cpu={ecapa_err!r} atol={ECAPA_ATOL} "
+          f"ms_per_window_batch={ecapa_ms!r}")
+    if len(windows) != ECAPA_WINDOWS or not ecapa_err <= ECAPA_ATOL:
+        fail(f"ECAPA on the card is off the CPU by {ecapa_err}")
+
+
+def timestamps_speakers_phase(model, pipe, aligner_dir: Path, reset_counts,
+                              read_counts) -> None:
+    """``pipeline(clip, return_timestamps=True, return_speakers=True)`` at the
+    flagship width on a two-voice synthetic conversation, the aligner
+    attached from ``aligner_dir`` through ``_attach_aux_towers``.  The byte
+    tokenizer decodes ids below 256 only, so the tied head's rows past the
+    bytes are zeroed (random weights otherwise give no text to align).  No
+    error key, the neural VAD (no ``vad_fallback``), model-aligned words
+    (only words without a CTC letter are interpolated) and speaker segments
+    are required."""
+    from tiny_audio_tpu_torch.alignment import ForcedAligner
+    from tiny_audio_tpu_torch.models.asr import ASRModel
+    from tiny_audio_tpu_torch.models.wav2vec2 import CTC_LABELS
+    from tiny_audio_tpu_torch.utils.speech_synth import synth_conversation
+
+    ASRModel._attach_aux_towers(aligner_dir, model.device)
+    if not ForcedAligner.has_model():
+        fail("_attach_aux_towers did not attach the aligner")
+    with torch.no_grad():
+        model.decoder.embed_tokens.weight[256:] = 0
+    clip, truth, _ = synth_conversation(CONVERSATION_S, n_speakers=2, seed=SEED + 3)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = pipe(clip, return_timestamps=True, return_speakers=True, no_repeat_ngram_size=3,
+                  max_new_tokens=MAX_NEW, min_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in read_counts().items() if v}
+    for key in ("timestamp_error", "diarization_error"):
+        if key in result:
+            fail(f"the pipeline reported {key}: {result[key]}")
+    words, segments = result.get("words", []), result.get("speaker_segments", [])
+    letters = set(CTC_LABELS[2:])
+    aligned = [w for w in words if set(w["word"].upper()) & letters]
+    if not aligned or any(w.get("fallback") for w in aligned):
+        fail(f"words were not aligned by the model: {words[:8]}")
+    if not segments or any(s.get("vad_fallback") or s.get("fallback") for s in segments):
+        fail(f"no speaker segments, or the heuristic VAD / a random embedder ran: {segments[:4]}")
+    if min(counts.get("encoder_attention", 0), counts.get("prefill_attention", 0),
+           counts.get("decode_attention_update", 0)) == 0:
+        fail(f"the pipeline missed a kernel of its path: {counts}")
+    speakers = sorted({s["speaker"] for s in segments})
+    print(f"pipeline_timestamps_speakers clip_s={CONVERSATION_S} voices=2 wall_s={wall!r} "
+          f"text_chars={len(result['text'])} words={len(words)} model_aligned={len(aligned)} "
+          f"interpolated={len(words) - len(aligned)} segments={len(segments)} "
+          f"speakers={json.dumps(speakers)} true_turns={len(truth)} "
+          f"words_with_speaker={sum(w.get('speaker') is not None for w in words)} "
+          f"launches={json.dumps(counts)}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device; this smoke run measures the GPU and never runs on the CPU")
@@ -3326,6 +3703,8 @@ def main() -> None:
 
     # ---- 4b. the tiny towers on the card: fp32, head_dim 16, training ----
     tiny_towers_phase(reset_counts, read_counts)
+    phase_done()
+    tiny_decoding_modes_phase(reset_counts, read_counts)
     phase_done()
 
     # ---- 5. generate at the flagship width, on both decode paths ----
@@ -3488,6 +3867,10 @@ def main() -> None:
           f"launches={json.dumps(counts)}")
     phase_done()
 
+    # ---- 7b. sampling, beams and n-gram bans at the flagship ----
+    decoding_modes_phase(model, pipe, audio, no_int8, reset_counts, read_counts)
+    phase_done()
+
     # ---- 8. generate under each int8 decode mode ----
     bf16_tokens = results["fused"]["tokens"]
     int8_inputs: dict = {}
@@ -3561,6 +3944,14 @@ def main() -> None:
     served = serve_requests(model, rng, reset_counts, read_counts)
     print(f"server requests={len(REQUEST_SECONDS)} seconds={list(REQUEST_SECONDS)} "
           f"{served}")
+    phase_done()
+
+    # ---- 9b. the VAD, the aligner and diarization; the pipeline with them ----
+    aligner_dir = Path(tempfile.mkdtemp())
+    aux_towers_phase(aligner_dir)
+    phase_done()
+    timestamps_speakers_phase(model, pipe, aligner_dir, reset_counts, read_counts)
+    shutil.rmtree(aligner_dir)
     phase_done()
     del model, pipe
     torch.cuda.empty_cache()

@@ -6,7 +6,8 @@ paths, the pipelines the same texts and streaming the same fragments.  A
 subprocess imports every module of the port (the training package
 included) with jax, flax, msgpack, transformers and the JAX package
 blocked, serves a checkpoint, runs a stage-2 train step, builds the MOSA,
-MoE and QFormer projectors and runs the convergence ladder's pieces.
+MoE and QFormer projectors, runs the convergence ladder's pieces, beams and
+sampling, the neural VAD, diarization and the aligner.
 """
 
 import os
@@ -224,15 +225,6 @@ def test_bucket_frames_and_prompt_bucket(pair):
     assert tm.mel_window_frames() == jm.mel_window_frames()
 
 
-def test_unported_decoding_modes_raise(pair):
-    _, tm = pair
-    audio = _audio((0.3,))
-    feats = ASRProcessor(tm.projector, num_mel_bins=80, device="cpu").extract_features(audio)
-    for override in ({"do_sample": True}, {"num_beams": 2}, {"no_repeat_ngram_size": 3}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm.generate(feats["input_features"], feats["audio_attention_mask"], **override)
-
-
 _NO_JAX_SCRIPT = r"""
 import importlib, pkgutil, sys
 
@@ -338,6 +330,33 @@ ctc = convergence.pretrain_encoder_ctc(model, rows, rows, convergence.DEFAULT_VO
                                        batch=2, verbose=False)
 assert 0.0 <= ctc["token_error_rate"] and len(ctc["curve"]) == 1
 assert convergence._wer_eval(model, rows[:1], max_new_tokens=2) >= 0.0
+
+# beams, sampling and n-gram bans; the neural VAD, ECAPA diarization and the
+# wav2vec2 aligner attached from a checkpoint directory
+from tiny_audio_tpu_torch import alignment, diarization, vad
+from tiny_audio_tpu_torch.bridge import tower_flax_tree
+from tiny_audio_tpu_torch.models.wav2vec2 import Wav2Vec2CTC
+from tiny_audio_tpu_torch.utils import msgpack_io
+from tiny_audio_tpu_torch.utils.speech_synth import synth_conversation
+
+model = pipe.model
+for kwargs in ({"num_beams": 2, "no_repeat_ngram_size": 2, "fused_decode": True},
+               {"num_beams": 2, "fused_decode": False},
+               {"do_sample": True, "top_p": 0.9, "generator": torch.Generator().manual_seed(0)}):
+    tokens = model.generate(feats["input_features"], feats["audio_attention_mask"], **kwargs)
+    assert tokens.shape == (1, 4), (kwargs, tokens.shape)
+clip, _, _ = synth_conversation(3.0, n_speakers=2, seed=0)
+assert vad.frame_vad_auto(clip, device="cpu")[1]
+assert vad.StreamingVad.make().feed(clip).any()
+assert diarization.EcapaEmbedder.get("cpu").tier == "synthetic"
+msgpack_io.save(ckpt + "/wav2vec2_aligner.msgpack", tower_flax_tree(Wav2Vec2CTC()))
+ASRModel._attach_aux_towers(ckpt, "cpu")
+assert alignment.ForcedAligner.has_model()
+words = alignment.ForcedAligner.align(clip, "one two", device="cpu")
+assert [w["word"] for w in words] == ["one", "two"] and not any("fallback" in w for w in words)
+result = pipe(clip, return_timestamps=True, return_speakers=True)
+assert "timestamp_error" not in result and "diarization_error" not in result, result
+assert result["speaker_segments"], result
 
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "tiny_audio_tpu",

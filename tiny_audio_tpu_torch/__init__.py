@@ -2,9 +2,11 @@
 
 A port of :mod:`tiny_audio_tpu` (the JAX reference, which stays beside it):
 mel -> audio encoder -> projector (MLP, MOSA, MoE or QFormer) -> ``<audio>``
-splice -> Qwen3 prefill -> KV-cached greedy decode -> text, batched,
-streamed or behind the HTTP server (:mod:`.serving`), with opt-in int8
-decode modes and checkpoints in the JAX package's layout; training
+splice -> Qwen3 prefill -> KV-cached decode (greedy, sampling, beam search)
+-> text, batched, streamed or behind the HTTP server (:mod:`.serving`), with
+opt-in int8 decode modes, word timestamps (:mod:`.alignment`) and speaker
+diarization (:mod:`.diarization`, :mod:`.vad`), and checkpoints in the JAX
+package's layout; training
 (:mod:`.train`: stages 1-3, LoRA, the offline convergence ladder).  Plain tensor code is PyTorch; the kernels the JAX
 package ran in Pallas on the TPU along these paths (encoder and prefill
 attention, decode attention with and without the cache append, the W8A8 and

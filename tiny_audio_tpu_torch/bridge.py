@@ -130,3 +130,87 @@ def state_dict_to_jax(model: nn.Module) -> dict:
     for path, by_index in stacks.items():
         _set(tree, path, torch.stack([by_index[i] for i in range(len(by_index))]))
     return tree
+
+
+_GRU_CELL = {"ir": ("kernel", "bias"), "iz": ("kernel", "bias"), "in": ("kernel", "bias"),
+             "hr": ("kernel",), "hz": ("kernel",), "hn": ("kernel", "bias")}
+
+
+def _is_gru_cell(tree) -> bool:
+    return isinstance(tree, dict) and set(tree) == set(_GRU_CELL)
+
+
+def _gru_state(prefix: str, cell: dict) -> dict[str, torch.Tensor]:
+    """A flax GRUCell as ``nn.GRU``'s layer-0 tensors (gates r, z, n)."""
+    for gate, leaves in _GRU_CELL.items():
+        if set(cell[gate]) != set(leaves):
+            raise KeyError(f"{prefix}.{gate}: leaves {sorted(cell[gate])}, expected {leaves}")
+    kernel = {g: _as_tensor(cell[g]["kernel"]).T for g in _GRU_CELL}
+    b_in = [_as_tensor(cell[f"i{g}"]["bias"]) for g in "rzn"]
+    b_hn = _as_tensor(cell["hn"]["bias"])
+    zero = torch.zeros_like(b_hn)
+    return {f"{prefix}.weight_ih_l0": torch.cat([kernel[f"i{g}"] for g in "rzn"]),
+            f"{prefix}.weight_hh_l0": torch.cat([kernel[f"h{g}"] for g in "rzn"]),
+            f"{prefix}.bias_ih_l0": torch.cat(b_in),
+            f"{prefix}.bias_hh_l0": torch.cat([zero, zero, b_hn])}
+
+
+_TOWER_LEAVES = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+
+
+def _tower_state(tree: dict, prefix: tuple = ()) -> dict[str, torch.Tensor]:
+    out: dict[str, torch.Tensor] = {}
+    for key, sub in tree.items():
+        path = prefix + (str(key),)
+        if _is_gru_cell(sub):
+            out.update(_gru_state(".".join(path), sub))
+        elif isinstance(sub, dict):
+            out.update(_tower_state(sub, path))
+        else:
+            name, value = _to_torch_layout(path[-1], _as_tensor(sub))
+            out[".".join([*path[:-1], _TOWER_LEAVES.get(name, name)])] = value
+    return out
+
+
+@torch.no_grad()
+def load_flax_tower(module: nn.Module, tree: dict) -> None:
+    """Fill a tower ``module`` (parameters and buffers) from its flax params
+    tree, each value in the dtype of the tensor it fills.  Raises on a leaf
+    it does not consume and on a tensor left unset."""
+    state = module.state_dict(keep_vars=True)
+    unset = set(state)
+    for name, value in _tower_state(tree).items():
+        if name not in state:
+            raise KeyError(f"flax leaf {name!r} has no counterpart in {type(module).__name__}")
+        target = state[name]
+        if tuple(value.shape) != tuple(target.shape):
+            raise ValueError(f"{name}: flax shape {tuple(value.shape)} vs PyTorch "
+                             f"{tuple(target.shape)}")
+        target.copy_(value)
+        unset.discard(name)
+    if unset:
+        raise KeyError(f"{type(module).__name__} tensors left unset: {sorted(unset)}")
+
+
+@torch.no_grad()
+def tower_flax_tree(module: nn.Module) -> dict:
+    """The flax params tree of a tower without a GRU (CPU tensors): the
+    inverse of :func:`load_flax_tower`, for writing the file the JAX package
+    reads."""
+    modules = dict(module.named_modules())
+    inverse = {v: k for k, v in _TOWER_LEAVES.items()}
+    tree: dict = {}
+    for name, value in module.state_dict().items():
+        *owner_path, leaf = name.split(".")
+        owner = modules[".".join(owner_path)]
+        if isinstance(owner, nn.GRU):
+            raise TypeError("tower_flax_tree does not write a GRU")
+        value = value.detach().cpu()
+        if leaf == "weight" and isinstance(owner, nn.Linear):
+            leaf, value = "kernel", value.T
+        elif leaf == "weight" and isinstance(owner, nn.Conv1d):
+            leaf, value = "kernel", value.permute(2, 1, 0)
+        else:
+            leaf = inverse.get(leaf, leaf)
+        _set(tree, (*owner_path, leaf), value.contiguous())
+    return tree

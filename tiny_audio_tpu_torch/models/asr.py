@@ -2,8 +2,9 @@
 
 Port of the inference half of :class:`tiny_audio_tpu.models.asr.ASRModel`:
 mel mask -> encoder -> projector -> row-aligned ``<audio>`` splice ->
-KV-cached greedy decode, batched (:meth:`ASRModel.generate`) or streamed token
-by token (:meth:`ASRModel.generate_streaming`); the opt-in int8 decode modes
+KV-cached decode (greedy, sampling or beam search), batched
+(:meth:`ASRModel.generate`) or streamed token by token
+(:meth:`ASRModel.generate_streaming`); the opt-in int8 decode modes
 (:meth:`ASRModel.enable_wq_decode`, :meth:`~ASRModel.enable_w8a8_head`,
 :meth:`~ASRModel.enable_w8a8_decode`); the JAX package's checkpoint layout
 (:meth:`ASRModel.save_pretrained`, :meth:`ASRModel.from_pretrained`, LoRA
@@ -33,7 +34,7 @@ from tiny_audio_tpu_torch.tokenization import AUDIO_TOKEN, ByteTokenizer, HFToke
 from tiny_audio_tpu_torch.utils import msgpack_io
 from tiny_audio_tpu_torch.generation import (
     GenerationConfig,
-    check_supported,
+    generate_beams,
     generate_tokens,
     stream_generate,
 )
@@ -412,16 +413,22 @@ class ASRModel(nn.Module):
         system_prompt: Optional[str] = None,
         mel_length: Optional[int] = None,
         fused_decode: Optional[bool] = None,
+        generator: Optional[torch.Generator] = None,
         **overrides,
     ):
         """Transcribe a batch.  Returns generated token ids [B, max_new] as
         numpy (pad after EOS), prompt stripped; with ``return_scores=True``
-        (a GenerationConfig override) returns ``(tokens, scores)``.
+        (a GenerationConfig override; greedy and sampling only) returns
+        ``(tokens, scores)``.
 
         ``mel_length``: batch-max real mel frames when the caller knows it
         (the processor does), which saves a device->host sync.
-        ``fused_decode``: the decode step's path (``generate_tokens``); None
-        takes the fused step on the card and the module step elsewhere."""
+        ``fused_decode``: the decode step's path (``generate_tokens``,
+        ``generate_beams``); None takes the fused step on the card and the
+        module step elsewhere.  ``generator``: the sampling draws' generator
+        (None: seeded with 0 each call).  ``num_beams > 1`` runs beam search
+        on the exact prompt in full precision: the int8 decode weights serve
+        greedy and sampling only, as in the JAX package."""
         input_features = torch.as_tensor(input_features, device=self.device)
         audio_attention_mask = torch.as_tensor(audio_attention_mask, device=self.device)
         b = input_features.shape[0]
@@ -433,12 +440,18 @@ class ASRModel(nn.Module):
         ids = self.build_prompt_ids(n_audio, user_prompt, system_prompt)
 
         gen = dataclasses.replace(self.gen_config, **overrides) if overrides else self.gen_config
-        check_supported(gen)
+        beams = gen.num_beams > 1
+        if gen.return_scores and beams:
+            raise ValueError(
+                "return_scores supports the greedy/sampling decode paths; "
+                "beam search carries its own hypothesis scores"
+            )
 
         # Right-pad the prompt to a PROMPT_BUCKET multiple, as the JAX
         # package does; pad rows are causally invisible to the real rows.
+        # Beams keep the exact prompt.
         t_real = len(ids)
-        t_pad = self._bucket_prompt_len(t_real, n_audio)
+        t_pad = t_real if beams else self._bucket_prompt_len(t_real, n_audio)
         ids_np = np.full((b, t_pad), gen.pad_token_id, np.int64)
         ids_np[:, :t_real] = ids
         input_ids = torch.from_numpy(ids_np).to(self.device)
@@ -448,8 +461,16 @@ class ASRModel(nn.Module):
         text_embeds = self.decoder.embed(input_ids)
         audio_mask = (input_ids == self.tokenizer.audio_token_id) & prompt_mask
         inputs_embeds = splice_audio(text_embeds, audio_mask, audio_embeds)
+        if beams:
+            wq, self.wq = self.wq, None  # beams keep full precision
+            try:
+                tokens, _ = generate_beams(self.decoder, inputs_embeds, gen, input_ids=input_ids,
+                                           fused_decode=fused_decode)
+            finally:
+                self.wq = wq
+            return tokens.cpu().numpy()
         out = generate_tokens(self.decoder, inputs_embeds, input_ids, gen, prompt_len=t_real,
-                              fused_decode=fused_decode)
+                              fused_decode=fused_decode, generator=generator)
         if gen.return_scores:
             tokens, _, scores = out
             return tokens.cpu().numpy(), scores.cpu().numpy()
@@ -462,9 +483,13 @@ class ASRModel(nn.Module):
         audio_attention_mask,
         user_prompt: Optional[str] = None,
         system_prompt: Optional[str] = None,
+        generator: Optional[torch.Generator] = None,
     ):
         """Yield decoded text fragments token by token (batch 1), with
-        ``<think>`` blocks filtered out.
+        ``<think>`` blocks filtered out.  The model's generation config
+        applies (sampling with ``do_sample``, drawn from ``generator``); the
+        stream decodes token by token whatever ``num_beams`` is, as in the
+        JAX package.
 
         Features longer than the encoder window are streamed window by
         window: each 30 s window is re-primed with a fresh prompt, and a
@@ -487,7 +512,7 @@ class ASRModel(nn.Module):
                 for frag in self.generate_streaming(
                     input_features[:, :, s:s + window],
                     audio_attention_mask[:, s:s + window],
-                    user_prompt, system_prompt,
+                    user_prompt, system_prompt, generator,
                 ):
                     if first_of_chunk and yielded_before and frag and not frag[0].isspace():
                         frag = " " + frag
@@ -500,7 +525,6 @@ class ASRModel(nn.Module):
         n_audio = self._num_audio_tokens(real_mel)
         ids = self.build_prompt_ids(n_audio, user_prompt, system_prompt)
         gen = self.gen_config
-        check_supported(gen)
         t_real = len(ids)
         t_pad = self._bucket_prompt_len(t_real, n_audio)
         ids_np = np.full((1, t_pad), gen.pad_token_id, np.int64)
@@ -515,7 +539,7 @@ class ASRModel(nn.Module):
         def decoded_chunks():
             pending: list[int] = []
             for tok in stream_generate(self.decoder, inputs_embeds, input_ids, gen,
-                                       prompt_len=t_real):
+                                       prompt_len=t_real, generator=generator):
                 pending.append(tok)
                 text = self.tokenizer.decode(pending, skip_special_tokens=True)
                 if text:
@@ -558,8 +582,9 @@ class ASRModel(nn.Module):
         where present (a tower without a file keeps its seeded random
         weights, as in the JAX package), and ``adapter.msgpack`` when the
         config has ``use_lora``.  ``tokenizer_config.json`` loads an HF
-        tokenizer (needs ``transformers``).  The aligner / speaker-embedder
-        files are not ported (ROADMAP.md)."""
+        tokenizer (needs ``transformers``).  ``wav2vec2_aligner.msgpack`` and
+        ``ecapa_embedder.msgpack`` attach the aligner and the speaker
+        embedder on the model's device (:meth:`_attach_aux_towers`)."""
         path = Path(path)
         config = ASRConfig.from_pretrained(path)
         if tokenizer is None and (path / "tokenizer_config.json").exists():
@@ -575,4 +600,37 @@ class ASRModel(nn.Module):
             params["decoder"] = merge_lora(params.get("decoder", {}),
                                            msgpack_io.load(path / "adapter.msgpack"))
         load_jax_params(model, params, require_all=False)
+        cls._attach_aux_towers(path, model.device)
         return model
+
+    @staticmethod
+    def _attach_aux_towers(path, device) -> None:
+        """Attach a checkpoint's aligner and speaker-embedder weights to their
+        process singletons on ``device``: a fresh serving process only runs
+        ``from_pretrained``, and without this word timestamps would take the
+        uniform spread and diarization the synthetic embedder tier.  An
+        unusable file is reported and skipped, as in the JAX package."""
+        path = Path(path)
+        aligner = path / "wav2vec2_aligner.msgpack"
+        if aligner.exists():
+            from tiny_audio_tpu_torch.alignment import ForcedAligner
+
+            if not ForcedAligner.has_model():
+                try:
+                    ForcedAligner.load_weights(aligner, device=device)
+                except Exception as e:  # keep serving up on a bad aux file
+                    print(f"[asr] aligner weights unusable ({e}); "
+                          "word timestamps will use the uniform fallback")
+        ecapa = path / "ecapa_embedder.msgpack"
+        if ecapa.exists():
+            from tiny_audio_tpu_torch.diarization import EcapaEmbedder
+
+            key = str(require_device(device))
+            current = EcapaEmbedder._instances.get(key)
+            if current is None or current.tier != "speechbrain":
+                try:
+                    EcapaEmbedder._instances[key] = EcapaEmbedder.from_converted(
+                        ecapa, device=device)
+                except Exception as e:
+                    print(f"[asr] ecapa weights unusable ({e}); "
+                          "diarization keeps the synthetic tier")

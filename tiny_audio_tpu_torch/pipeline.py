@@ -3,10 +3,10 @@
 Port of :mod:`tiny_audio_tpu.pipeline`: input normalization (path / bytes /
 ndarray / dict), long-form chunking, batch buckets, streaming, and
 post-processing (EOS filtering, ``<think>``-tag stripping, trailing repetition
-truncation).  Word timestamps and speaker diarization are not ported yet
-(ROADMAP.md): a request for them gets ``timestamp_error`` /
-``diarization_error`` in its result, as the JAX pipeline reports a failed
-aligner.
+truncation), word timestamps (:mod:`.alignment`) and speaker diarization
+(:mod:`.diarization`) on the model's device.  A failure of either is
+reported in the result (``timestamp_error`` / ``diarization_error``), as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -22,7 +22,6 @@ from tiny_audio_tpu_torch.utils.audio_io import read_wav, resample
 
 _THINK_RE = re.compile(r"<think>.*?</think>\s*", flags=re.DOTALL)
 _MIN_REPEATS = 3
-_NOT_PORTED = "{} is not ported to PyTorch yet (ROADMAP.md)"
 
 
 def _strip_think(text: str) -> str:
@@ -193,13 +192,36 @@ class ASRPipeline:
         result = {"text": " ".join(t for t in texts if t).strip()}
         if return_confidence:
             result["confidence"] = float(np.exp(np.mean(chunk_logps)))
+        device = self.model.device
         if return_timestamps:
+            text = result["text"]
             result["words"] = []
-            if result["text"]:
-                result["timestamp_error"] = _NOT_PORTED.format("word alignment")
+            if text:
+                try:
+                    from tiny_audio_tpu_torch.alignment import ForcedAligner
+
+                    result["words"] = ForcedAligner.align(
+                        audio["array"], text, sample_rate=audio["sampling_rate"], device=device)
+                except Exception as e:
+                    result["timestamp_error"] = str(e)
+
         if return_speakers:
-            result["speaker_segments"] = []
-            result["diarization_error"] = _NOT_PORTED.format("speaker diarization")
+            try:
+                from tiny_audio_tpu_torch.diarization import SpeakerDiarizer
+
+                kwargs = {k: v for k, v in {"num_speakers": num_speakers,
+                                            "min_speakers": min_speakers,
+                                            "max_speakers": max_speakers}.items()
+                          if v is not None}
+                segments = SpeakerDiarizer.diarize(
+                    audio["array"], sample_rate=audio["sampling_rate"], device=device, **kwargs)
+                result["speaker_segments"] = segments
+                if result.get("words"):
+                    result["words"] = SpeakerDiarizer.assign_speakers_to_words(
+                        result["words"], segments)
+            except Exception as e:
+                result["speaker_segments"] = []
+                result["diarization_error"] = str(e)
         return result
 
     def transcribe_streaming(self, inputs, user_prompt: Optional[str] = None):
