@@ -69,6 +69,18 @@ flagship width (random weights from seed 0, int8 KV cache):
   synthetic conversation, the aligner attached by ``_attach_aux_towers``
   from a directory holding the seeded ``wav2vec2_aligner.msgpack`` (no
   error key, the neural VAD, model-aligned words, speaker segments);
+- the realtime WebSocket server (the port's own transport) over that
+  pipeline with the neural stream VAD: ``tools/bench_realtime``'s sessions,
+  4 concurrent real-time-paced sessions of 4 s of synthesized speech, on
+  the lock and through ``DynamicBatcher`` (first partial and endpoint
+  latency, launches of #1, #2 and #4 a final; a final for every turn, no
+  second final, no partial after its final), one 8 kHz session with
+  timestamps, speakers and confidence, and one session on the tiny fp32
+  towers giving the CPU's messages; then the eval harness: ``run_eval``
+  over the tiny fp32 towers with the ``local``, ``local-streaming`` and
+  ``realtime`` backends (WER equal to the CPU's), ``synthetic-diarization``
+  and ``synthetic-alignment``, and ``tools/bench_quality``'s DER and
+  alignment error;
 - the two kernels that only their own entry points reach (no path of the
   port or of the JAX package calls them; every path above launches them 0
   times): the fused log-mel front end (#7, ``log_mel_spectrogram_fused``,
@@ -419,6 +431,18 @@ ECAPA_ATOL = 1e-3
 TRELLIS_ATOL = 1e-3
 # The pipeline with timestamps and speakers: a two-voice synthetic clip
 CONVERSATION_S = 30.0
+# the realtime phase: tools/bench_realtime's sessions, real-time paced
+REALTIME_SESSIONS = 4
+REALTIME_SPEECH_S = 4.0
+# the flagship's token budget a decode in the realtime phase: at ~31 ms a
+# decode step (PERF.md, PR 15) the default 128 tokens would make each partial
+# and final a ~4 s decode
+REALTIME_NEW = 24
+REALTIME_OPTIONS = "timestamps=true&speakers=true&confidence=true"
+REALTIME_EXTRA_RATE = 8000
+# the eval phase: rows of each synthetic source through run_eval
+EVAL_ROWS = 4
+EVAL_DIARIZATION_ROWS = 2
 
 
 def fail(msg: str) -> None:
@@ -3595,6 +3619,245 @@ def timestamps_speakers_phase(model, pipe, aligner_dir: Path, reset_counts,
           f"launches={json.dumps(counts)}")
 
 
+def realtime_phase(model, pipe, no_int8: dict, reset_counts, read_counts) -> dict:
+    """The realtime WebSocket server (the port's own transport) over the
+    flagship int8-KV pipeline, with the neural stream VAD: ``tools/
+    bench_realtime``'s session runner drives ``REALTIME_SESSIONS`` concurrent
+    real-time-paced sessions of ``REALTIME_SPEECH_S`` s of synthesized
+    speech, once on the lock (solo) and once through ``DynamicBatcher``,
+    then one session at 8 kHz with timestamps, speakers and confidence.
+    Every session needs a final for each turn, no second final and no
+    partial after its turn's final; the options' finals need words (aligned
+    by the attached aligner), a speaker and a confidence.  The server may
+    swallow no failure (``RealtimeServer.errors``), every final it decoded
+    must have text (the head is zeroed past the bytes), the clients must
+    receive exactly those texts, and in solo mode each must equal
+    ``pipe(turn audio)`` called directly.  Then the tiny fp32 towers serve
+    one session on the card and one on the CPU: the same messages.  Returns
+    the launches of #1, #2 and #4 per final, per mode."""
+    from tiny_audio_tpu_torch.batching import DynamicBatcher
+    from tiny_audio_tpu_torch.realtime import RealtimeServer
+    from tiny_audio_tpu_torch.tools import bench_realtime as bench
+
+    class RecordingServer(RealtimeServer):
+        """Keeps each final's turn audio and decoded text."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.decoded: list[tuple[np.ndarray, str]] = []
+
+        def _transcribe(self, audio, blocking):
+            text = super()._transcribe(audio, blocking)
+            if blocking:
+                self.decoded.append((np.array(audio, np.float32), text))
+            return text
+
+        def _transcribe_scored(self, audio):
+            text, conf = super()._transcribe_scored(audio)
+            self.decoded.append((np.array(audio, np.float32), text))
+            return text, conf
+
+    kernels = ("encoder_attention", "prefill_attention", "decode_attention_update")
+    saved = model.gen_config
+    model.gen_config = dataclasses.replace(saved, max_new_tokens=REALTIME_NEW)
+    per_final = {}
+    try:
+        for mode in ("solo", "batched", "options"):
+            batcher = (DynamicBatcher(pipe, max_batch=16, max_wait_ms=30.0)
+                       if mode == "batched" else None)
+            server = RecordingServer(pipe, host="127.0.0.1", port=0, partial_every_s=0.5,
+                                     batcher=batcher).start()
+            if server.vad_fn is not None:
+                fail("the realtime server fell back to the heuristic VAD")
+            reset_counts()
+            t0 = time.perf_counter()
+            if mode == "options":
+                results = [{}]
+                bench.run_session(server.port, SEED + 20, REALTIME_SPEECH_S, results[0],
+                                  options=REALTIME_OPTIONS, sample_rate=REALTIME_EXTRA_RATE,
+                                  speech_fraction=0.9)
+            else:
+                results, _ = bench.run_sessions(server.port, REALTIME_SESSIONS,
+                                                REALTIME_SPEECH_S, first_seed=SEED + 7)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            server.shutdown()
+            if batcher is not None:
+                batcher.close()
+            faults = [bench.session_faults(r.get("events", [])) for r in results]
+            if any(faults):
+                fail(f"realtime {mode}: {faults}")
+            summary = bench.summarize(results)
+            finals = [m for r in results for _, m in r["events"]
+                      if m["type"] == "Turn" and m["end_of_turn"]]
+            if summary["endpoint_latency_s"] is None or \
+                    summary["endpoint_latency_s"]["n"] != len(results):
+                fail(f"realtime {mode}: a session had no final after its last speech")
+            if server.errors():
+                fail(f"realtime {mode}: the server swallowed {server.errors()}")
+            texts = sorted(text for _, text in server.decoded)
+            if not texts or not all(texts) or \
+                    texts != sorted(f["transcript"] for f in finals if f["transcript"]):
+                fail(f"realtime {mode}: decoded finals {texts}, received "
+                     f"{[f['transcript'] for f in finals]}")
+            direct_equal = None
+            if mode == "solo":
+                direct = [pipe({"array": audio, "sampling_rate": 16000})["text"]
+                          for audio, _ in server.decoded]
+                direct_equal = direct == [text for _, text in server.decoded]
+                if not direct_equal:
+                    fail(f"realtime solo: finals {[t for _, t in server.decoded]} but the "
+                         f"pipeline alone gives {direct}")
+            if mode == "options":
+                for f in finals:
+                    words = f.get("words") or []
+                    if not words or any(w.get("fallback") for w in words) or \
+                            "speaker" not in f or not 0.0 < f.get("confidence", 0.0) <= 1.0:
+                        fail(f"realtime options: a final without model-aligned words, a "
+                             f"speaker or a confidence: {f}")
+            if min(counts[k] for k in kernels) == 0 or any(counts[k] for k in no_int8):
+                fail(f"realtime {mode}: the turns' decodes launched {counts}")
+            per_final[mode] = {k: counts[k] / len(finals) for k in kernels}
+            extra = (f"options={REALTIME_OPTIONS} sample_rate={REALTIME_EXTRA_RATE} "
+                     if mode == "options" else "")
+            print(f"realtime mode={mode} sessions={len(results)} speech_s={REALTIME_SPEECH_S} "
+                  f"new_tokens={REALTIME_NEW} kv=int8 vad=neural_stream {extra}"
+                  f"first_partial_s={json.dumps(summary['first_partial_s'])} "
+                  f"endpoint_latency_s={json.dumps(summary['endpoint_latency_s'])} "
+                  f"finals_per_session={summary['finals_per_session']} "
+                  f"partials_per_session={summary['partials_per_session']} wall_s={wall!r} "
+                  f"decoded_finals={len(server.decoded)} final_chars="
+                  f"{[len(text) for _, text in server.decoded]} swallowed_errors=0 "
+                  f"{'' if direct_equal is None else f'equal_to_direct_pipe={direct_equal} '}"
+                  f"launches={json.dumps({k: v for k, v in counts.items() if v})} "
+                  f"launches_per_final={json.dumps(per_final[mode])}")
+            if mode == "options":
+                shown = [{"speaker": f["speaker"], "confidence": f["confidence"],
+                          "words": len(f["words"])} for f in finals]
+                print(f"realtime options finals={json.dumps(shown)}")
+    finally:
+        model.gen_config = saved
+    tiny_realtime_session(reset_counts, read_counts)
+    return per_final
+
+
+def tiny_realtime_session(reset_counts, read_counts) -> None:
+    """One session on the tiny fp32 towers on the card and on the CPU (the
+    same weights, the neural stream VAD, finals only): the same messages."""
+    from tiny_audio_tpu_torch.config import tiny_test_config
+    from tiny_audio_tpu_torch.models.asr import ASRModel
+    from tiny_audio_tpu_torch.pipeline import ASRPipeline
+    from tiny_audio_tpu_torch.realtime import RealtimeServer
+    from tiny_audio_tpu_torch.tools.bench_realtime import build_session_audio
+    from tiny_audio_tpu_torch.utils.websocket import connect
+
+    cfg = tiny_test_config(model_dtype="float32")
+    models = {"cuda": ASRModel(cfg, seed=SEED, device="cuda"),
+              "cpu": ASRModel(cfg, seed=SEED, device="cpu")}
+    models["cpu"].load_state_dict(models["cuda"].state_dict())
+    audio = np.concatenate([build_session_audio(SEED + 30 + i, 2.0)[0] for i in range(2)])
+    pcm = (np.clip(audio, -1, 1) * 32767).astype("<i2").tobytes()
+    turns, counts = {}, {}
+    for where, model in models.items():
+        server = RealtimeServer(ASRPipeline(model), host="127.0.0.1", port=0,
+                                partial_every_s=None).start()
+        reset_counts()
+        msgs = []
+        with connect(f"ws://127.0.0.1:{server.port}/ws?sample_rate=16000") as ws:
+            for i in range(0, len(pcm), 3200):
+                ws.send(pcm[i:i + 3200])
+            ws.send(json.dumps({"type": "Terminate"}))
+            while not msgs or msgs[-1]["type"] != "Termination":
+                msgs.append(json.loads(ws.recv(timeout=300)))
+        torch.cuda.synchronize()
+        counts[where] = {k: v for k, v in read_counts().items() if v}
+        server.shutdown()
+        if server.errors():
+            fail(f"tiny realtime session on {where}: the server swallowed {server.errors()}")
+        turns[where] = [(m["turn_order"], m["end_of_turn"], m["transcript"])
+                        for m in msgs if m["type"] == "Turn"]
+    finals = [t for t in turns["cuda"] if t[1]]
+    print(f"realtime tiny dtype=float32 head_dim=16 audio_s={len(audio) / 16000!r} "
+          f"finals={len(finals)} messages_equal_cpu={turns['cuda'] == turns['cpu']} "
+          f"launches={json.dumps(counts['cuda'])}")
+    if not finals or turns["cuda"] != turns["cpu"]:
+        fail(f"tiny realtime session: card {turns['cuda']} vs CPU {turns['cpu']}")
+    if min(counts["cuda"].get(k, 0) for k in ("encoder_attention", "prefill_attention",
+                                              "decode_attention_update")) == 0 or counts["cpu"]:
+        fail(f"tiny realtime session launches: card {counts['cuda']}, cpu {counts['cpu']}")
+    del models
+    torch.cuda.empty_cache()
+
+
+def eval_phase(reset_counts, read_counts) -> dict:
+    """The eval harness on the card: ``run_eval`` over the tiny fp32 towers
+    (saved in the JAX layout) on ``EVAL_ROWS`` synthetic ASR rows with the
+    ``local``, ``local-streaming`` and ``realtime`` backends, each WER equal
+    to the CPU's; ``synthetic-diarization`` and ``synthetic-alignment``
+    through ``run_eval``; then ``tools/bench_quality``'s numbers (corpus and
+    per-condition DER over 10 conversations, the aligner's median error)."""
+    import io
+
+    from tiny_audio_tpu_torch.config import tiny_test_config
+    from tiny_audio_tpu_torch.eval.cli import run_eval
+    from tiny_audio_tpu_torch.models.asr import ASRModel
+    from tiny_audio_tpu_torch.tools import bench_quality
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as root:
+        ckpt = str(Path(root) / "tiny")
+        ASRModel(tiny_test_config(model_dtype="float32"), seed=SEED, device="cuda").save_pretrained(ckpt)
+        for backend in ("local", "local-streaming", "realtime"):
+            runs = {}
+            for device in ("cuda", "cpu"):
+                reset_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    metrics = run_eval(ckpt, "synthetic", num_samples=EVAL_ROWS, backend=backend,
+                                       output_dir=str(Path(root) / device), device=device)
+                torch.cuda.synchronize()
+                runs[device] = (metrics, time.perf_counter() - t0,
+                                {k: v for k, v in read_counts().items() if v})
+            (card, card_s, launches), (cpu, _, cpu_launches) = runs["cuda"], runs["cpu"]
+            print(f"eval backend={backend} dataset=synthetic rows={EVAL_ROWS} "
+                  f"corpus_wer={card['corpus_wer']!r} cpu_corpus_wer={cpu['corpus_wer']!r} "
+                  f"avg_sample_wer={card['avg_sample_wer']!r} wall_s={card_s!r} "
+                  f"{'turns_avg=' + repr(card['turns_avg']) + ' ' if 'turns_avg' in card else ''}"
+                  f"launches={json.dumps(launches)}")
+            if (card["corpus_wer"], card["avg_sample_wer"], card["num_samples"]) != \
+                    (cpu["corpus_wer"], cpu["avg_sample_wer"], cpu["num_samples"]):
+                fail(f"eval {backend}: the card's WER {card} differs from the CPU's {cpu}")
+            if not launches.get("encoder_attention") or cpu_launches:
+                fail(f"eval {backend} launches: card {launches}, cpu {cpu_launches}")
+            out[backend] = card["corpus_wer"]
+        for name, rows in (("synthetic-diarization", EVAL_DIARIZATION_ROWS),
+                           ("synthetic-alignment", EVAL_ROWS)):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                metrics = run_eval(ckpt, name, num_samples=rows, output_dir=str(Path(root) / "o"),
+                                   device="cuda")
+            torch.cuda.synchronize()
+            print(f"eval dataset={name} rows={rows} wall_s={time.perf_counter() - t0!r} "
+                  f"metrics={json.dumps(metrics)}")
+            if metrics.get("num_samples") != rows or metrics.get("errors"):
+                fail(f"eval {name}: {metrics}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        quality = bench_quality.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    diar, align = quality["diarization"], quality["alignment"]
+    print(f"bench_quality wall_s={time.perf_counter() - t0!r} corpus_der={diar['corpus_der']!r} "
+          f"avg_der={diar['avg_der']!r} per_condition_der={json.dumps(diar['per_condition_der'])} "
+          f"ecapa_tier={diar['ecapa_tier']} vad_trained={diar['vad_trained']} "
+          f"alignment={json.dumps(align)}")
+    if diar["num_samples"] != 10 or diar["errors"] or not diar["vad_trained"] or \
+            diar["ecapa_tier"] != "synthetic":
+        fail(f"bench_quality's diarization: {diar}")
+    out["bench_quality"] = quality
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device; this smoke run measures the GPU and never runs on the CPU")
@@ -3953,8 +4216,19 @@ def main() -> None:
     timestamps_speakers_phase(model, pipe, aligner_dir, reset_counts, read_counts)
     shutil.rmtree(aligner_dir)
     phase_done()
+
+    # ---- 9c. the realtime server and the eval harness ----
+    t0 = time.perf_counter()
+    realtime_phase(model, pipe, no_int8, reset_counts, read_counts)
+    phase_done()
+    realtime_s = time.perf_counter() - t0
     del model, pipe
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eval_phase(reset_counts, read_counts)
+    phase_done()
+    print(f"realtime_and_eval realtime_phase_s={realtime_s!r} "
+          f"eval_phase_s={time.perf_counter() - t0!r}")
 
     # ---- 10. training at the flagship width ----
     trained = train_phases(reset_counts, read_counts)

@@ -256,10 +256,41 @@ def test_concurrent_requests_coalesce_into_one_batch(handlers):
 def test_serve_prints_the_int8_modes_and_refuses_unported_engines(monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 #12"):
         serving.serve("unused", engine="continuous")
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        serving.serve("unused", realtime_port=9000)
     cfg = tiny_test_config(model_dtype="float32")
     JaxASRModel(cfg, seed=0).save_pretrained(tmp_path)
+
+    # realtime_port co-hosts the realtime server, and the shutdown stops it
+    from tiny_audio_tpu_torch.realtime import RealtimeServer
+    from tiny_audio_tpu_torch.utils.websocket import connect
+
+    started = []
+    monkeypatch.setattr(RealtimeServer, "start",
+                        lambda self, start=RealtimeServer.start: started.append(self) or
+                        start(self))
+
+    class Interrupted:  # the server make_server would give, interrupted at once
+        metrics = ServerMetrics()
+
+        def serve_forever(self):
+            rt = started[0]
+            with connect(f"ws://127.0.0.1:{rt.port}/ws") as ws:
+                ws.send(json.dumps({"type": "Terminate"}))
+                assert json.loads(ws.recv(timeout=30))["type"] == "Begin"
+                assert json.loads(ws.recv(timeout=30))["type"] == "Termination"
+            raise KeyboardInterrupt
+
+        def shutdown(self):
+            pass
+
+    monkeypatch.setattr(serving, "make_server", lambda *a, **k: Interrupted())
+    with redirect_stdout(io.StringIO()) as out:
+        serving.serve(str(tmp_path), host="127.0.0.1", warmup=False, realtime_port=0,
+                      device="cpu")
+    assert "[serve] realtime websocket on ws://127.0.0.1:" in out.getvalue()
+    assert Interrupted.metrics.gauge_fns["ta_realtime_sessions"] == started[0].active_sessions
+    with pytest.raises(OSError):  # shut down with the HTTP server
+        connect(f"ws://127.0.0.1:{started[0].port}/ws", open_timeout=2)
+    monkeypatch.undo()
 
     class Stopped:  # the server make_server would give, interrupted at once
         def serve_forever(self):
@@ -276,3 +307,39 @@ def test_serve_prints_the_int8_modes_and_refuses_unported_engines(monkeypatch, t
     text = out.getvalue()
     assert "[serve] int8 decode enabled: w8a8 layer matmuls, w8a8 head" in text
     assert "dynamic batching <= 16" in text and hasattr(stopped, "down")
+
+
+def test_serve_signature_is_the_jax_packages():
+    """The JAX package's parameters in its order, ``device`` last;
+    ``dynamic_batching=False`` is the solo path."""
+    import inspect
+
+    from tiny_audio_tpu import serving as jax_serving
+
+    ours = list(inspect.signature(serving.serve).parameters.values())
+    theirs = list(inspect.signature(jax_serving.serve).parameters.values())
+    assert [(p.name, p.default) for p in ours[:-1]] == [(p.name, p.default) for p in theirs]
+    assert ours[-1].name == "device" and ours[-1].default == "cuda"
+
+
+def test_serve_without_dynamic_batching_takes_the_solo_path(monkeypatch, tmp_path):
+    JaxASRModel(tiny_test_config(model_dtype="float32"), seed=0).save_pretrained(tmp_path)
+    made = {}
+
+    class Interrupted:
+        def serve_forever(self):
+            raise KeyboardInterrupt
+
+        def shutdown(self):
+            pass
+
+    def fake_make_server(handler, host, port, batcher=None, lock=None):
+        made.update(batcher=batcher, lock=lock)
+        return Interrupted()
+
+    monkeypatch.setattr(serving, "make_server", fake_make_server)
+    with redirect_stdout(io.StringIO()) as out:
+        # positionally, as the JAX CLI's callers pass it
+        serving.serve(str(tmp_path), "127.0.0.1", 0, False, False, device="cpu")
+    assert made["batcher"] is None and made["lock"] is not None
+    assert "dynamic batching" not in out.getvalue()

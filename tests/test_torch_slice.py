@@ -4,10 +4,12 @@ The JAX model's random params are carried into the port; greedy decoding
 must then give the same tokens, for both KV-cache dtypes and both decode
 paths, the pipelines the same texts and streaming the same fragments.  A
 subprocess imports every module of the port (the training package
-included) with jax, flax, msgpack, transformers and the JAX package
-blocked, serves a checkpoint, runs a stage-2 train step, builds the MOSA,
-MoE and QFormer projectors, runs the convergence ladder's pieces, beams and
-sampling, the neural VAD, diarization and the aligner.
+included) with jax, flax, msgpack, transformers, websockets, websocket-client
+and the JAX package blocked, serves a checkpoint over HTTP and over the
+realtime WebSocket server, runs ``run_eval`` through the realtime backend and
+the pipecat service under a stub ``pipecat``, runs a stage-2 train step,
+builds the MOSA, MoE and QFormer projectors, runs the convergence ladder's
+pieces, beams and sampling, the neural VAD, diarization and the aligner.
 """
 
 import os
@@ -231,7 +233,7 @@ import importlib, pkgutil, sys
 class BlockJax:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "tiny_audio_tpu",
-                                  "transformers"):
+                                  "transformers", "websockets", "websocket"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -281,6 +283,51 @@ with urllib.request.urlopen(req, timeout=120) as r:
     assert isinstance(json.loads(r.read())["text"], str)
 batcher.close()
 server.shutdown()
+
+# a realtime session (the port's server and client, the neural stream VAD),
+# run_eval through the realtime backend, and the pipecat service under a stub
+import asyncio, contextlib, importlib, io, types
+from tiny_audio_tpu_torch.eval.cli import run_eval
+from tiny_audio_tpu_torch.integrations import pipecat_stt
+from tiny_audio_tpu_torch.realtime import RealtimeServer
+from tiny_audio_tpu_torch.utils.speech_synth import synth_utterance
+from tiny_audio_tpu_torch.utils.websocket import connect
+
+rt = RealtimeServer(handler.pipe, host="127.0.0.1", port=0, partial_every_s=1e9).start()
+assert rt.vad_fn is None
+speech = np.concatenate([np.zeros(8000, np.float32), synth_utterance(1.5, seed=21)[0],
+                         np.zeros(20000, np.float32)])
+with connect(f"ws://127.0.0.1:{rt.port}/ws?sample_rate=16000") as ws:
+    ws.send((np.clip(speech, -1, 1) * 32767).astype("<i2").tobytes())
+    ws.send(json.dumps({"type": "Terminate"}))
+    msgs = [json.loads(ws.recv(timeout=60))]
+    while msgs[-1]["type"] != "Termination":
+        msgs.append(json.loads(ws.recv(timeout=60)))
+assert sum(m["type"] == "Turn" and m["end_of_turn"] for m in msgs) == 1, msgs
+rt.shutdown()
+with contextlib.redirect_stdout(io.StringIO()):  # its "Results saved to" line
+    metrics = run_eval(ckpt, "synthetic", num_samples=1, backend="realtime",
+                       output_dir=tempfile.mkdtemp(), device="cpu")
+assert metrics["num_samples"] == 1 and "turns_avg" in metrics, metrics
+
+stub = {name: types.ModuleType(name) for name in (
+    "pipecat", "pipecat.frames", "pipecat.frames.frames", "pipecat.services",
+    "pipecat.services.stt_service", "pipecat.utils", "pipecat.utils.time")}
+for name in ("Frame", "ErrorFrame", "InterimTranscriptionFrame", "TranscriptionFrame"):
+    setattr(stub["pipecat.frames.frames"], name,
+            type(name, (), {"__init__": lambda self, text, *a: setattr(self, "text", text)}))
+stub["pipecat.services.stt_service"].SegmentedSTTService = type(
+    "SegmentedSTTService", (), {"__init__": lambda self, sample_rate=16000, **kw: None})
+stub["pipecat.utils.time"].time_now_iso8601 = lambda: "now"
+sys.modules.update(stub)
+pipecat_stt = importlib.reload(pipecat_stt)
+service = pipecat_stt.TinyAudioSTTService(model_path=ckpt, device="cpu")
+
+async def frames():
+    return [type(f).__name__ async for f in service.run_stt(b"\x00\x01" * 8000)]
+
+kinds = asyncio.run(frames())
+assert set(kinds) <= {"InterimTranscriptionFrame", "TranscriptionFrame"}, kinds
 
 # one stage-2 train step (LoRA, checkpointed blocks) and its model/ save
 from tiny_audio_tpu_torch.train.collator import DataCollator
@@ -360,7 +407,7 @@ assert result["speaker_segments"], result
 
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "tiny_audio_tpu",
-                                       "transformers"))
+                                       "transformers", "websockets", "websocket"))
 assert not loaded, loaded
 print("OK", len(names))
 """

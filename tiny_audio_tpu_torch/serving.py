@@ -230,30 +230,35 @@ def make_server(
 
 
 def serve(model_path: str, host: str = "0.0.0.0", port: int = 8000,
-          warmup: bool = True, max_batch: int = 16, max_wait_ms: float = 20.0,
+          warmup: bool = True, dynamic_batching: bool = True,
+          max_batch: int = 16, max_wait_ms: float = 20.0,
           engine: str = "dynamic", tp: int = 1,
           dp: Optional[int] = None,
           realtime_port: Optional[int] = None,
           wq_decode: bool = False, w8a8_head: bool = False,
           w8a8_decode: bool = False, device="cuda") -> None:
     """Serve ``model_path`` (a checkpoint of the JAX package's layout) over
-    HTTP until interrupted.
+    HTTP until interrupted.  The parameters are the JAX package's, in its
+    order, with ``device`` last.
 
     ``engine``: ``"dynamic"`` (:class:`~tiny_audio_tpu_torch.batching.
     DynamicBatcher`: coalesce arrivals into batched generate calls) or
-    ``"none"`` (the lock-serialized solo path only).  The continuous engine
-    (ROADMAP.md Queue 1 #12), the realtime websocket server
-    (``realtime_port``, Queue 1 #6) and ``tp``/``dp`` meshes (Queue 1 #13)
-    are not ported and raise.  ``wq_decode``/``w8a8_head``/``w8a8_decode``
-    enable the int8 decode modes (``EndpointHandler``).
+    ``"none"`` (the lock-serialized solo path only);
+    ``dynamic_batching=False`` means ``"none"``.  The continuous engine
+    (ROADMAP.md Queue 1 #12) and ``tp``/``dp`` meshes (Queue 1 #13) are not
+    ported and raise.  ``realtime_port``: also run the realtime WebSocket
+    server (:class:`~tiny_audio_tpu_torch.realtime.RealtimeServer`) on that
+    port, on this server's pipeline, lock and batcher; ``/metrics`` then
+    exports its live sessions as ``ta_realtime_sessions`` and the failures
+    it swallowed to keep sessions alive as ``ta_realtime_errors``.
+    ``wq_decode``/``w8a8_head``/``w8a8_decode`` enable the int8 decode
+    modes (``EndpointHandler``).
     """
+    if not dynamic_batching:  # the JAX CLI's --no-batching
+        engine = "none"
     if engine == "continuous":
         raise NotImplementedError(
             "engine='continuous' is not ported to PyTorch yet (ROADMAP.md Queue 1 #12)")
-    if realtime_port is not None:
-        raise NotImplementedError(
-            "realtime_port: the realtime server is not ported to PyTorch yet "
-            "(ROADMAP.md Queue 1 #6)")
     handler = EndpointHandler(model_path, tp=tp, dp=dp, wq_decode=wq_decode,
                               w8a8_head=w8a8_head, w8a8_decode=w8a8_decode,
                               device=device)
@@ -281,7 +286,21 @@ def serve(model_path: str, host: str = "0.0.0.0", port: int = 8000,
         batcher = DynamicBatcher(handler.pipe, max_batch=max_batch,
                                  max_wait_ms=max_wait_ms)
     lock = batcher.lock if batcher is not None else threading.Lock()
+    rt = None
+    if realtime_port is not None:
+        from tiny_audio_tpu_torch.realtime import RealtimeServer
+
+        # realtime turn decodes coalesce with HTTP traffic in the batcher
+        rt = RealtimeServer(handler.pipe, host=host, port=realtime_port, lock=lock,
+                            batcher=batcher).start()
+        print(f"[serve] realtime websocket on ws://{host}:{rt.port} "
+              "(PCM16 in, Turn events out; "
+              + ("turn decodes batch with HTTP traffic)"
+                 if batcher is not None else "shares the device lock)"))
     server = make_server(handler, host, port, batcher=batcher, lock=lock)
+    if rt is not None:
+        server.metrics.gauge_fns["ta_realtime_sessions"] = rt.active_sessions
+        server.metrics.gauge_fns["ta_realtime_errors"] = lambda: sum(rt.errors().values())
     mode = f" (dynamic batching <= {max_batch})" if engine == "dynamic" else ""
     print(f"[serve] listening on {host}:{port}{mode}")
     try:
@@ -289,8 +308,10 @@ def serve(model_path: str, host: str = "0.0.0.0", port: int = 8000,
     except KeyboardInterrupt:
         print("[serve] shutting down...")
     finally:
-        # closing the batcher first fails still-queued futures fast instead
-        # of HTTP threads waiting out the result timeout
+        # realtime first, then the batcher (failing still-queued futures fast
+        # instead of HTTP threads waiting out the result timeout), then HTTP
+        if rt is not None:
+            rt.shutdown()
         if batcher is not None:
             batcher.close()
         server.shutdown()

@@ -1,4 +1,4 @@
-"""Audio I/O without external dependencies: WAV read and resampling.
+"""Audio I/O without external dependencies: WAV read and write, resampling.
 
 The port's own copy of what :mod:`tiny_audio_tpu.utils.audio_io` gives the
 pipeline: PCM WAV is read with the stdlib ``wave`` module and resampled with
@@ -47,3 +47,14 @@ def resample(audio: np.ndarray, orig_rate: int, target_rate: int = 16000) -> np.
     g = gcd(orig_rate, target_rate)
     out = resample_poly(audio.astype(np.float64), target_rate // g, orig_rate // g)
     return out.astype(np.float32)
+
+
+def write_wav(path: Union[str, Path], audio: np.ndarray, rate: int = 16000) -> None:
+    """16-bit mono PCM WAV, samples clipped to [-1, 1]."""
+    audio16 = np.clip(audio, -1.0, 1.0)
+    audio16 = (audio16 * 32767.0).astype(np.int16)
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(audio16.tobytes())
