@@ -109,8 +109,28 @@ kv_len, the appended rows bitwise, repeated runs bitwise; a CUDA graph with a
 device kv_len advanced between replays bitwise equal to eager calls; the
 merge counters zero after each phase; and their times from a CUDA graph
 over cold layer views (B = 4, 48, 1) beside their bound, the previous
-design's times and SDPA on a bf16 cache.  ``torch._weight_int8pack_mm``, one call
+design's times and SDPA on a bf16 cache.  Then both with a ``[B]`` kv_len
+(the continuous engine's per-row lengths) at B = 16, lengths spread over
+[0, 608): against the per-row plain version, #4's rows bitwise, equal
+lengths bitwise the scalar launch, a graph advancing the vector, and their
+times beside the scalar launch's.  ``torch._weight_int8pack_mm``, one call
 computing #6's function, is timed beside #6 at its head shape.
+
+The continuous engine (``ContinuousEngine``, after the realtime phase): at
+the flagship, 16 slots and chunks of 8 steps, 48 clips of 2-30 s submitted
+open loop (every future resolves; #1 32 and #2 28 launches a prefill
+group, #4 28 x 8 a chunk, no plain decode attention; each transcript
+against solo ``generate``, parting only where the solo run's top-2 logit
+margin is under ``ENGINE_MARGIN_BOUND``; latency and clips/s beside the
+``DynamicBatcher`` on the same arrivals, printed), a short run under each
+of ``enable_wq_decode`` and ``enable_w8a8_decode`` with exact #6 / #5
+launches; the tiny fp32 towers' engine on the card giving the CPU's tokens,
+and ``serve(engine="continuous")`` over their checkpoint answering HTTP
+requests with the CPU's transcripts.  The offline tools (after the eval
+phase): ``train_vad``'s and ``train_speaker_embedder``'s trainers at their
+full widths and batches for ``TOOLS_STEPS`` steps on the card and on the
+CPU from one init (losses within ``TOOLS_LOSS_RTOL``), their files read
+back on both, and ``handler_local`` with ``--timestamps --speakers``.
 
 The int8 products #5 and #6 (``csrc/int8_matmul.cu``, a split over K merged
 inside the launch): the registers, shared memory and spills of the 34
@@ -161,8 +181,10 @@ machine without a CUDA device: nothing falls back to the CPU.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import io
 import json
 import re
 import shutil
@@ -443,6 +465,29 @@ REALTIME_EXTRA_RATE = 8000
 # the eval phase: rows of each synthetic source through run_eval
 EVAL_ROWS = 4
 EVAL_DIARIZATION_ROWS = 2
+# the continuous engine (PR 17): #3/#4 with per-row lengths at the engine's
+# batch; the engine at the flagship (16 slots, chunks of 8 steps), 48 clips
+# of 2-30 s submitted open loop 0.1 s apart, 16-token budgets (each prefill
+# group's reference runs its own decode), then 4 clips under each int8 mode.
+# A request's tokens may part from generate on its prefill group only at a
+# step whose top-2 logit margin (bf16 logits; batch-16 and batch-n products
+# round differently) is under ENGINE_MARGIN_BOUND.
+ROW_BATCH = 16
+ENGINE_SLOTS = 16
+ENGINE_CHUNK = 8
+ENGINE_CLIPS = 48
+ENGINE_CLIP_S = (2.0, 30.0)
+ENGINE_GAP_S = 0.1
+ENGINE_NEW = 16
+ENGINE_MARGIN_BOUND = 0.25
+ENGINE_MODE_CLIPS = 4
+# the offline tools: steps and synthesized utterances (of 1,500 / 3,500 and
+# 600 / 768 in the JAX scripts), card losses against the CPU's on the same
+# batches from one init (fp32 both; cuDNN's and the CPU's sums differ, and
+# Adam amplifies a gradient near 0)
+TOOLS_STEPS = 20
+TOOLS_UTTS = 20
+TOOLS_LOSS_RTOL = 5e-3
 
 
 def fail(msg: str) -> None:
@@ -3858,6 +3903,531 @@ def eval_phase(reset_counts, read_counts) -> dict:
     return out
 
 
+def decode_rows_phase(gen: torch.Generator) -> dict:
+    """Kernels #3 and #4 with a ``[B]`` kv_len (the continuous engine's
+    slots, each at its own length) at the flagship's shapes, B = ROW_BATCH,
+    S = 608, int8 and bf16 caches, lengths spread over [0, S) with 0, 1 and
+    S - 1 among them: each kernel against the per-row plain version on fp32
+    copies of its inputs (KERNEL_ATOL / KERNEL_RTOL, as the scalar phase),
+    #4's cache bitwise the plain version's (each row's append at its own
+    length, every other row untouched), equal lengths bitwise the scalar
+    launch, a CUDA graph that advances the vector bitwise equal to eager
+    calls, the merge counters zero; and both kernels' times from a CUDA
+    graph over DECODE_LAYERS cold layer views beside the scalar launch at
+    the lengths' mean and maximum, with the bound of the rows this run's
+    lengths need.  Returns {cache: times}."""
+    from tiny_audio_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+        decode_attention_update,
+        decode_attention_update_plain,
+    )
+
+    s, hq, hkv, d, b = DECODE_GRAPH_S, 16, 8, 128, ROW_BATCH
+    results = {}
+    for quantized in (True, False):
+        cache = "int8" if quantized else "bf16"
+        shape = (DECODE_LAYERS, b, s, hkv, d)
+        if quantized:
+            ck, cv = (torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                    dtype=torch.int8) for _ in range(2))
+            ks, vs = (torch.rand(shape[:-1], generator=gen, device="cuda") * 0.02 + 1e-3
+                      for _ in range(2))
+        else:
+            ck, cv = (torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+                      .normal_(generator=gen) for _ in range(2))
+            ks = vs = None
+        layer = lambda x, i: None if x is None else x[i]  # noqa: E731
+        q = (torch.randn((b, hq, d), generator=gen, device="cuda") * 2).to(torch.bfloat16)
+        fk, fv = (torch.randn((b, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        lens = torch.randint(0, s, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        lens[:3] = torch.tensor([0, 1, s - 1], dtype=torch.int32)
+        args = [q, ck[0], cv[0], fk, fv, lens, layer(ks, 0), layer(vs, 0)]
+        f32 = [x if x is None or x.dtype in (torch.int8, torch.int32, torch.float32)
+               else x.float() for x in args]
+        got3 = decode_attention(*args)
+        exact = decode_attention_plain(*f32)
+        err3, ok3 = kernel_error(got3, exact)
+        bufs = [x if x is None else x.clone() for x in (ck[0], cv[0], layer(ks, 0), layer(vs, 0))]
+        ref = [x if x is None else x.clone() for x in bufs]
+        got4 = decode_attention_update(q, bufs[0], bufs[1], fk, fv, lens, bufs[2], bufs[3])
+        decode_attention_update_plain(q, ref[0], ref[1], fk, fv, lens, ref[2], ref[3])
+        err4, ok4 = kernel_error(got4, exact)  # the attention reads each row's prefix
+        rows_equal = all(same_bytes(x, y) for x, y in zip(bufs, ref) if x is not None)
+        # one length for every row: the same bits as the scalar launch
+        equal = True
+        for n in (0, 1, 55, 468, s - 1):
+            full = torch.full((b,), n, dtype=torch.int32, device="cuda")
+            equal = equal and same_bytes(decode_attention(*args[:5], full, *args[6:]),
+                                         decode_attention(*args[:5], n, *args[6:]))
+            a, c = ([x if x is None else x.clone() for x in bufs] for _ in range(2))
+            equal = equal and same_bytes(
+                decode_attention_update(q, a[0], a[1], fk, fv, full, a[2], a[3]),
+                decode_attention_update(q, c[0], c[1], fk, fv, n, c[2], c[3])) and all(
+                same_bytes(x, y) for x, y in zip(a, c) if x is not None)
+        # a CUDA graph advancing the per-row lengths on the device
+        start = lens.clamp(max=s - 4)
+        graph_bufs, eager_bufs = ([x if x is None else x.clone() for x in bufs]
+                                  for _ in range(2))
+        lens_t = start.clone()
+        decode_attention_update(q, *[x if x is None else x.clone() for x in bufs[:2]], fk, fv,
+                                lens_t, *[x if x is None else x.clone() for x in bufs[2:]])
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out4 = decode_attention_update(q, *graph_bufs[:2], fk, fv, lens_t, *graph_bufs[2:])
+            out3 = decode_attention(q, *graph_bufs[:2], fk, fv, lens_t, *graph_bufs[2:])
+            lens_t.add_(1)
+        replay = True
+        for step in range(3):
+            graph.replay()
+            now = start + step
+            want4 = decode_attention_update(q, *eager_bufs[:2], fk, fv, now, *eager_bufs[2:])
+            want3 = decode_attention(q, *eager_bufs[:2], fk, fv, now, *eager_bufs[2:])
+            replay = replay and same_bytes(out4, want4) and same_bytes(out3, want3)
+        replay = replay and all(same_bytes(x, y) for x, y in zip(graph_bufs, eager_bufs)
+                                if x is not None)
+        # times over cold layer views: per row, and the scalar launch at the
+        # lengths' mean and maximum
+        mean_n = float(lens.float().mean())
+        scalar = {"mean": round(mean_n), "max": int(lens.max())}
+        times = {}
+        for label, kv in (("rows", lens), *((k, torch.tensor(n, dtype=torch.int32,
+                                                              device="cuda"))
+                                            for k, n in scalar.items())):
+            view = lambda i, kv=kv: (q, ck[i], cv[i], fk, fv, kv, layer(ks, i), layer(vs, i))  # noqa: E731
+            times[label] = {
+                "decode_attention": rotation_graph_ms(lambda i: decode_attention(*view(i)),
+                                                      DECODE_LAYERS),
+                "decode_attention_update": rotation_graph_ms(
+                    lambda i: decode_attention_update(*view(i)), DECODE_LAYERS)}
+        bound3 = decode_bound(q, ck[0], mean_n, layer(ks, 0), False)
+        bound4 = decode_bound(q, ck[0], mean_n, layer(ks, 0), True)
+        print(f"decode rows cache={cache} B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
+              f"kv_len_mean={mean_n!r} kv_len_max={scalar['max']} "
+              f"decode_attention_max_abs_err={err3!r} decode_attention_update_max_abs_err={err4!r} "
+              f"written_rows_equal={str(rows_equal).lower()} "
+              f"equal_lengths_bitwise_scalar={str(equal).lower()} "
+              f"graph_replay_bitwise={str(replay).lower()} "
+              f"per_row_ms={json.dumps(times['rows'])} scalar_mean_ms={json.dumps(times['mean'])} "
+              f"scalar_max_ms={json.dumps(times['max'])} bound_ms={bound3['bound_ms']!r} "
+              f"update_bound_ms={bound4['bound_ms']!r} views={DECODE_LAYERS} "
+              f"atol={KERNEL_ATOL} rtol={KERNEL_RTOL}")
+        if not (ok3 and ok4):
+            fail(f"per-row decode kernels disagree with their plain versions ({cache}): "
+                 f"{err3} {err4}")
+        if not (rows_equal and equal and replay):
+            fail(f"per-row decode kernels ({cache}): rows {rows_equal}, equal lengths "
+                 f"{equal}, graph replay {replay}")
+        results[cache] = {"times": times, "bound3": bound3, "bound4": bound4,
+                          "err": max(err3, err4)}
+        del ck, cv, ks, vs
+        torch.cuda.empty_cache()
+    check_decode_counters()
+    return results
+
+
+@contextlib.contextmanager
+def plain_decode_calls():
+    """Count the decode steps that ran a plain attention on the card: calls
+    of the two plain versions and module steps whose attention launched no
+    kernel.  Yields a dict whose ``n`` is that count."""
+    from tiny_audio_tpu_torch.models import decoder as decoder_module
+    from tiny_audio_tpu_torch.ops import decode_attention as da
+
+    count = {"n": 0}
+    saved = (da.decode_attention_plain, da.decode_attention_update_plain,
+             decoder_module.decode_step_attention)
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            count["n"] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    def step_attention(*args, **kwargs):
+        before = da.decode_attention.launches
+        out = saved[2](*args, **kwargs)
+        count["n"] += da.decode_attention.launches == before
+        return out
+
+    da.decode_attention_plain, da.decode_attention_update_plain = map(counted, saved[:2])
+    decoder_module.decode_step_attention = step_attention
+    try:
+        yield count
+    finally:
+        (da.decode_attention_plain, da.decode_attention_update_plain,
+         decoder_module.decode_step_attention) = saved
+
+
+def recording_engine():
+    """A ContinuousEngine that records its prefill groups (their futures),
+    its chunks' wall ms and each request's tokens (by future)."""
+    from tiny_audio_tpu_torch.continuous import ContinuousEngine
+
+    class Recording(ContinuousEngine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.groups, self.chunk_ms, self.tokens = [], [], {}
+
+        def _prefill_group(self, prompt, reqs):
+            super()._prefill_group(prompt, reqs)
+            self.groups.append([id(r["future"]) for r in reqs])
+
+        def _decode_one_chunk(self):
+            t0 = time.perf_counter()
+            super()._decode_one_chunk()
+            self.chunk_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def _finish(self, slot):
+            self.tokens[id(slot["future"])] = list(slot["tokens"])
+            super()._finish(slot)
+
+    return Recording
+
+
+def open_loop(clips: list, submit) -> dict:
+    """Submit ``clips`` ENGINE_GAP_S apart whatever the answers (open loop);
+    returns the texts, each request's latency, and clips per second from
+    the first submit to the last answer."""
+    futs, sent, done = [], [], [0.0] * len(clips)
+    t0 = time.perf_counter()
+    for i, clip in enumerate(clips):
+        time.sleep(max(0.0, t0 + i * ENGINE_GAP_S - time.perf_counter()))
+        sent.append(time.perf_counter())
+        fut = submit(clip)
+        fut.add_done_callback(lambda _, i=i: done.__setitem__(i, time.perf_counter()))
+        futs.append(fut)
+    texts = [f.result(timeout=600) for f in futs]
+    latency = np.array([d - s for d, s in zip(done, sent)])
+    return {"futures": futs, "texts": texts, "p50_s": float(np.percentile(latency, 50)),
+            "p99_s": float(np.percentile(latency, 99)),
+            "clips_per_s": len(clips) / (max(done) - t0)}
+
+
+def engine_phase(model, pipe, no_int8: dict, reset_counts, read_counts) -> dict:
+    """The continuous engine at the flagship width (bf16, int8 KV, random
+    weights from seed 0): ENGINE_SLOTS slots, chunks of ENGINE_CHUNK steps,
+    ENGINE_NEW-token budgets, warmed on the largest mel bucket, then
+    ENGINE_CLIPS clips of ENGINE_CLIP_S seconds submitted open loop
+    ENGINE_GAP_S apart (slots free and refill mid-flight).  Every future
+    resolves; launches #1 32 and #2 28 a prefill group, #4 28 x
+    ENGINE_CHUNK a chunk, no plain decode attention; each request's tokens
+    against ``generate`` on its prefill group's clips (solo, ``pipe()``'s
+    call, for a clip prefilled alone; a coalesced group shares its longest
+    clip's prompt), where they part the reference run's top-2 logit margin
+    at that step must be under ENGINE_MARGIN_BOUND; chunk and step ms, latency p50/p99 and clips/s
+    printed beside the DynamicBatcher on the same arrivals (printed, not
+    claimed).  Then a short run under ``enable_wq_decode`` and one under
+    ``enable_w8a8_decode`` with their exact #6 / #5 launches."""
+    from tiny_audio_tpu_torch import generation
+    from tiny_audio_tpu_torch.batching import DynamicBatcher
+
+    n_enc, n_dec = model.config.encoder.num_layers, model.config.decoder.num_layers
+    saved_gen = model.gen_config
+    # the greedy serving default (an earlier phase leaves EOS masked)
+    model.gen_config = dataclasses.replace(saved_gen, max_new_tokens=ENGINE_NEW,
+                                           min_new_tokens=0)
+    rng = np.random.default_rng(SEED + 17)
+    clips = [(rng.standard_normal(int(rng.uniform(*ENGINE_CLIP_S) * 16000)) * 0.1)
+             .astype(np.float32) for _ in range(ENGINE_CLIPS)]
+    Recording = recording_engine()
+    eng = Recording(pipe, n_slots=ENGINE_SLOTS, chunk_steps=ENGINE_CHUNK, start=False)
+    warm_s = eng.warmup(log=lambda *_: None, buckets=(pipe.processor.mel_buckets[-1],))
+    eng.groups.clear()
+    eng.chunk_ms.clear()
+    eng.start()
+    reset_counts()
+    with plain_decode_calls() as plain:
+        run = open_loop(clips, eng.submit)
+    counts = read_counts()
+    eng.close()
+    want = {"encoder_attention": n_enc * len(eng.groups),
+            "prefill_attention": n_dec * len(eng.groups), "decode_attention": 0,
+            "decode_attention_update": n_dec * ENGINE_CHUNK * len(eng.chunk_ms), **no_int8}
+    if counts != want or plain["n"]:
+        fail(f"engine launches {counts}, expected {want}; plain decode attention calls "
+             f"{plain['n']}")
+    if not all(isinstance(t, str) for t in run["texts"]):
+        fail("an engine request resolved without text")
+    batcher = DynamicBatcher(pipe, max_batch=ENGINE_SLOTS, max_wait_ms=20)
+    dyn = open_loop(clips, batcher.submit)
+    batcher.close()
+
+    # each request against generate on its own prefill group's clips: a
+    # coalesced group shares its longest clip's prompt (the JAX engine's
+    # semantics), so a clip prefilled alone is held to solo generate, pipe()'s
+    # call, and the others to their group's batch; the reference run's
+    # top-2 margin is kept for every row and step
+    margins: list = []
+    real_pick = generation._pick
+
+    def pick(logits, *args, **kwargs):
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        margins.append((top[:, 0] - top[:, 1]).cpu())
+        return real_pick(logits, *args, **kwargs)
+
+    eos = set(model.gen_config.eos_token_ids) | {model.gen_config.pad_token_id}
+    clip_of = {id(f): i for i, f in enumerate(run["futures"])}
+    equal, solo_equal, solo_n, parted = 0, 0, 0, []
+    generation._pick = pick
+    try:
+        for group in eng.groups:
+            members = [clip_of[f] for f in group]
+            margins.clear()
+            feats = pipe.processor.extract_features([clips[i] for i in members])
+            ref = model.generate(feats["input_features"], feats["audio_attention_mask"],
+                                 mel_length=int(feats["mel_lengths"].max()))
+            for row, (i, f) in enumerate(zip(members, group)):
+                want = []
+                for t in ref[row].tolist():
+                    if t in eos:
+                        break
+                    want.append(t)
+                got = eng.tokens[f]
+                solo_n += len(group) == 1
+                if got == want:
+                    equal += 1
+                    solo_equal += len(group) == 1
+                    continue
+                step = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+                            min(len(got), len(want)))
+                parted.append({"clip": i, "group": len(group), "step": step,
+                               "margin": float(margins[step][row]) if step < len(margins)
+                               else None})
+    finally:
+        generation._pick = real_pick
+    worst = max((p["margin"] for p in parted if p["margin"] is not None), default=0.0)
+    chunk_ms = float(np.median(eng.chunk_ms))
+    print(f"engine slots={ENGINE_SLOTS} chunk_steps={ENGINE_CHUNK} clips={ENGINE_CLIPS} "
+          f"clip_s={list(ENGINE_CLIP_S)} gap_s={ENGINE_GAP_S} new_tokens={ENGINE_NEW} kv=int8 "
+          f"warmup_s={warm_s!r} prefill_groups={len(eng.groups)} "
+          f"group_sizes={sorted(collections.Counter(map(len, eng.groups)).items())} "
+          f"chunks={len(eng.chunk_ms)} chunk_ms_p50={chunk_ms!r} "
+          f"step_ms_p50={chunk_ms / ENGINE_CHUNK!r} latency_p50_s={run['p50_s']!r} "
+          f"latency_p99_s={run['p99_s']!r} clips_per_s={run['clips_per_s']!r} "
+          f"dynamic_latency_p50_s={dyn['p50_s']!r} dynamic_latency_p99_s={dyn['p99_s']!r} "
+          f"dynamic_clips_per_s={dyn['clips_per_s']!r} launches={json.dumps(counts)} "
+          f"plain_decode_attention_calls=0 equal_to_own_group={equal}/{ENGINE_CLIPS} "
+          f"alone_equal_to_solo={solo_equal}/{solo_n} parted={json.dumps(parted)} "
+          f"margin_bound={ENGINE_MARGIN_BOUND}")
+    if worst > ENGINE_MARGIN_BOUND:
+        fail(f"engine tokens part from their group's generate at a top-2 margin of {worst} "
+             f"(bound {ENGINE_MARGIN_BOUND}): {parted}")
+
+    # the int8 decode modes through the engine: the layers' and the head's
+    # products a step, the head once a prefill group
+    for mode, kernel_name in (("enable_wq_decode", "wq_matmul"),
+                              ("enable_w8a8_decode", "w8a8_matmul")):
+        model.wq = None
+        getattr(model, mode)()
+        eng = Recording(pipe, n_slots=4, chunk_steps=ENGINE_CHUNK, start=False)
+        reset_counts()
+        futs = [eng.submit(clip) for clip in clips[:ENGINE_MODE_CLIPS]]
+        while not all(f.done() for f in futs):
+            admitted = eng._admit()
+            if admitted:
+                eng._prefill_and_insert(admitted)
+            if eng._active():
+                eng._decode_one_chunk()
+        counts = read_counts()
+        chunks, groups = len(eng.chunk_ms), len(eng.groups)
+        want = {"encoder_attention": n_enc * groups, "prefill_attention": n_dec * groups,
+                "decode_attention": 0, "decode_attention_update": n_dec * ENGINE_CHUNK * chunks,
+                **no_int8, kernel_name: chunks * ENGINE_CHUNK * (7 * n_dec + 1) + groups}
+        texts = [f.result() for f in futs]
+        print(f"engine mode={mode} clips={ENGINE_MODE_CLIPS} slots=4 chunks={chunks} "
+              f"prefill_groups={groups} chunk_ms_p50={float(np.median(eng.chunk_ms))!r} "
+              f"launches={json.dumps(counts)} texts_chars={[len(t) for t in texts]}")
+        if counts != want:
+            fail(f"engine under {mode} launches {counts}, expected {want}")
+    model.wq = None
+    model.gen_config = saved_gen
+    return {"chunk_ms": chunk_ms, "launches_per_chunk": n_dec * ENGINE_CHUNK}
+
+
+def tiny_engine_phase(reset_counts, read_counts) -> None:
+    """The tiny fp32 towers' engine on the card (the fused step: #4's fp32
+    instance) and on the CPU (the module step's plain version), the same
+    weights and the same arrivals, driven by hand: the same tokens for
+    every request; then ``serve(engine="continuous")`` over the tiny
+    checkpoint on the card answering three HTTP requests with the CPU's
+    solo transcripts."""
+    from tiny_audio_tpu_torch import serving
+    from tiny_audio_tpu_torch.config import tiny_test_config
+    from tiny_audio_tpu_torch.models.asr import ASRModel
+    from tiny_audio_tpu_torch.pipeline import ASRPipeline
+
+    cfg = tiny_test_config(model_dtype="float32")
+    cfg.max_new_tokens = 12
+    models = {"card": ASRModel(cfg, seed=SEED, device="cuda"),
+              "cpu": ASRModel(cfg, seed=SEED, device="cpu")}
+    models["cpu"].load_state_dict(models["card"].state_dict())
+    rng = np.random.default_rng(SEED + 23)
+    clips = [(rng.standard_normal(int(rng.uniform(0.5, 5.0) * 16000)) * 0.1)
+             .astype(np.float32) for _ in range(6)]
+    Recording = recording_engine()
+    tokens, texts, counts = {}, {}, {}
+    for where, model in models.items():
+        eng = Recording(ASRPipeline(model), n_slots=2, chunk_steps=3, start=False)
+        reset_counts()
+        futs = [eng.submit(clip) for clip in clips]
+        while not all(f.done() for f in futs):
+            admitted = eng._admit()
+            if admitted:
+                eng._prefill_and_insert(admitted)
+            if eng._active():
+                eng._decode_one_chunk()
+        counts[where] = {k: v for k, v in read_counts().items() if v}
+        tokens[where] = [eng.tokens[id(f)] for f in futs]
+        texts[where] = [f.result() for f in futs]
+    print(f"engine tiny dtype=float32 head_dim=16 clips={len(clips)} slots=2 chunk_steps=3 "
+          f"tokens_equal_cpu={tokens['card'] == tokens['cpu']} "
+          f"launches={json.dumps(counts['card'])}")
+    if tokens["card"] != tokens["cpu"] or counts["cpu"] or not counts["card"].get(
+            "decode_attention_update"):
+        fail(f"tiny engine: card {tokens['card']} vs CPU {tokens['cpu']}, launches {counts}")
+
+    # serve(engine="continuous") over the tiny checkpoint, on the card
+    servers = []
+    real_make_server = serving.make_server
+
+    def make_server(*args, **kwargs):
+        servers.append(real_make_server(*args, **kwargs))
+        return servers[-1]
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        models["card"].save_pretrained(ckpt)
+        serving.make_server = make_server
+        try:
+            thread = threading.Thread(target=serving.serve, args=(ckpt,), kwargs=dict(
+                host="127.0.0.1", port=0, warmup=False, engine="continuous", max_batch=4,
+                device="cuda"),
+                daemon=True)
+            with contextlib.redirect_stdout(io.StringIO()) as log:
+                thread.start()
+                deadline = time.time() + 300
+                while not servers and time.time() < deadline:
+                    time.sleep(0.1)
+                if not servers:
+                    fail("serve(engine='continuous') did not start its server")
+                url = f"http://127.0.0.1:{servers[0].server_address[1]}/transcribe"
+                answers = []
+                for clip in clips[:3]:  # one at a time: each a prefill group of its own
+                    req = urllib.request.Request(url, data=clip.tobytes(), headers={
+                        "Content-Type": "application/pcm-f32"})
+                    with urllib.request.urlopen(req, timeout=300) as r:
+                        answers.append(json.loads(r.read())["text"])
+                servers[0].shutdown()
+                thread.join(timeout=60)
+        finally:
+            serving.make_server = real_make_server
+    solo = [ASRPipeline(models["cpu"]).transcribe_batch([clip])[0] for clip in clips[:3]]
+    print(f"engine serve engine=continuous requests=3 answers_equal_cpu_solo={answers == solo} "
+          f"log={json.dumps(log.getvalue().splitlines()[-1:])}")
+    if answers != solo or thread.is_alive():
+        fail(f"serve(engine='continuous') answered {answers}, the CPU {solo}")
+    del models
+    torch.cuda.empty_cache()
+
+
+def tools_phase() -> None:
+    """The offline tools on the card: ``train_vad``'s trainer at its full
+    width and batch, ``train_speaker_embedder``'s at its CHANNELS and batch,
+    TOOLS_STEPS steps each on TOOLS_UTTS synthesized utterances (the
+    reductions of their 1,500 / 3,500 steps and 600 / 768 utterances), from
+    one init, on the card and on the CPU on the same batches: finite losses
+    within TOOLS_LOSS_RTOL of the CPU's; each file written to a temporary
+    path and loaded back (``NeuralVAD.from_file``, ``EcapaEmbedder``) with
+    the card's outputs within VAD_PROB_ATOL / ECAPA_ATOL of the CPU's; then
+    ``handler_local`` on a saved tiny checkpoint with ``--timestamps
+    --speakers``."""
+    from tiny_audio_tpu_torch.config import tiny_test_config
+    from tiny_audio_tpu_torch.diarization import EcapaEmbedder, _speaker_fbank
+    from tiny_audio_tpu_torch.models.asr import ASRModel
+    from tiny_audio_tpu_torch.tools import handler_local
+    from tiny_audio_tpu_torch.tools import train_speaker_embedder as tse
+    from tiny_audio_tpu_torch.tools import train_vad as tv
+    from tiny_audio_tpu_torch.utils import msgpack_io
+    from tiny_audio_tpu_torch.utils.speech_synth import synth_utterance
+    from tiny_audio_tpu_torch.vad import NeuralVAD
+
+    quiet = lambda *_: None  # noqa: E731
+    speakers = TOOLS_UTTS // 2
+    vad_data = tv.ExampleFactory(np.random.default_rng(SEED), TOOLS_UTTS, log=quiet)
+    vad_batches = [vad_data.batch(tv.BATCH) for _ in range(TOOLS_STEPS)]
+    spk_data = tse.SpeakerData(np.random.default_rng(SEED), speakers, 2, log=quiet)
+    spk_batches = []
+    for _ in range(TOOLS_STEPS):
+        audio, labels = spk_data.batch(tse.BATCH)
+        spk_batches.append((_speaker_fbank(audio), labels))
+    clip = synth_utterance(6.0, seed=SEED + 3)[0]
+    windows = np.stack([clip[i * 16000: i * 16000 + tse.WIN_SAMPLES] for i in range(4)])
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for where, device in (("card", "cuda"), ("cpu", "cpu")):
+            net = tv.init_vadnet(SEED).to(device)
+            vad = tv.VadTrainer(net, steps=TOOLS_STEPS)
+            ecapa, head = tse.init_ecapa(SEED)
+            spk = tse.EmbedderTrainer(ecapa.to(device), head[:, :speakers].contiguous().to(device),
+                                      steps=TOOLS_STEPS)
+            rec = {"vad": [], "vad_ms": [], "ecapa": [], "ecapa_ms": []}
+            for batch, name in ((vad_batches, "vad"), (spk_batches, "ecapa")):
+                trainer = vad if name == "vad" else spk
+                for b in batch:
+                    t0 = time.perf_counter()
+                    loss = trainer.step(*b)
+                    rec[f"{name}_ms"].append((time.perf_counter() - t0) * 1e3)
+                    rec[name].append(loss if name == "vad" else loss[0])
+            from tiny_audio_tpu_torch.bridge import tower_flax_tree
+
+            vad_path, ecapa_path = Path(tmp) / f"vad_{where}.msgpack", Path(tmp) / f"e_{where}"
+            msgpack_io.save(vad_path, tower_flax_tree(net))
+            msgpack_io.save(ecapa_path, tse.fp16_tree(tower_flax_tree(ecapa)))
+            rec["probs"] = NeuralVAD.from_file(vad_path, "cuda").frame_probs(clip)
+            rec["probs_cpu"] = NeuralVAD.from_file(vad_path, "cpu").frame_probs(clip)
+            rec["emb"] = EcapaEmbedder.from_synthetic(ecapa_path, "cuda").embed_windows(windows)
+            rec["emb_cpu"] = EcapaEmbedder.from_synthetic(ecapa_path, "cpu").embed_windows(
+                windows)
+            out[where] = rec
+        ckpt = Path(tmp) / "tiny"
+        ASRModel(tiny_test_config(model_dtype="float32"), seed=SEED,
+                 device="cuda").save_pretrained(ckpt)
+        wav = Path(tmp) / "clip.wav"
+        from tiny_audio_tpu_torch.utils.audio_io import write_wav
+
+        write_wav(wav, clip[:4 * 16000], 16000)  # inside the tiny encoder's 5.12 s window
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            rc = handler_local.main(["-m", str(ckpt), "--wav", str(wav), "--timestamps",
+                                     "--speakers", "--device", "cuda"])
+        handler_s = time.perf_counter() - t0
+    card, cpu = out["card"], out["cpu"]
+    for name in ("vad", "ecapa"):
+        rel = float(np.max(np.abs(np.subtract(card[name], cpu[name]))
+                           / np.maximum(np.abs(cpu[name]), 1e-6)))
+        print(f"tools {name} steps={TOOLS_STEPS} utterances={TOOLS_UTTS} "
+              f"batch={tv.BATCH if name == 'vad' else tse.BATCH} "
+              f"loss_first={card[name][0]!r} loss_last={card[name][-1]!r} "
+              f"max_rel_diff_cpu={rel!r} rtol={TOOLS_LOSS_RTOL} "
+              f"step_ms_p50={float(np.median(card[name + '_ms'][2:]))!r} "
+              f"cpu_step_ms_p50={float(np.median(cpu[name + '_ms'][2:]))!r}")
+        if not (np.all(np.isfinite(card[name])) and rel <= TOOLS_LOSS_RTOL):
+            fail(f"tool {name}: card losses {card[name]} vs CPU {cpu[name]}")
+    vad_err = float(np.abs(card["probs"] - card["probs_cpu"]).max())
+    emb_err = float(np.abs(card["emb"] - card["emb_cpu"]).max())
+    lines = log.getvalue().splitlines()
+    print(f"tools files vad_card_vs_cpu_max_abs_err={vad_err!r} atol={VAD_PROB_ATOL} "
+          f"ecapa_card_vs_cpu_max_abs_err={emb_err!r} atol={ECAPA_ATOL} "
+          f"handler_local rc={rc} wall_s={handler_s!r} keys={[ln.split(':')[0] for ln in lines]}")
+    if vad_err > VAD_PROB_ATOL or emb_err > ECAPA_ATOL:
+        fail(f"tool files read back on the card disagree with the CPU: {vad_err} {emb_err}")
+    if rc != 0 or not any(ln.startswith("text: ") for ln in lines) or not any(
+            ln.startswith("speaker_segments: ") for ln in lines):
+        fail(f"handler_local failed: {lines}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device; this smoke run measures the GPU and never runs on the CPU")
@@ -3897,6 +4467,8 @@ def main() -> None:
     dec_shapes = compare_decode_every_shape(gen)
     phase_done()
     dec_graph = decode_graph_times(gen)
+    phase_done()
+    dec_rows = decode_rows_phase(gen)
     phase_done()
     int8pack = int8pack_head_times(gen)
     phase_done()
@@ -4222,6 +4794,10 @@ def main() -> None:
     realtime_phase(model, pipe, no_int8, reset_counts, read_counts)
     phase_done()
     realtime_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = engine_phase(model, pipe, no_int8, reset_counts, read_counts)
+    phase_done()
+    engine_s = time.perf_counter() - t0
     del model, pipe
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4229,6 +4805,15 @@ def main() -> None:
     phase_done()
     print(f"realtime_and_eval realtime_phase_s={realtime_s!r} "
           f"eval_phase_s={time.perf_counter() - t0!r}")
+    t0 = time.perf_counter()
+    tiny_engine_phase(reset_counts, read_counts)
+    phase_done()
+    tiny_engine_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tools_phase()
+    phase_done()
+    print(f"engine_and_tools engine_phase_s={engine_s!r} tiny_engine_phase_s={tiny_engine_s!r} "
+          f"tools_phase_s={time.perf_counter() - t0!r}")
 
     # ---- 10. training at the flagship width ----
     trained = train_phases(reset_counts, read_counts)
@@ -4292,13 +4877,17 @@ def main() -> None:
          "replaces": "tiny_audio_tpu/ops/decode_attention.py:152",
          "launches": launches["decode_attention"], **dec_path,
          "ms": dec_graph[("int8", BATCH, 468)]["decode_attention"]["ms"],
+         "per_row_ms": dec_rows["int8"]["times"]["rows"]["decode_attention"],
          "max_abs_err": max(dec["decode_attention"], dec_shapes["decode_attention"],
+                            dec_rows["int8"]["err"], dec_rows["bf16"]["err"],
                             dec_path["max_abs_err"])},
         {"name": "decode_attention_update", "route": "cuda", "source": decode_source,
          "replaces": "tiny_audio_tpu/ops/decode_attention.py:428",
          "launches": launches["decode_attention_update"], **upd_path,
          "ms": dec_graph[("int8", BATCH, 468)]["decode_attention_update"]["ms"],
+         "per_row_ms": dec_rows["int8"]["times"]["rows"]["decode_attention_update"],
          "max_abs_err": max(dec["decode_attention_update"], dec_shapes["decode_attention_update"],
+                            dec_rows["int8"]["err"], dec_rows["bf16"]["err"],
                             upd_path["max_abs_err"])},
         {"name": "w8a8_matmul", "route": "cuda", "source": int8_source,
          "replaces": "tiny_audio_tpu/ops/wq_head.py:128",

@@ -254,10 +254,42 @@ def test_concurrent_requests_coalesce_into_one_batch(handlers):
 
 
 def test_serve_prints_the_int8_modes_and_refuses_unported_engines(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 #12"):
-        serving.serve("unused", engine="continuous")
     cfg = tiny_test_config(model_dtype="float32")
     JaxASRModel(cfg, seed=0).save_pretrained(tmp_path)
+
+    # engine="continuous" builds the engine, warms it before starting it
+    # (one mel bucket here: the tiny encoder's window), serves, and closes it
+    from tiny_audio_tpu_torch.continuous import ContinuousEngine
+
+    engines = []
+    real_warmup = ContinuousEngine.warmup
+
+    def warmup(self, log=print, buckets=None):
+        assert self._thread.ident is None  # not started yet
+        engines.append(self)
+        return real_warmup(self, log=log, buckets=(500,))
+
+    monkeypatch.setattr(ContinuousEngine, "warmup", warmup)
+    monkeypatch.setattr(EndpointHandler, "warmup", lambda self, **kw: 0.0)
+
+    class Served:  # the server make_server would give: one request, then interrupted
+        def serve_forever(self):
+            eng = engines[0]
+            assert eng._thread.is_alive()
+            assert isinstance(eng.submit(_clip(3)).result(timeout=120), str)
+            raise KeyboardInterrupt
+
+        def shutdown(self):
+            pass
+
+    monkeypatch.setattr(serving, "make_server",
+                        lambda handler, host, port, batcher=None, lock=None: Served())
+    with redirect_stdout(io.StringIO()) as out:
+        serving.serve(str(tmp_path), engine="continuous", max_batch=2, device="cpu")
+    assert "(continuous batching, 2 slots)" in out.getvalue()
+    assert len(engines) == 1 and engines[0].n_slots == 2
+    assert engines[0]._stop and not engines[0]._thread.is_alive()
+    monkeypatch.undo()
 
     # realtime_port co-hosts the realtime server, and the shutdown stops it
     from tiny_audio_tpu_torch.realtime import RealtimeServer

@@ -228,7 +228,7 @@ def test_bucket_frames_and_prompt_bucket(pair):
 
 
 _NO_JAX_SCRIPT = r"""
-import importlib, pkgutil, sys
+import functools, importlib, pkgutil, sys
 
 class BlockJax:
     def find_spec(self, name, path=None, target=None):
@@ -404,6 +404,30 @@ assert [w["word"] for w in words] == ["one", "two"] and not any("fallback" in w 
 result = pipe(clip, return_timestamps=True, return_speakers=True)
 assert "timestamp_error" not in result and "diarization_error" not in result, result
 assert result["speaker_segments"], result
+
+# the continuous engine on both decode steps, and the three offline tools
+from tiny_audio_tpu_torch.continuous import ContinuousEngine
+from tiny_audio_tpu_torch.tools import handler_local, train_speaker_embedder, train_vad
+
+from tiny_audio_tpu_torch import continuous, generation
+
+for fused in (False, True):
+    continuous.decode_chunk = functools.partial(generation.decode_chunk, fused_decode=fused)
+    eng = ContinuousEngine(pipe, n_slots=2, chunk_steps=2)
+    futs = [eng.submit(np.zeros(4000, np.float32)) for _ in range(3)]
+    assert all(isinstance(f.result(timeout=120), str) for f in futs)
+    eng.close()
+continuous.decode_chunk = generation.decode_chunk
+tools_dir = tempfile.mkdtemp()
+with contextlib.redirect_stdout(io.StringIO()):
+    train_vad.main(["--device", "cpu", "--steps", "1", "--utts", "2", "--batch", "2",
+                    "--out", tools_dir + "/vad.msgpack", "--no-eval"])
+    train_speaker_embedder.main(["--device", "cpu", "--steps", "1", "--speakers", "2",
+                                 "--utts", "2", "--batch", "2",
+                                 "--out", tools_dir + "/ecapa.msgpack", "--no-der"])
+    assert handler_local.main(["-m", ckpt, "--device", "cpu"]) == 0
+assert vad.NeuralVAD.from_file(tools_dir + "/vad.msgpack", "cpu")(clip).shape
+assert diarization.EcapaEmbedder.from_synthetic(tools_dir + "/ecapa.msgpack", "cpu").trained
 
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "tiny_audio_tpu",

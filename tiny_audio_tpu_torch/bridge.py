@@ -192,11 +192,30 @@ def load_flax_tower(module: nn.Module, tree: dict) -> None:
         raise KeyError(f"{type(module).__name__} tensors left unset: {sorted(unset)}")
 
 
+def _gru_cell(gru: nn.GRU) -> dict:
+    """``nn.GRU``'s layer 0 as a flax GRUCell (the inverse of
+    :func:`_gru_state`); flax's cell has no hidden bias for r and z, so
+    those must be zero."""
+    h = gru.hidden_size
+    w_ih, w_hh = gru.weight_ih_l0.detach().cpu(), gru.weight_hh_l0.detach().cpu()
+    b_ih, b_hh = gru.bias_ih_l0.detach().cpu(), gru.bias_hh_l0.detach().cpu()
+    if b_hh[:2 * h].any():
+        raise ValueError("the GRU's hidden biases of r and z are not zero: no flax GRUCell "
+                         "holds them")
+    cell = {}
+    for i, g in enumerate("rzn"):
+        rows = slice(i * h, (i + 1) * h)
+        cell[f"i{g}"] = {"kernel": w_ih[rows].T.contiguous(), "bias": b_ih[rows].clone()}
+        cell[f"h{g}"] = {"kernel": w_hh[rows].T.contiguous()}
+    cell["hn"]["bias"] = b_hh[2 * h:].clone()
+    return cell
+
+
 @torch.no_grad()
 def tower_flax_tree(module: nn.Module) -> dict:
-    """The flax params tree of a tower without a GRU (CPU tensors): the
-    inverse of :func:`load_flax_tower`, for writing the file the JAX package
-    reads."""
+    """The flax params tree of a tower (CPU tensors; an ``nn.GRU`` as flax's
+    GRUCell): the inverse of :func:`load_flax_tower`, for writing the file
+    the JAX package reads."""
     modules = dict(module.named_modules())
     inverse = {v: k for k, v in _TOWER_LEAVES.items()}
     tree: dict = {}
@@ -204,7 +223,9 @@ def tower_flax_tree(module: nn.Module) -> dict:
         *owner_path, leaf = name.split(".")
         owner = modules[".".join(owner_path)]
         if isinstance(owner, nn.GRU):
-            raise TypeError("tower_flax_tree does not write a GRU")
+            if leaf == "weight_ih_l0":  # the whole cell, once
+                _set(tree, tuple(owner_path), _gru_cell(owner))
+            continue
         value = value.detach().cpu()
         if leaf == "weight" and isinstance(owner, nn.Linear):
             leaf, value = "kernel", value.T

@@ -81,6 +81,11 @@
 // them in split order (a run is bitwise repeatable, whichever block arrives
 // last), folds in the fresh row, writes the output and sets its counter back
 // to 0.  A single split merges its own warps and writes the output directly.
+// Per-row lengths (kv_stride = 1, the continuous engine's slots) change
+// none of this: the plan is the host's, every block of batch row b reads
+// kv_len[b], so the blocks of one (b, KV head, chunk) agree on splits_used
+// and its counter counts to that row's number; rows of other lengths use
+// other counters.
 // The counters (`counters`, B x Hkv x chunks int32) are owned by the
 // wrapper: zero before a launch, zero after it, and never freed (a CUDA graph
 // keeps their address); so two launches that share a counter buffer must not
@@ -134,7 +139,8 @@ struct Args {
   float* v_scale;
   const void* fresh_k;           // [B, Hkv, D] Q
   const void* fresh_v;
-  const int* kv_len;             // device scalar: valid prefix, row of the append
+  const int* kv_len;             // device int32: valid prefix, row of the append
+  int kv_stride;                 // 0: one length for every batch row; 1: [B], one a row
   void* out;                     // [B, Hq, D] Q
   float* partial;                // [B, Hq, splits, D + 2] fp32 scratch (splits > 1)
   int* counters;                 // [B, Hkv, chunks] int32, zero between launches
@@ -304,7 +310,7 @@ __global__ void __launch_bounds__(NUM_THREADS, 3) decode_kernel(Args a) {
   constexpr int OUTS = (MAX_HEADS * D + NUM_THREADS - 1) / NUM_THREADS;  // outputs a thread
   const int chunks = a.group / a.heads;
   if (UPDATE && blockIdx.y == a.splits) {  // #4's append: a block of its own, beside the splits
-    const int kv = *a.kv_len;
+    const int kv = a.kv_len[blockIdx.z * a.kv_stride];
     if (blockIdx.x % chunks == 0 && threadIdx.x < 32 && kv >= 0 && kv < a.S) {
       append_row<Q, T, D>(a, blockIdx.z, blockIdx.x / chunks, kv);
     }
@@ -327,7 +333,7 @@ __global__ void __launch_bounds__(NUM_THREADS, 3) decode_kernel(Args a) {
 
   // kv_len, the block's query rows and the fresh row's score, their loads
   // in flight together
-  const int kv_raw = *a.kv_len;
+  const int kv_raw = a.kv_len[blockIdx.z * a.kv_stride];
   float q_mine[OUTS];
 #pragma unroll
   for (int k = 0; k < OUTS; ++k) {
@@ -671,13 +677,15 @@ bool supported_group(int group) {
 int launch(bool update, const void* q, void* cache_k, void* cache_v, void* k_scale,
            void* v_scale, const void* fresh_k, const void* fresh_v, const void* kv_len,
            void* out, void* partial, void* counters, int B, int S, int Hq, int Hkv,
-           int head_dim, int rows, int quantized, int fp32, float scale, void* stream) {
+           int head_dim, int rows, int quantized, int fp32, float scale, int kv_stride,
+           void* stream) {
   const int splits = rows > 0 ? (S + rows - 1) / rows : 0;
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || !supported_group(Hq / Hkv) ||
       (head_dim != 16 && head_dim != 32 && head_dim != 64 && head_dim != 128 &&
        head_dim != 256) ||
       (quantized && (k_scale == nullptr || v_scale == nullptr)) || rows <= 0 ||
-      splits > MAX_SPLITS || counters == nullptr || (splits > 1 && partial == nullptr)) {
+      splits > MAX_SPLITS || counters == nullptr || (splits > 1 && partial == nullptr) ||
+      (kv_stride != 0 && kv_stride != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   Args a;
@@ -689,6 +697,7 @@ int launch(bool update, const void* q, void* cache_k, void* cache_v, void* k_sca
   a.fresh_k = fresh_k;
   a.fresh_v = fresh_v;
   a.kv_len = static_cast<const int*>(kv_len);
+  a.kv_stride = kv_stride;
   a.out = out;
   a.partial = static_cast<float*>(partial);
   a.counters = static_cast<int*>(counters);
@@ -719,7 +728,9 @@ extern "C" {
 // q/out: [B, Hq, D] bf16 (fp32 = 0) or fp32 (fp32 = 1); cache_k/v:
 // [B, S, Hkv, D] int8 (quantized = 1, with k/v_scale [B, S, Hkv] fp32) or
 // q's dtype (quantized = 0, scales null); fresh_k/v: [B, Hkv, D] q's dtype;
-// kv_len: device int32 scalar; partial: fp32 scratch of B Hq splits (D + 2)
+// kv_len: device int32, one for every row (kv_stride = 0) or [B], one a row
+// (kv_stride = 1; any value is safe: a block clamps it into [0, S], and the
+// append writes no row outside [0, S)); partial: fp32 scratch of B Hq splits (D + 2)
 // values, splits = ceil(S / rows) <= 16 (null when splits = 1); counters:
 // B Hkv chunks int32, zero (chunks = 2 for a group of 8, else 1).  D in
 // {16, 32, 64, 128, 256}, Hq / Hkv in {1, 2, 3, 4, 8}; every tensor
@@ -728,22 +739,23 @@ int ta_decode_attention(const void* q, const void* cache_k, const void* cache_v,
                         const void* k_scale, const void* v_scale, const void* fresh_k,
                         const void* fresh_v, const void* kv_len, void* out, void* partial,
                         void* counters, int B, int S, int Hq, int Hkv, int D_, int rows,
-                        int quantized, int fp32, float scale, void* stream) {
+                        int quantized, int fp32, float scale, int kv_stride, void* stream) {
   return launch(false, q, const_cast<void*>(cache_k), const_cast<void*>(cache_v),
                 const_cast<void*>(k_scale), const_cast<void*>(v_scale), fresh_k, fresh_v,
                 kv_len, out, partial, counters, B, S, Hq, Hkv, D_, rows, quantized, fp32,
-                scale, stream);
+                scale, kv_stride, stream);
 }
 
-// As ta_decode_attention, and writes row kv_len of cache_k/v (and, quantized,
+// As ta_decode_attention, and writes row kv_len (of each batch row) of cache_k/v (and, quantized,
 // of k/v_scale) in place; the attention reads rows [0, kv_len).
 int ta_decode_attention_update(const void* q, void* cache_k, void* cache_v, void* k_scale,
                                void* v_scale, const void* fresh_k, const void* fresh_v,
                                const void* kv_len, void* out, void* partial, void* counters,
                                int B, int S, int Hq, int Hkv, int D_, int rows, int quantized,
-                               int fp32, float scale, void* stream) {
+                               int fp32, float scale, int kv_stride, void* stream) {
   return launch(true, q, cache_k, cache_v, k_scale, v_scale, fresh_k, fresh_v, kv_len, out,
-                partial, counters, B, S, Hq, Hkv, D_, rows, quantized, fp32, scale, stream);
+                partial, counters, B, S, Hq, Hkv, D_, rows, quantized, fp32, scale, kv_stride,
+                stream);
 }
 
 }  // extern "C"

@@ -24,6 +24,13 @@ Each decode step takes one of two paths, as in the JAX package:
 Beam search takes either step (the JAX package's beams run the module step
 only; both give the same tokens).  A CUDA graph of the decode step is later
 work.
+
+The continuous engine's device work (:mod:`tiny_audio_tpu_torch.continuous`)
+is here too, with the JAX package's names: :func:`prefill_prompt_cache`,
+:func:`init_slot_state`, :func:`insert_slots` and :func:`decode_chunk`, whose
+steps give each slot its own length (the decoder's ``[B]`` cache index, the
+decode kernels' per-row lengths) and read nothing back to the host inside a
+chunk.
 """
 
 from __future__ import annotations
@@ -535,3 +542,106 @@ def _top_k(x: torch.Tensor, k: int):
     index first among ties, as ``jax.lax.top_k``."""
     values, indices = _sort_desc(x)
     return values[..., :k], indices[..., :k]
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching (slot-based decode): the engine's device work
+# ---------------------------------------------------------------------------
+# The engine is tiny_audio_tpu_torch/continuous.py.  N persistent decode slots
+# share one KV cache [L, N, S_max, Hkv, D]; each slot sits at its own length
+# (``pos`` [N]), so a request joins as soon as a slot frees.  The step writes
+# and reads each row at its own length: the decoder's ``[B]`` cache_index,
+# and on the card the decode kernels' per-row lengths.
+
+
+@torch.inference_mode()
+def prefill_prompt_cache(decoder: Qwen3Decoder, inputs_embeds: torch.Tensor,
+                         prompt_len: Optional[int] = None):
+    """Prefill only: the greedy first token [B] int32 and the prompt's cache,
+    ``ceil(T / 16) * 16`` rows (the engine scatters both into free slots).
+
+    ``prompt_len``: the number of real prompt rows when the prompt was
+    right-padded to a PROMPT_BUCKET multiple; the first token reads the
+    logits at ``prompt_len - 1``, and the cache rows from ``prompt_len`` on
+    stay masked by the slot's length until decode overwrites them."""
+    b, t, _ = inputs_embeds.shape
+    prompt_len = t if prompt_len is None else int(prompt_len)
+    cache = decoder.init_cache(b, -(-t // 16) * 16)
+    positions = torch.arange(t, device=inputs_embeds.device).expand(b, t)
+    logits = decoder(inputs_embeds, positions, cache=cache, cache_index=0,
+                     last_logit_index=prompt_len - 1)
+    return torch.argmax(logits[:, 0].to(torch.float32), dim=-1).to(torch.int32), cache
+
+
+def init_slot_state(decoder: Qwen3Decoder, n_slots: int, s_max: int, pad_token_id: int) -> dict:
+    """A fresh engine state, every slot empty (finished): the cache, and per
+    slot the current token, the next cache row (= its length), the prompt
+    length and whether it is finished, all on the decoder's device."""
+    device = decoder.embed_tokens.weight.device
+    return {
+        "cache": decoder.init_cache(n_slots, s_max),
+        "cur": torch.full((n_slots,), pad_token_id, dtype=torch.int32, device=device),
+        "pos": torch.zeros((n_slots,), dtype=torch.int32, device=device),
+        "start": torch.zeros((n_slots,), dtype=torch.int32, device=device),
+        "finished": torch.ones((n_slots,), dtype=torch.bool, device=device),
+    }
+
+
+@torch.inference_mode()
+def insert_slots(state: dict, prompt_cache: dict, first_toks: torch.Tensor,
+                 slot_ids: torch.Tensor, t_real: torch.Tensor,
+                 first_finished: torch.Tensor) -> dict:
+    """Scatter ``b`` prefilled requests into slots ``slot_ids`` [b]: each
+    slot's first ``s_p`` cache rows (of every layer, scales too) from
+    ``prompt_cache`` ([L, b, s_p, ...]), its token, length and prompt length
+    ``t_real`` [b], and whether it finished at the prefill.  In place;
+    returns ``state``."""
+    s_p = prompt_cache["k"].shape[2]
+    for name, buf in prompt_cache.items():
+        state["cache"][name][:, slot_ids, :s_p] = buf
+    state["cur"][slot_ids] = first_toks
+    state["pos"][slot_ids] = t_real
+    state["start"][slot_ids] = t_real
+    state["finished"][slot_ids] = first_finished
+    return state
+
+
+@torch.inference_mode()
+def decode_chunk(decoder: Qwen3Decoder, state: dict, gen: GenerationConfig, n_steps: int,
+                 fused_decode: Optional[bool] = None):
+    """``n_steps`` greedy decode steps over every slot; returns (state,
+    tokens [N, n_steps] int32 on the device).  Finished and free slots emit
+    pad and do not advance; a slot finishes on an EOS id, on its budget
+    (``pos - start + 2 >= max_new_tokens``: the prefill gave its first
+    token) or before its next row would pass the cache (``pos + 1 >=
+    S_max``).  Nothing is read back to the host inside the chunk: the
+    caller reads the tokens once.  ``fused_decode`` as in
+    :func:`generate_tokens`: the fused step (kernel #4 appending each row at
+    its own length) by default on the card, the module step (#3, then the
+    per-row cache write) on request and elsewhere."""
+    if fused_decode is None:
+        fused_decode = _fused_decode_available(decoder)
+    cache = state["cache"]
+    s_max = cache["k"].shape[2]
+    device = state["pos"].device
+    eos_ids = torch.tensor(gen.eos_token_ids, dtype=torch.int32, device=device)
+    kv_index = torch.arange(s_max, device=device)
+    cur, pos, start, finished = state["cur"], state["pos"], state["start"], state["finished"]
+    toks = []
+    for _ in range(n_steps):
+        if fused_decode:
+            logits = fused_decode_step(decoder, cur, pos, cache)
+        else:
+            logits = decoder(decoder.embed(cur[:, None]), pos[:, None],
+                             step_kv_valid=(kv_index[None, :] < pos[:, None]).to(torch.int32),
+                             cache=cache, cache_index=pos)[:, 0].to(torch.float32)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        tok = torch.where(finished, gen.pad_token_id, tok)
+        budget_done = pos - start + 2 >= gen.max_new_tokens
+        overflow = pos + 1 >= s_max  # never write past the cache
+        new_finished = finished | torch.isin(tok, eos_ids) | budget_done | overflow
+        pos = torch.where(finished, pos, pos + 1)
+        cur, finished = tok, new_finished
+        toks.append(tok)
+    state.update(cur=cur, pos=pos, finished=finished)
+    return state, torch.stack(toks, dim=1)

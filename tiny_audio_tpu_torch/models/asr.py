@@ -320,6 +320,14 @@ class ASRModel(nn.Module):
             hidden = hidden * keep[..., None].to(hidden.dtype)
         return self.projector(hidden, train=train, generator=generator)
 
+    def _splice_embeds(self, input_features, audio_attention_mask,
+                       input_ids: torch.Tensor) -> torch.Tensor:
+        """Encoder, projector and the prompt's token embeddings with the audio
+        embeddings spliced in at its ``<audio>`` ids: a prefill's input."""
+        audio_embeds, _ = self._encode_audio(input_features, audio_attention_mask)
+        audio_mask = input_ids == self.tokenizer.audio_token_id
+        return splice_audio(self.decoder.embed(input_ids), audio_mask, audio_embeds)
+
     # --------------------------------------------------------------- training
 
     def compute_loss(self, batch: dict, train: bool = True,
@@ -531,10 +539,7 @@ class ASRModel(nn.Module):
         ids_np[0, :t_real] = ids
         input_ids = torch.from_numpy(ids_np).to(self.device)
 
-        audio_embeds, _ = self._encode_audio(input_features, audio_attention_mask)
-        text_embeds = self.decoder.embed(input_ids)
-        audio_mask = input_ids == self.tokenizer.audio_token_id
-        inputs_embeds = splice_audio(text_embeds, audio_mask, audio_embeds)
+        inputs_embeds = self._splice_embeds(input_features, audio_attention_mask, input_ids)
 
         def decoded_chunks():
             pending: list[int] = []

@@ -30,7 +30,7 @@ weights, which stay and serve every other product.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -122,14 +122,16 @@ class Qwen3Block(nn.Module):
         sin: torch.Tensor,
         padding_mask: Optional[torch.Tensor],
         layer_cache: Optional[dict],
-        cache_index: int,
+        cache_index: Union[int, torch.Tensor],
         step_kv_valid: Optional[torch.Tensor],
         kv_len=None,
     ) -> torch.Tensor:
         """One block.  ``layer_cache``: None (causal forward over x) or this
         layer's cache views; T > 1 is a prefill, T == 1 a decode step, whose
         attention reads the first ``kv_len`` cache rows (``cache_index`` as
-        an int, or the same as a 0-d int32 tensor on the device)."""
+        an int, or the same as a 0-d int32 tensor on the device) and which
+        writes its row at ``cache_index``; a ``[B]`` int32 ``cache_index``
+        (T == 1) gives each batch row its own row and length."""
         q, k, v = self.project_qkv(x, cos, sin)
         if layer_cache is not None and x.shape[1] == 1:
             out = decode_step_attention(
@@ -177,7 +179,9 @@ class Qwen3Decoder(nn.Module):
     - prefill: pass a cache from :meth:`init_cache` and ``cache_index=0``;
       the cache is filled in place;
     - decode: T == 1, ``cache_index`` = current length, ``step_kv_valid``
-      marking the cache rows before it;
+      marking the cache rows before it; ``cache_index`` as a ``[B]`` int32
+      tensor (the continuous engine's slots, as the JAX decoder's array
+      ``cache_index``) writes and reads each row at its own length;
     - no cache: causal forward over the inputs.
     """
 
@@ -244,7 +248,7 @@ class Qwen3Decoder(nn.Module):
         padding_mask: Optional[torch.Tensor] = None,
         step_kv_valid: Optional[torch.Tensor] = None,
         cache: Optional[dict] = None,
-        cache_index: int = 0,
+        cache_index: Union[int, torch.Tensor] = 0,
         last_logit_index: Optional[int] = None,
     ) -> torch.Tensor:
         """Returns logits [B, T', V] (T' = 1 with ``last_logit_index``)."""
@@ -252,7 +256,10 @@ class Qwen3Decoder(nn.Module):
         cos, sin = rotary_embed(positions, cfg.head_dim, cfg.rope_theta)
         x = self.scale_inputs(inputs_embeds)
         kv_len = None
-        if cache is not None and x.shape[1] == 1 and x.is_cuda:
+        if isinstance(cache_index, torch.Tensor):
+            # per-row lengths, read by every layer from the device
+            cache_index = kv_len = cache_index.to(device=x.device, dtype=torch.int32)
+        elif cache is not None and x.shape[1] == 1 and x.is_cuda:
             # the decode kernel reads the prefix length from device memory:
             # one scalar per step, shared by every layer
             kv_len = torch.full((), cache_index, dtype=torch.int32, device=x.device)

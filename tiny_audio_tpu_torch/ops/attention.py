@@ -10,10 +10,13 @@ Port of :mod:`tiny_audio_tpu.ops.attention`; public functions take the
   forward ([B, ~470-576, 16/8 GQA, 128]; head_dim 16-256, bf16 or fp32) -> the causal
   kernel (:mod:`.prefill_attention`) likewise; with grad, the forward keeps
   its softmax statistics and the backward runs the two backward kernels;
-- the decode step (q_len == 1 over the KV cache) with a scalar ``kv_len``
-  -> the decode kernel (:mod:`.decode_attention`) for CUDA tensors, its plain
-  version for CPU tensors; without ``kv_len`` (a per-row cache index, which
-  only the continuous engine uses) -> plain masked PyTorch on both devices.
+- the decode step (q_len == 1 over the KV cache, fresh K/V appended) ->
+  the decode kernel (:mod:`.decode_attention`) for CUDA tensors, with one
+  ``kv_len`` for the batch or a ``[B]`` one (the continuous engine's slots,
+  each at its own length); on CPU tensors the kernel's plain version for one
+  length, and plain masked PyTorch (the JAX package's masked path) for
+  per-row lengths.  Plain masked PyTorch also serves a step without fresh
+  K/V.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 
 from tiny_audio_tpu_torch.models.layers import MASK_VALUE
 from tiny_audio_tpu_torch.models.layers import attention as _attention
-from tiny_audio_tpu_torch.ops.decode_attention import KvLen, decode_attention
+from tiny_audio_tpu_torch.ops.decode_attention import KvLen, decode_attention, per_row
 from tiny_audio_tpu_torch.ops.encoder_attention import encoder_attention
 from tiny_audio_tpu_torch.ops.prefill_attention import prefill_attention
 
@@ -77,12 +80,13 @@ def decode_step_attention(
     int8; the scales fold into the scores and the probabilities, so no
     dequantized copy of the cache is made.
 
-    ``kv_len`` (the number of valid cache rows, the same for every batch row:
-    the decode loops' ``cache_index``, an int or a 0-d int32 tensor on the
-    device) routes a step with fresh K/V to :func:`decode_attention`, which
-    reads only those rows; ``kv_valid`` must then mark exactly them.
+    ``kv_len`` (the number of valid cache rows: the decode loops'
+    ``cache_index``, an int or a 0-d int32 tensor on the device, or a ``[B]``
+    int32 tensor of per-row lengths) routes a step with fresh K/V to
+    :func:`decode_attention`, which reads only those rows (per-row lengths
+    on CUDA tensors only); ``kv_valid`` must then mark exactly them.
     """
-    if kv_len is not None and fresh_k is not None:
+    if kv_len is not None and fresh_k is not None and (q.is_cuda or not per_row(kv_len)):
         b, _, hq, d = q.shape
         out = decode_attention(
             q.reshape(b, hq, d), cache_k, cache_v,

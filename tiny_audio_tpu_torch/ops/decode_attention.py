@@ -27,14 +27,19 @@ output in it, the cache in it or in int8.  The JAX package left both kernels
 off by default because XLA copies a loop-carried cache that a custom call
 reads; a torch cache written in place has no such copy.
 
-``kv_len`` is a Python int or a 0-d int32 tensor on the kernel's device: the
-kernel reads it from device memory, so a step can be launched without the
-host knowing it.  On a CPU tensor each wrapper runs its plain version; on a
-CUDA tensor it launches the kernel or raises.
+``kv_len`` is a Python int, a 0-d int32 tensor on the kernel's device, or a
+``[B]`` int32 tensor there, one length a batch row (the continuous engine's
+slots, each at its own length): the kernel reads it from device memory, so a
+step can be launched without the host knowing it.  A per-row length is not
+checked on the host (that would take a sync): the kernel clamps each into
+``[0, S]`` and appends no row outside ``[0, S)``, and the plain versions do
+the same, row by row.  On a CPU tensor each wrapper runs its plain version;
+on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Union
 
@@ -49,6 +54,25 @@ KERNEL_GROUPS = (1, 2, 3, 4, 8)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 KvLen = Union[int, torch.Tensor]
+
+
+def per_row(kv_len: KvLen) -> bool:
+    """True for a ``[B]`` tensor of lengths, one a batch row."""
+    return isinstance(kv_len, torch.Tensor) and kv_len.ndim == 1
+
+
+def _by_row(fn, q, cache_k, cache_v, fresh_k, fresh_v, kv_len, k_scale, v_scale):
+    """``fn`` over each batch row with that row's length, clamped into
+    ``[0, S]`` as the kernels clamp it; the outputs stacked."""
+    s = cache_k.shape[1]
+    outs = []
+    for i, n in enumerate(kv_len.tolist()):
+        rows = slice(i, i + 1)
+        outs.append(fn(q[rows], cache_k[rows], cache_v[rows], fresh_k[rows], fresh_v[rows],
+                       min(max(int(n), 0), s),
+                       None if k_scale is None else k_scale[rows],
+                       None if v_scale is None else v_scale[rows]))
+    return torch.cat(outs)
 
 #: query heads one block holds (a group of 8 takes two blocks per KV head)
 MAX_HEADS = 4
@@ -128,7 +152,10 @@ def decode_attention_plain(
 
     The math of ``ops.attention.decode_step_attention`` with the cache sliced
     to ``[:, :kv_len]`` instead of masked, so rows past ``kv_len`` are never
-    read, as in the kernel."""
+    read, as in the kernel; a ``[B]`` ``kv_len`` slices each row to its own."""
+    if per_row(kv_len):
+        return _by_row(decode_attention_plain, q, cache_k, cache_v, fresh_k, fresh_v, kv_len,
+                       k_scale, v_scale)
     n = int(kv_len)
     b, hq, d = q.shape
     hkv = cache_k.shape[2]
@@ -160,19 +187,37 @@ def decode_attention_plain(
     return out.reshape(b, hq, d).to(q.dtype)
 
 
-def write_cache_rows(layer_cache: dict, k: torch.Tensor, v: torch.Tensor, index: int) -> None:
+def write_cache_rows(layer_cache: dict, k: torch.Tensor, v: torch.Tensor,
+                     index: KvLen) -> None:
     """IN-PLACE write of fresh K/V [B, T, Hkv, D] at rows index..index+T-1
     of one layer's cache views ``{"k", "v"[, "k_scale", "v_scale"]}``,
-    quantized when the cache is int8."""
-    rows = slice(index, index + k.shape[1])
+    quantized when the cache is int8.
+
+    ``index`` as a ``[B]`` tensor (T = 1, the continuous engine's step) writes
+    each batch row at its own index, a scatter over (row, index) as the JAX
+    decoder's array ``cache_index`` does; a row whose index falls outside
+    ``[0, S)`` is not written (JAX's scatter drops it).  No host sync: such a
+    row gets its old value back."""
     if "k_scale" in layer_cache:
+        pairs = []
         for name, x in (("k", k), ("v", v)):
             x_q, x_s = quantize_kv(x)
-            layer_cache[name][:, rows] = x_q
-            layer_cache[f"{name}_scale"][:, rows] = x_s
+            pairs += [(name, x_q), (f"{name}_scale", x_s)]
     else:
-        layer_cache["k"][:, rows] = k
-        layer_cache["v"][:, rows] = v
+        pairs = [("k", k), ("v", v)]
+    if per_row(index):
+        b, s = k.shape[0], layer_cache["k"].shape[1]
+        rows = torch.arange(b, device=index.device)
+        at = index.long().clamp(0, s - 1)
+        keep = (index >= 0) & (index < s)
+        for name, x in pairs:
+            buf = layer_cache[name]
+            new = x[:, 0]
+            buf[rows, at] = torch.where(keep.view(-1, *(1,) * (new.ndim - 1)), new, buf[rows, at])
+        return
+    span = slice(index, index + k.shape[1])
+    for name, x in pairs:
+        layer_cache[name][:, span] = x
 
 
 def decode_attention_update_plain(
@@ -187,11 +232,13 @@ def decode_attention_update_plain(
 ) -> torch.Tensor:
     """Reference for the kernel with the append: writes row ``kv_len`` of the
     cache views (and scales) in place, then attends over the stale prefix
-    ``[0, kv_len)`` plus the fresh row."""
+    ``[0, kv_len)`` plus the fresh row (each batch row at its own with a
+    ``[B]`` ``kv_len``; a row at S is not written)."""
     views = {"k": cache_k, "v": cache_v}
     if k_scale is not None:
         views.update(k_scale=k_scale, v_scale=v_scale)
-    write_cache_rows(views, fresh_k[:, None], fresh_v[:, None], int(kv_len))
+    write_cache_rows(views, fresh_k[:, None], fresh_v[:, None],
+                     kv_len if per_row(kv_len) else int(kv_len))
     return decode_attention_plain(q, cache_k, cache_v, fresh_k, fresh_v, kv_len,
                                   k_scale, v_scale)
 
@@ -213,12 +260,22 @@ def decode_attention_split_plain(
     split's max ``m``, ``l = sum exp2(s - m)`` and ``acc = sum exp2(s - m)
     (x v_scale) v``; at kv_len 0 one empty part.  The parts are merged in
     split order against the running max taken with the fresh row's score,
-    and the fresh row is folded in last.  Returns [B, Hq, D] in q's dtype."""
-    n = int(kv_len)
+    and the fresh row is folded in last; a ``[B]`` ``kv_len`` row by row
+    (the plan is the whole launch's).  Returns [B, Hq, D] in q's dtype."""
     b, hq, d = q.shape
     _, s, hkv, _ = cache_k.shape
+    split = functools.partial(_split_plain, split_plan(b, s, hkv, hq // hkv, d,
+                                                       cache_k.dtype).rows)
+    if per_row(kv_len):
+        return _by_row(split, q, cache_k, cache_v, fresh_k, fresh_v, kv_len, k_scale, v_scale)
+    return split(q, cache_k, cache_v, fresh_k, fresh_v, kv_len, k_scale, v_scale)
+
+
+def _split_plain(rows, q, cache_k, cache_v, fresh_k, fresh_v, kv_len, k_scale, v_scale):
+    n = int(kv_len)
+    b, hq, d = q.shape
+    hkv = cache_k.shape[2]
     group = hq // hkv
-    rows = split_plan(b, s, hkv, group, d, cache_k.dtype).rows
     f32 = torch.float32
     scale_log2 = d ** -0.5 * math.log2(math.e)
     qg = q.reshape(b, hkv, group, d).to(f32)
@@ -293,14 +350,23 @@ def _check_cuda_inputs(q, cache_k, cache_v, fresh_k, fresh_v, k_scale, v_scale) 
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _device_kv_len(kv_len: KvLen, s: int, device: torch.device) -> torch.Tensor:
+def _device_kv_len(kv_len: KvLen, b: int, s: int,
+                   device: torch.device) -> tuple[torch.Tensor, int]:
+    """The length(s) as device int32 and the kernel's stride over batch rows:
+    0 for one length, 1 for a ``[B]`` tensor (taken unchecked: see the
+    module docstring)."""
     if isinstance(kv_len, torch.Tensor):
-        if kv_len.dtype != torch.int32 or kv_len.ndim != 0 or kv_len.device != device:
-            raise ValueError(f"kv_len must be a 0-d int32 tensor on {device}")
-        return kv_len
+        if kv_len.dtype != torch.int32 or kv_len.device != device:
+            raise ValueError(f"kv_len must be an int32 tensor on {device}")
+        if kv_len.ndim == 0:
+            return kv_len, 0
+        if kv_len.shape == (b,) and kv_len.is_contiguous():
+            return kv_len, 1
+        raise ValueError(f"kv_len must be 0-d or a contiguous [B] = [{b}], got "
+                         f"{tuple(kv_len.shape)}")
     if not 0 <= kv_len < s:
         raise ValueError(f"kv_len {kv_len} outside the cache rows [0, {s})")
-    return torch.full((), kv_len, dtype=torch.int32, device=device)
+    return torch.full((), kv_len, dtype=torch.int32, device=device), 0
 
 
 def _launch(name: str, q, cache_k, cache_v, fresh_k, fresh_v, kv_len, k_scale, v_scale):
@@ -308,7 +374,7 @@ def _launch(name: str, q, cache_k, cache_v, fresh_k, fresh_v, kv_len, k_scale, v
     b, hq, d = q.shape
     _, s, hkv, _ = cache_k.shape
     plan = split_plan(b, s, hkv, hq // hkv, d, cache_k.dtype)
-    kv_len_t = _device_kv_len(kv_len, s, q.device)
+    kv_len_t, kv_stride = _device_kv_len(kv_len, b, s, q.device)
     out = torch.empty_like(q)
     partial = (torch.empty(plan.scratch_floats, dtype=torch.float32, device=q.device)
                if plan.scratch_floats else None)
@@ -321,6 +387,7 @@ def _launch(name: str, q, cache_k, cache_v, fresh_k, fresh_v, kv_len, k_scale, v
         fresh_k.data_ptr(), fresh_v.data_ptr(), kv_len_t.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else 0, counters.data_ptr(),
         b, s, hq, hkv, d, plan.rows, int(quantized), int(q.dtype == torch.float32), d ** -0.5,
+        kv_stride,
     )
     return out
 

@@ -22,6 +22,8 @@ for the models served on the card, which is the dtype the JAX step forces).
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
 from tiny_audio_tpu_torch.models.decoder import Qwen3Decoder
@@ -33,20 +35,25 @@ from tiny_audio_tpu_torch.ops.decode_attention import decode_attention_update
 def fused_decode_step(
     decoder: Qwen3Decoder,
     cur: torch.Tensor,
-    pos: int,
+    pos: Union[int, torch.Tensor],
     cache: dict,
 ) -> torch.Tensor:
     """Feed tokens ``cur`` [B] at position ``pos`` (= the cache row written
     and the valid prefix length) through every layer; returns fp32 logits
-    [B, V].  ``cache`` is updated in place."""
+    [B, V].  ``cache`` is updated in place.  ``pos`` is one int for the
+    batch, or a ``[B]`` int32 tensor on ``cur``'s device (the continuous
+    engine's slots): each row then takes its own rope position, its own
+    prefix length and its own append row, with no host read."""
     cfg = decoder.cfg
     b = cur.shape[0]
     device = cur.device
-    cos, sin = rotary_embed(
-        torch.full((b, 1), pos, dtype=torch.int32, device=device), cfg.head_dim, cfg.rope_theta
-    )
-    # one device scalar per step, read by every layer's kernel
-    kv_len = torch.full((), pos, dtype=torch.int32, device=device) if cur.is_cuda else pos
+    if isinstance(pos, torch.Tensor):
+        positions, kv_len = pos.view(b, 1), pos
+    else:
+        positions = torch.full((b, 1), pos, dtype=torch.int32, device=device)
+        # one device scalar per step, read by every layer's kernel
+        kv_len = torch.full((), pos, dtype=torch.int32, device=device) if cur.is_cuda else pos
+    cos, sin = rotary_embed(positions, cfg.head_dim, cfg.rope_theta)
     quantized = "k_scale" in cache
     x = decoder.scale_inputs(decoder.embed(cur[:, None]))
     for i, layer in enumerate(decoder.layers):

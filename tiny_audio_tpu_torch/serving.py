@@ -242,13 +242,17 @@ def serve(model_path: str, host: str = "0.0.0.0", port: int = 8000,
     order, with ``device`` last.
 
     ``engine``: ``"dynamic"`` (:class:`~tiny_audio_tpu_torch.batching.
-    DynamicBatcher`: coalesce arrivals into batched generate calls) or
-    ``"none"`` (the lock-serialized solo path only);
-    ``dynamic_batching=False`` means ``"none"``.  The continuous engine
-    (ROADMAP.md Queue 1 #12) and ``tp``/``dp`` meshes (Queue 1 #13) are not
-    ported and raise.  ``realtime_port``: also run the realtime WebSocket
-    server (:class:`~tiny_audio_tpu_torch.realtime.RealtimeServer`) on that
-    port, on this server's pipeline, lock and batcher; ``/metrics`` then
+    DynamicBatcher`: coalesce arrivals into batched generate calls),
+    ``"continuous"`` (:class:`~tiny_audio_tpu_torch.continuous.
+    ContinuousEngine`: ``max_batch`` decode slots, each at its own length;
+    requests join and leave between decode chunks; it falls back to
+    ``"dynamic"`` when the model's generation config is not the greedy
+    serving default) or ``"none"`` (the lock-serialized solo path only);
+    ``dynamic_batching=False`` means ``"none"``.  ``tp``/``dp`` meshes
+    (ROADMAP.md Queue 1 #13) are not ported and raise.  ``realtime_port``:
+    also run the realtime WebSocket server
+    (:class:`~tiny_audio_tpu_torch.realtime.RealtimeServer`) on that port, on
+    this server's pipeline, lock and batcher (either engine); ``/metrics`` then
     exports its live sessions as ``ta_realtime_sessions`` and the failures
     it swallowed to keep sessions alive as ``ta_realtime_errors``.
     ``wq_decode``/``w8a8_head``/``w8a8_decode`` enable the int8 decode
@@ -256,9 +260,6 @@ def serve(model_path: str, host: str = "0.0.0.0", port: int = 8000,
     """
     if not dynamic_batching:  # the JAX CLI's --no-batching
         engine = "none"
-    if engine == "continuous":
-        raise NotImplementedError(
-            "engine='continuous' is not ported to PyTorch yet (ROADMAP.md Queue 1 #12)")
     handler = EndpointHandler(model_path, tp=tp, dp=dp, wq_decode=wq_decode,
                               w8a8_head=w8a8_head, w8a8_decode=w8a8_decode,
                               device=device)
@@ -271,11 +272,26 @@ def serve(model_path: str, host: str = "0.0.0.0", port: int = 8000,
             ("w8a8 head", "head_t_i8" in wq_vars),
         ) if on]
         print(f"[serve] int8 decode enabled: {', '.join(modes)}")
+    batcher = None
+    if engine == "continuous":
+        # Construct (= check the generation config) before warmup, so that a
+        # fallback to dynamic still gets the batched warmup.
+        from tiny_audio_tpu_torch.continuous import ContinuousEngine
+
+        try:
+            batcher = ContinuousEngine(handler.pipe, n_slots=max_batch, start=False)
+        except ValueError as e:
+            print(f"[serve] continuous engine unavailable ({e}); "
+                  "falling back to dynamic batching")
+            engine = "dynamic"
     if warmup:
         print("[serve] warming up (the first run builds the kernels)...")
         total = handler.warmup(batched=engine == "dynamic")
         print(f"[serve] warmup done in {total:.1f}s")
-    batcher = None
+    if engine == "continuous":
+        if warmup:
+            batcher.warmup()
+        batcher.start()
     if engine == "dynamic":
         cap = handler.pipe.BATCH_BUCKETS[-1]
         if max_batch > cap:
@@ -301,7 +317,8 @@ def serve(model_path: str, host: str = "0.0.0.0", port: int = 8000,
     if rt is not None:
         server.metrics.gauge_fns["ta_realtime_sessions"] = rt.active_sessions
         server.metrics.gauge_fns["ta_realtime_errors"] = lambda: sum(rt.errors().values())
-    mode = f" (dynamic batching <= {max_batch})" if engine == "dynamic" else ""
+    mode = {"dynamic": f" (dynamic batching <= {max_batch})",
+            "continuous": f" (continuous batching, {max_batch} slots)"}.get(engine, "")
     print(f"[serve] listening on {host}:{port}{mode}")
     try:
         server.serve_forever()

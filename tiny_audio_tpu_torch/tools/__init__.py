@@ -1,12 +1,21 @@
-"""Bench entry points of the port: ``python -m tiny_audio_tpu_torch.tools.<name>``.
+"""Tools of the port: ``python -m tiny_audio_tpu_torch.tools.<name>``.
 
 - :mod:`.bench_encoder_attention`: kernel #9a's 13 softmax modes beside #1
   and SDPA at the flagship encoder's attention shape;
 - :mod:`.bench_wq_head`: kernels #9b-#9d beside #5, #6 and bf16
-  ``F.linear`` at the flagship's LM head.
+  ``F.linear`` at the flagship's LM head;
+- :mod:`.bench_realtime`: paced sessions against the realtime server;
+- :mod:`.bench_quality`: diarization DER and the aligner's error on
+  synthetic conversations;
+- :mod:`.run_convergence`: the convergence ladder;
+- :mod:`.train_vad`: train the neural VAD on synthesized speech;
+- :mod:`.train_speaker_embedder`: train the compact ECAPA on synthetic
+  voices;
+- :mod:`.handler_local`: one request through the serving handler on a
+  local checkpoint.
 
-Both run on the card unless ``--device cpu`` is passed (the plain versions,
-at small shapes, for the tests).
+Each runs on the card unless ``--device cpu`` is passed (the bench tools'
+plain versions at small shapes, for the tests).
 """
 
 from __future__ import annotations
