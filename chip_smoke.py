@@ -117,7 +117,7 @@ times beside the scalar launch's.  ``torch._weight_int8pack_mm``, one call
 computing #6's function, is timed beside #6 at its head shape.
 
 The continuous engine (``ContinuousEngine``, after the realtime phase): at
-the flagship, 16 slots and chunks of 8 steps, 48 clips of 2-30 s submitted
+the flagship, 16 slots and chunks of 8 steps, 32 clips of 2-30 s submitted
 open loop (every future resolves; #1 32 and #2 28 launches a prefill
 group, #4 28 x 8 a chunk, no plain decode attention; each transcript
 against solo ``generate``, parting only where the solo run's top-2 logit
@@ -131,6 +131,21 @@ phase): ``train_vad``'s and ``train_speaker_embedder``'s trainers at their
 full widths and batches for ``TOOLS_STEPS`` steps on the card and on the
 CPU from one init (losses within ``TOOLS_LOSS_RTOL``), their files read
 back on both, and ``handler_local`` with ``--timestamps --speakers``.
+Then the conversion and CLI phase (after the engine phase): the flagship
+written in HF layout by the port's own safetensors writer (the decoder
+under Qwen3 names, the encoder under GLM's ``audio_tower.`` prefix, the
+projector and the reference ``config.json`` through
+``export_reference_artifact``), ``convert_reference_checkpoint`` back onto
+the card (every parameter bitwise), ``save_pretrained``, ``ta-torch
+transcribe`` in process on three files (the bulk path: texts equal to
+``transcribe_batch``, #1 32, #2 28, #4 28 a step, no plain attention) and
+on one with ``--srt --timestamps``, ``whisper_mode`` features against the
+CPU's and a ``generate`` on them (#1 at T = 1,500), ``doctor --json`` and
+the native runtime against numpy; each time beside the card's name and
+power limit.  ``debug``'s gradient flow (#2b and #2c 28 each, none into
+the encoder) runs after the server phase, on the seeded weights, and the
+projector phase runs ``debug``'s router health on the MoE and MOSA
+presets.
 
 The int8 products #5 and #6 (``csrc/int8_matmul.cu``, a split over K merged
 inside the launch): the registers, shared memory and spills of the 34
@@ -194,6 +209,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import wave
 from pathlib import Path
 
 import numpy as np
@@ -466,7 +482,7 @@ REALTIME_EXTRA_RATE = 8000
 EVAL_ROWS = 4
 EVAL_DIARIZATION_ROWS = 2
 # the continuous engine (PR 17): #3/#4 with per-row lengths at the engine's
-# batch; the engine at the flagship (16 slots, chunks of 8 steps), 48 clips
+# batch; the engine at the flagship (16 slots, chunks of 8 steps), 32 clips
 # of 2-30 s submitted open loop 0.1 s apart, 16-token budgets (each prefill
 # group's reference runs its own decode), then 4 clips under each int8 mode.
 # A request's tokens may part from generate on its prefill group only at a
@@ -475,7 +491,7 @@ EVAL_DIARIZATION_ROWS = 2
 ROW_BATCH = 16
 ENGINE_SLOTS = 16
 ENGINE_CHUNK = 8
-ENGINE_CLIPS = 48
+ENGINE_CLIPS = 32
 ENGINE_CLIP_S = (2.0, 30.0)
 ENGINE_GAP_S = 0.1
 ENGINE_NEW = 16
@@ -485,9 +501,18 @@ ENGINE_MODE_CLIPS = 4
 # 600 / 768 in the JAX scripts), card losses against the CPU's on the same
 # batches from one init (fp32 both; cuDNN's and the CPU's sums differ, and
 # Adam amplifies a gradient near 0)
-TOOLS_STEPS = 20
+TOOLS_STEPS = 10
 TOOLS_UTTS = 20
 TOOLS_LOSS_RTOL = 5e-3
+# the conversion and CLI phase (flagship, int8 KV): the files' clip lengths,
+# the tokens each transcript decodes (EOS masked through the exported
+# config's min_new_tokens), the whisper-mode clips and the card-vs-CPU
+# bound on their fp32 log-mel (|mel| <= ~1.5 after Whisper's scaling)
+CONVERT_CLIP_S = (5.0, 12.0, 30.0)
+CONVERT_NEW = 32
+WHISPER_CLIP_S = (1.0, 2.5, 4.0)
+WHISPER_MEL_ATOL = 1e-3
+WHISPER_NEW = 4
 
 
 def fail(msg: str) -> None:
@@ -2188,7 +2213,8 @@ def train_phases(reset_counts, read_counts) -> dict:
             fail(f"model/ read back another {name}")
     from tiny_audio_tpu_torch.processing import ASRProcessor
 
-    feats = ASRProcessor(loaded.projector, num_mel_bins=loaded.config.encoder.num_mel_bins,
+    feats = ASRProcessor(loaded.tokenizer, loaded.projector,
+                         num_mel_bins=loaded.config.encoder.num_mel_bins,
                          device=loaded.device).extract_features(
         [rows[0]["audio"]["array"], rows[1]["audio"]["array"]])
     tokens = loaded.generate(feats["input_features"], feats["audio_attention_mask"],
@@ -2220,6 +2246,7 @@ def projector_phases(audio: list, reset_counts, read_counts) -> dict:
     PROJECTOR_TRAIN_STEPS stage-1 Trainer steps (the projector moves, the
     towers stay bitwise, MoE's router loss is logged and > 0, the others'
     0).  Returns each kind's numbers."""
+    from tiny_audio_tpu_torch.debug import check_router_health
     from tiny_audio_tpu_torch.models.projectors import create_projector
     from tiny_audio_tpu_torch.processing import ASRProcessor
     from tiny_audio_tpu_torch.train.__main__ import CONFIG_DIR, build_model
@@ -2241,7 +2268,8 @@ def projector_phases(audio: list, reset_counts, read_counts) -> dict:
             fail(f"+experiments={kind} built {cfg.projector_type} / {cfg.kv_cache_dtype} "
                  f"on {model.device}")
         n_params = sum(p.numel() for p in model.projector.parameters())
-        feats = ASRProcessor(model.projector, num_mel_bins=cfg.encoder.num_mel_bins,
+        feats = ASRProcessor(model.tokenizer, model.projector,
+                             num_mel_bins=cfg.encoder.num_mel_bins,
                              device=model.device).extract_features(audio)
         mel_len = int(feats["mel_lengths"].max())
         n_audio = model._num_audio_tokens(mel_len)
@@ -2289,6 +2317,21 @@ def projector_phases(audio: list, reset_counts, read_counts) -> dict:
         if not err <= PROJECTOR_RTOL * scale:
             fail(f"{kind} projector on the card is {err} off the fp32 CPU's (scale {scale})")
         del hidden, got, reference, want_out
+        if kind in ("moe", "mosa"):  # ta debug check-moe / check-mosa on the preset
+            reset_counts()
+            t0 = time.perf_counter()
+            health = check_router_health(model)
+            torch.cuda.synchronize()
+            router_s = time.perf_counter() - t0
+            counts = read_counts()
+            usage = health["per_expert_usage"]
+            if counts != {**{name: 0 for name in counts}, "encoder_attention": n_enc} or \
+                    not abs(sum(usage) - 1.0) < 1e-3 or \
+                    not 0.0 <= health["normalized_entropy"] <= 1.0:
+                fail(f"debug router on {kind}: {health}, launches {counts}")
+            print(f"debug_router kind={kind} wall_s={router_s!r} "
+                  f"normalized_entropy={health['normalized_entropy']!r} per_expert_usage={usage} "
+                  f"collapsed={health['collapsed']} launches={json.dumps(counts)}")
         print(f"projector kind={kind} params={n_params} batch={BATCH} clip_s={CLIP_S} kv=int8 "
               f"init_s={init_s!r} audio_tokens={n_audio} new_tokens={PROJECTOR_NEW} "
               f"first_call_s={calls[0][1]!r} second_call_s={calls[1][1]!r} "
@@ -2847,7 +2890,8 @@ def small_model_reference() -> None:
     embeds = {}
     tokens = {}
     for name, model in (("cuda", cuda_model), ("cpu", cpu_model)):
-        feats = ASRProcessor(model.projector, device=model.device).extract_features(audio)
+        feats = ASRProcessor(model.tokenizer, model.projector,
+                             device=model.device).extract_features(audio)
         with torch.inference_mode():
             embeds[name] = model._encode_audio(
                 feats["input_features"], feats["audio_attention_mask"]
@@ -2892,7 +2936,8 @@ def tiny_towers_phase(reset_counts, read_counts) -> dict:
             store = first_calls.setdefault((model_dtype, kv), {})
             embeds, tokens, counts = {}, {}, {}
             for where, model in models.items():
-                feats = ASRProcessor(model.projector, num_mel_bins=cfg.encoder.num_mel_bins,
+                feats = ASRProcessor(model.tokenizer, model.projector,
+                                     num_mel_bins=cfg.encoder.num_mel_bins,
                                      device=model.device).extract_features(audio)
                 args = (feats["input_features"], feats["audio_attention_mask"])
                 with torch.inference_mode():
@@ -3461,7 +3506,8 @@ def tiny_decoding_modes_phase(reset_counts, read_counts) -> None:
         models["cpu"].load_state_dict(models["cuda"].state_dict())
         tokens, counts = {}, {}
         for where, model in models.items():
-            feats = ASRProcessor(model.projector, num_mel_bins=cfg.encoder.num_mel_bins,
+            feats = ASRProcessor(model.tokenizer, model.projector,
+                                 num_mel_bins=cfg.encoder.num_mel_bins,
                                  device=model.device).extract_features(audio)
             for mode, kwargs in modes.items():
                 kwargs = dict(kwargs)
@@ -4332,6 +4378,254 @@ def tiny_engine_phase(reset_counts, read_counts) -> None:
     torch.cuda.empty_cache()
 
 
+def native_checks() -> dict:
+    """Each function of the native C++ runtime against the numpy code it
+    stands in for, on the host (max abs errors)."""
+    from tiny_audio_tpu_torch import native
+    from tiny_audio_tpu_torch.train.augmentation import _mix_at_snr
+
+    if not native.available():
+        fail("native: the C++ audio runtime did not build or load")
+    rng = np.random.default_rng(SEED)
+    errs = {}
+    audio = rng.uniform(-0.5, 0.5, 16000).astype(np.float32)
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((audio * 32767).astype(np.int16).tobytes())
+    decoded, rate = native.wav_decode(buf.getvalue())
+    with wave.open(io.BytesIO(buf.getvalue()), "rb") as w:
+        want = np.frombuffer(w.readframes(w.getnframes()), np.int16) / np.float32(32768.0)
+    errs["wav_decode"] = float(np.abs(decoded - want).max()) if rate == 16000 else float("inf")
+    t = np.arange(16000) / 16000
+    sine = np.sin(2 * np.pi * 440 * t).astype(np.float32)
+    down = native.resample(sine, 16000, 8000)
+    expected = np.sin(2 * np.pi * 440 * np.arange(len(down)) / 8000)
+    errs["resample_rms"] = float(np.sqrt(np.mean((down[100:-100] - expected[100:-100]) ** 2)))
+    a, k = rng.standard_normal(4000).astype(np.float32), rng.standard_normal(64).astype(np.float32)
+    errs["fft_convolve"] = float(np.abs(native.fft_convolve(a, k) - np.convolve(
+        a.astype(np.float64), k.astype(np.float64))[:len(a)]).max())
+    noise = rng.standard_normal(500).astype(np.float32)
+    errs["mix_at_snr"] = float(np.abs(native.mix_at_snr(a, noise, 12.0)
+                                      - _mix_at_snr(a, noise, 12.0)).max())
+    frames = a[:15 * 256].reshape(15, 256)
+    energy, flat = native.vad_features(a[:15 * 256], 256)
+    power = (np.abs(np.fft.rfft(frames * np.hanning(256), axis=1)) + 1e-10) ** 2
+    errs["vad_energy_db"] = float(np.abs(energy - 10 * np.log10(
+        np.mean(frames ** 2, axis=1) + 1e-10)).max())
+    errs["vad_flatness"] = float(np.abs(flat - np.exp(np.mean(np.log(power), axis=1))
+                                        / np.mean(power, axis=1)).max())
+    bounds = {"wav_decode": 1e-6, "resample_rms": 0.02, "fft_convolve": 1e-3,
+              "mix_at_snr": 1e-4, "vad_energy_db": 1e-3, "vad_flatness": 1e-3}
+    for name, bound in bounds.items():
+        if not errs[name] <= bound:
+            fail(f"native {name} is {errs[name]} off numpy (bound {bound})")
+    return errs
+
+
+def debug_gradient_phase(model, reset_counts, read_counts, power_line: str) -> None:
+    """``debug``'s gradient flow at the flagship on its seeded weights: ok,
+    #2b and #2c 28 times each, #1 forward only, no gradient into the
+    encoder or the frozen decoder.  It runs before the timestamps phase
+    zeroes the tied head's rows past the bytes: a token whose embedding is
+    exactly zero (the prompt's first, a special) keeps a zero residual
+    stream through all 28 layers, each RMSNorm's backward at a zero input
+    scales its gradient by 1/sqrt(eps) = 1,000, and after ~13 layers the
+    gradient overflows fp32 (the plain backward as much as the kernels; a
+    masked P of 0 times an infinite dO then spreads NaN over the tile)."""
+    from tiny_audio_tpu_torch.debug import check_gradient_flow
+
+    n_enc, n_dec = model.config.encoder.num_layers, model.config.decoder.num_layers
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = check_gradient_flow(model)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {**{name: 0 for name in counts}, "encoder_attention": n_enc,
+            "prefill_attention": n_dec, "prefill_attention_bwd_dkv": n_dec,
+            "prefill_attention_bwd_dq": n_dec}
+    norms = report["module_grad_norms"]
+    if not report["ok"] or counts != want or norms["encoder"] != 0.0 or \
+            norms["decoder"] != 0.0 or not norms["projector"] > 0:
+        fail(f"debug gradient: {report}, launches {counts} (expected {want})")
+    print(f"debug_gradient ok=true module_grad_norms={json.dumps(norms)} wall_s={wall!r} "
+          f"launches={json.dumps(counts)} gpu={power_line!r}")
+
+
+def convert_cli_phase(model, reset_counts, read_counts, power_line: str) -> dict:
+    """The flagship (seed 0, int8 KV) written out in HF layout by the port's
+    own writer (the decoder under Qwen3 names, the encoder under the GLM
+    ``audio_tower.`` prefix with Whisper block names, each with a
+    ``config.json``; the projector and the reference ``config.json``
+    through ``export_reference_artifact``, which carries ``kv_cache_dtype``
+    and the decode budget as a user's config would), converted back on the
+    card (every parameter bitwise the original's), saved, and transcribed
+    through ``cli.main`` in process: three files on the bulk path (texts
+    equal to the original model's ``transcribe_batch``; #1 32, #2 28, #4 28
+    a step, no plain attention), one with ``--srt --timestamps``.  Then
+    ``whisper_mode`` features (3,000 frames, the card's fp32 log-mel within
+    WHISPER_MEL_ATOL of the CPU's, each clip's real length in the mask) and
+    a ``generate`` on them (#1 32 times at T = 1,500); ``doctor --json``
+    (sm_90, nvcc, the kernels built) and the native runtime against numpy.
+    Returns the phase's numbers."""
+    from tiny_audio_tpu_torch import cli, convert, export
+    from tiny_audio_tpu_torch.bridge import state_dict_to_jax
+    from tiny_audio_tpu_torch.ops import attention as attention_dispatch
+    from tiny_audio_tpu_torch.pipeline import ASRPipeline
+    from tiny_audio_tpu_torch.processing import ASRProcessor
+    from tiny_audio_tpu_torch.utils import safetensors_io
+    from tiny_audio_tpu_torch.utils.audio_io import write_wav
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    n_enc, n_dec = cfg.encoder.num_layers, cfg.decoder.num_layers
+    root = Path(tempfile.mkdtemp())
+    out = {}
+
+    # ---- the flagship in HF layout, and back ----
+    t0 = time.perf_counter()
+    tree = state_dict_to_jax(model)
+    audio_cfg, text_cfg = export.tower_config_dicts(cfg)
+    for sub, sd, tower_cfg in (
+            ("encoder", export.export_encoder_state(tree["encoder"], cfg.encoder, "audio_tower."),
+             {"audio_config": audio_cfg}),
+            ("decoder", export.export_decoder_state(tree["decoder"], cfg.decoder), text_cfg)):
+        (root / sub).mkdir()
+        safetensors_io.save_file(sd, root / sub / "model.safetensors")
+        (root / sub / "config.json").write_text(json.dumps(tower_cfg))
+        del sd
+    del tree
+    export.export_reference_artifact(model, root / "reference")
+    ref_json = root / "reference" / "config.json"
+    ref_json.write_text(json.dumps({**json.loads(ref_json.read_text()), "kv_cache_dtype": "int8",
+                                    "max_new_tokens": CONVERT_NEW,
+                                    "min_new_tokens": CONVERT_NEW}))
+    out["export_s"] = time.perf_counter() - t0
+    out["hf_bytes"] = sum(f.stat().st_size for f in root.rglob("*.safetensors"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    converted = convert.convert_reference_checkpoint(
+        root / "reference", encoder_path=root / "encoder", decoder_path=root / "decoder")
+    torch.cuda.synchronize()
+    out["convert_s"] = time.perf_counter() - t0
+    want_cfg = dataclasses.replace(cfg, max_new_tokens=CONVERT_NEW, min_new_tokens=CONVERT_NEW)
+    if converted.device.type != "cuda" or converted.config.to_dict() != want_cfg.to_dict():
+        fail(f"the converted model's config on {converted.device}: "
+             f"{converted.config.to_dict()} vs {want_cfg.to_dict()}")
+    n_params = 0
+    for (name, a), (other, b) in zip(model.named_parameters(), converted.named_parameters()):
+        if name != other or a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"converted parameter {other} ({b.dtype}) is not the original {name} "
+                 f"({a.dtype}) bitwise")
+        n_params += a.numel()
+    t0 = time.perf_counter()
+    converted.save_pretrained(root / "out")
+    out["save_s"] = time.perf_counter() - t0
+    del converted
+    for sub in ("encoder", "decoder"):
+        shutil.rmtree(root / sub)
+    torch.cuda.empty_cache()
+    print(f"convert_cli round_trip params={n_params} bitwise=true hf_bytes={out['hf_bytes']} "
+          f"export_s={out['export_s']!r} convert_s={out['convert_s']!r} "
+          f"save_s={out['save_s']!r} gpu={power_line!r}")
+
+    # ---- ta transcribe on the converted checkpoint ----
+    rng = np.random.default_rng(SEED + 18)
+    paths = []
+    for name, seconds in zip("abc", CONVERT_CLIP_S):
+        paths.append(str(root / f"{name}.wav"))
+        write_wav(paths[-1], rng.standard_normal(int(seconds * 16000)).astype(np.float32) * 0.1)
+    want_texts = ASRPipeline(model).transcribe_batch(paths, max_new_tokens=CONVERT_NEW,
+                                                     min_new_tokens=CONVERT_NEW)
+    want = {**{name: 0 for name in read_counts()}, "encoder_attention": n_enc,
+            "prefill_attention": n_dec, "decode_attention_update": n_dec * (CONVERT_NEW - 1)}
+    for label, argv in (("bulk", [*paths, "--json"]), ("srt", [paths[0], "--srt", "--timestamps"])):
+        buf = io.StringIO()
+        reset_counts()
+        with plain_decode_calls() as plain, contextlib.redirect_stdout(buf):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(["transcribe", "-m", str(root / "out"), *argv])
+            torch.cuda.synchronize()
+        out[f"{label}_s"] = time.perf_counter() - t0
+        counts = read_counts()
+        if rc != 0 or counts != want or plain["n"]:
+            fail(f"ta transcribe ({label}) rc {rc}, launches {counts} (expected {want}), "
+                 f"{plain['n']} plain decode steps")
+        out[f"{label}_launches"] = counts
+        if label == "bulk":
+            records = [json.loads(line) for line in buf.getvalue().splitlines()]
+            if [r["file"] for r in records] != paths or \
+                    [r["text"] for r in records] != want_texts:
+                fail(f"ta transcribe printed {records}, transcribe_batch gave {want_texts}")
+        else:
+            srt = buf.getvalue()
+            out["srt_cues"] = srt.count(" --> ")
+            if srt.strip() and not srt.startswith("1\n"):
+                fail(f"ta transcribe --srt printed {srt[:200]!r}")
+    print(f"convert_cli transcribe files={len(paths)} seconds={list(CONVERT_CLIP_S)} "
+          f"new_tokens={CONVERT_NEW} wall_s={out['bulk_s']!r} "
+          f"launches={json.dumps(out['bulk_launches'])} texts_equal_transcribe_batch=true "
+          f"srt_wall_s={out['srt_s']!r} srt_cues={out['srt_cues']} "
+          f"srt_launches={json.dumps(out['srt_launches'])} plain_decode_steps=0 "
+          f"gpu={power_line!r}")
+
+    # ---- whisper_mode: 3,000 frames whatever the clip ----
+    clips = [rng.standard_normal(int(s * 16000)).astype(np.float32) * 0.1 for s in WHISPER_CLIP_S]
+    kwargs = dict(num_mel_bins=cfg.encoder.num_mel_bins, whisper_mode=True)
+    feats = ASRProcessor(model.tokenizer, model.projector, **kwargs).extract_features(clips)
+    ref = ASRProcessor(model.tokenizer, **kwargs, device="cpu").extract_features(clips)
+    err = float((feats["input_features"].cpu() - ref["input_features"]).abs().max())
+    frames = feats["audio_attention_mask"].sum(-1).tolist()
+    real = [int(np.ceil(len(c) / 160)) for c in clips]
+    if tuple(feats["input_features"].shape) != (len(clips), cfg.encoder.num_mel_bins, 3000) \
+            or not err <= WHISPER_MEL_ATOL or frames != real or \
+            not torch.equal(feats["audio_attention_mask"].cpu(), ref["audio_attention_mask"]):
+        fail(f"whisper_mode features {tuple(feats['input_features'].shape)}, error {err}, "
+             f"mask frames {frames} (real {real})")
+    first: dict = {}
+    reset_counts()
+    with record_first_call(attention_dispatch, "encoder_attention", first):
+        tokens = model.generate(feats["input_features"], feats["audio_attention_mask"],
+                                min_new_tokens=WHISPER_NEW, max_new_tokens=WHISPER_NEW)
+    counts = read_counts()
+    enc_t = int(first["encoder_attention"][0][0].shape[1])
+    if counts["encoder_attention"] != n_enc or enc_t != 1500 or \
+            tokens.shape != (len(clips), WHISPER_NEW):
+        fail(f"whisper_mode generate: #1 {counts['encoder_attention']} launches at T = {enc_t}, "
+             f"tokens {tokens.shape}")
+    print(f"convert_cli whisper_mode clips_s={list(WHISPER_CLIP_S)} frames=3000 "
+          f"max_abs_err_vs_cpu={err!r} tolerance={WHISPER_MEL_ATOL} mask_frames={frames} "
+          f"encoder_attention_T={enc_t} launches={json.dumps(counts)}")
+    del first, feats
+
+    # ---- doctor and the native runtime ----
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["doctor", "--json", "--timeout", "120"])
+    doctor_s = time.perf_counter() - t0
+    report = json.loads(buf.getvalue())
+    dev = report["device"]
+    if rc != 0 or report["status"] != "healthy" or not dev.get("sm90") or \
+            not report["nvcc"]["found"] or not report["kernels"]["loads"] or \
+            not report["native_audio"]["available"]:
+        fail(f"doctor (rc {rc}): {report}")
+    errs = native_checks()
+    shutil.rmtree(root)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"convert_cli doctor status=healthy device={dev['device_name']!r} "
+          f"capability={dev['capability']} power={dev['power']!r} "
+          f"nvcc={report['nvcc']['release']!r} kernels={report['kernels']['dir']!r} "
+          f"wall_s={doctor_s!r}; native available=true max_abs_err_vs_numpy={json.dumps(errs)}")
+    print(f"convert_cli phase_s={out['phase_s']!r} gpu={power_line!r}")
+    return out
+
+
 def tools_phase() -> None:
     """The offline tools on the card: ``train_vad``'s trainer at its full
     width and batch, ``train_speaker_embedder``'s at its CHANNELS and batch,
@@ -4781,6 +5075,10 @@ def main() -> None:
           f"{served}")
     phase_done()
 
+    # ---- 9a. debug's gradient flow, on the seeded weights ----
+    debug_gradient_phase(model, reset_counts, read_counts, power_line)
+    phase_done()
+
     # ---- 9b. the VAD, the aligner and diarization; the pipeline with them ----
     aligner_dir = Path(tempfile.mkdtemp())
     aux_towers_phase(aligner_dir)
@@ -4798,6 +5096,8 @@ def main() -> None:
     engine = engine_phase(model, pipe, no_int8, reset_counts, read_counts)
     phase_done()
     engine_s = time.perf_counter() - t0
+    convert_cli_phase(model, reset_counts, read_counts, power_line)
+    phase_done()
     del model, pipe
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

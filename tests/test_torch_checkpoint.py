@@ -77,7 +77,8 @@ def test_jax_checkpoint_gives_jax_tokens(tmp_path):
     rng = np.random.default_rng(0)
     audio = [rng.standard_normal(n).astype(np.float32) * 0.1 for n in (16000, 9000)]
     jf = JaxASRProcessor(jm.tokenizer, jm.projector, num_mel_bins=80).extract_features(audio)
-    tf = ASRProcessor(tm.projector, num_mel_bins=80, device="cpu").extract_features(audio)
+    tproc = ASRProcessor(tm.tokenizer, tm.projector, num_mel_bins=80, device="cpu")
+    tf = tproc.extract_features(audio)
     want = jm.generate(jf["input_features"], jf["audio_attention_mask"], min_new_tokens=6)
     got = tm.generate(tf["input_features"], tf["audio_attention_mask"], min_new_tokens=6)
     np.testing.assert_array_equal(got, want)

@@ -72,7 +72,8 @@ def _pair(kvd: str, mode=None):
         getattr(tm, mode)()
     jproc = JaxASRProcessor(jm.tokenizer, projector=jm.projector,
                             num_mel_bins=cfg.encoder.num_mel_bins, mel_buckets=(100,))
-    tproc = ASRProcessor(projector=tm.projector, num_mel_bins=cfg.encoder.num_mel_bins,
+    tproc = ASRProcessor(tm.tokenizer, projector=tm.projector,
+                         num_mel_bins=cfg.encoder.num_mel_bins,
                          encoder_conv_layers=cfg.encoder_conv_layers, mel_buckets=(100,),
                          device="cpu")
     return JaxASRPipeline(jm, jproc), ASRPipeline(tm, tproc)

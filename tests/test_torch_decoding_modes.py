@@ -55,7 +55,8 @@ def _features(jm, tm, seconds=(1.0, 0.55, 0.3), seed=0):
     rng = np.random.default_rng(seed)
     audio = [rng.standard_normal(int(s * 16000)).astype(np.float32) * 0.1 for s in seconds]
     jf = JaxASRProcessor(jm.tokenizer, jm.projector, num_mel_bins=80).extract_features(audio)
-    tf = ASRProcessor(tm.projector, num_mel_bins=80, device="cpu").extract_features(audio)
+    tproc = ASRProcessor(tm.tokenizer, tm.projector, num_mel_bins=80, device="cpu")
+    tf = tproc.extract_features(audio)
     return ((jf["input_features"], jf["audio_attention_mask"]),
             (tf["input_features"], tf["audio_attention_mask"]))
 
@@ -110,7 +111,8 @@ def test_streaming_same_fragments(pair, overrides):
     jm, tm = pair
     clip = np.random.default_rng(3).standard_normal(12000).astype(np.float32) * 0.1
     jf = JaxASRProcessor(jm.tokenizer, jm.projector, num_mel_bins=80).extract_features([clip])
-    tf = ASRProcessor(tm.projector, num_mel_bins=80, device="cpu").extract_features([clip])
+    tproc = ASRProcessor(tm.tokenizer, tm.projector, num_mel_bins=80, device="cpu")
+    tf = tproc.extract_features([clip])
     j_gen, t_gen = jm.gen_config, tm.gen_config
     jm.gen_config = dataclasses.replace(j_gen, **overrides)
     tm.gen_config = dataclasses.replace(t_gen, **overrides)

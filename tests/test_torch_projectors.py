@@ -280,7 +280,8 @@ def test_generate_token_exact(kind, kv_cache_dtype):
     jm, tm = _pair(kind, kv_cache_dtype=kv_cache_dtype)
     audio = _audio((1.0, 0.55, 0.3))
     jf = JaxASRProcessor(jm.tokenizer, jm.projector, num_mel_bins=80).extract_features(audio)
-    tf = ASRProcessor(tm.projector, num_mel_bins=80, device="cpu").extract_features(audio)
+    tproc = ASRProcessor(tm.tokenizer, tm.projector, num_mel_bins=80, device="cpu")
+    tf = tproc.extract_features(audio)
     want = jm.generate(jf["input_features"], jf["audio_attention_mask"], min_new_tokens=8)
     for fused in (True, False):
         got = tm.generate(tf["input_features"], tf["audio_attention_mask"], min_new_tokens=8,

@@ -160,7 +160,8 @@ def _features(jm, tm, seconds=(1.0, 0.55, 0.3), seed=0):
     rng = np.random.default_rng(seed)
     audio = [rng.standard_normal(int(s * 16000)).astype(np.float32) * 0.1 for s in seconds]
     jf = JaxASRProcessor(jm.tokenizer, jm.projector, num_mel_bins=80).extract_features(audio)
-    tf = ASRProcessor(tm.projector, num_mel_bins=80, device="cpu").extract_features(audio)
+    tproc = ASRProcessor(tm.tokenizer, tm.projector, num_mel_bins=80, device="cpu")
+    tf = tproc.extract_features(audio)
     return jf, tf
 
 

@@ -65,7 +65,8 @@ def test_generate_token_exact(pair, overrides):
     jm, tm = pair
     audio = _audio((1.0, 0.55, 0.3))  # mixed lengths in one batch
     jf = JaxASRProcessor(jm.tokenizer, jm.projector, num_mel_bins=80).extract_features(audio)
-    tf = ASRProcessor(tm.projector, num_mel_bins=80, device="cpu").extract_features(audio)
+    tproc = ASRProcessor(tm.tokenizer, tm.projector, num_mel_bins=80, device="cpu")
+    tf = tproc.extract_features(audio)
     np.testing.assert_array_equal(tf["audio_attention_mask"].numpy(),
                                   np.asarray(jf["audio_attention_mask"]))
     want = jm.generate(jf["input_features"], jf["audio_attention_mask"], **overrides)
@@ -87,7 +88,8 @@ def test_generate_token_exact_both_decode_paths(pair, fused):
     jm, tm = pair
     audio = _audio((1.0, 0.55, 0.3))
     jf = JaxASRProcessor(jm.tokenizer, jm.projector, num_mel_bins=80).extract_features(audio)
-    tf = ASRProcessor(tm.projector, num_mel_bins=80, device="cpu").extract_features(audio)
+    tproc = ASRProcessor(tm.tokenizer, tm.projector, num_mel_bins=80, device="cpu")
+    tf = tproc.extract_features(audio)
     want = jm.generate(jf["input_features"], jf["audio_attention_mask"], min_new_tokens=8)
     got = tm.generate(tf["input_features"], tf["audio_attention_mask"], min_new_tokens=8,
                       fused_decode=fused)
@@ -96,7 +98,8 @@ def test_generate_token_exact_both_decode_paths(pair, fused):
 
 def _stream_both(jm, tm, audio):
     jf = JaxASRProcessor(jm.tokenizer, jm.projector, num_mel_bins=80).extract_features([audio])
-    tf = ASRProcessor(tm.projector, num_mel_bins=80, device="cpu").extract_features([audio])
+    tproc = ASRProcessor(tm.tokenizer, tm.projector, num_mel_bins=80, device="cpu")
+    tf = tproc.extract_features([audio])
     want = list(jm.generate_streaming(jf["input_features"], jf["audio_attention_mask"]))
     got = list(tm.generate_streaming(tf["input_features"], tf["audio_attention_mask"]))
     return tf["input_features"].shape[-1], want, got
@@ -184,14 +187,26 @@ def test_entry_points_default_to_cuda():
     """Without a device the model and processor target the card; on a
     machine without one they raise instead of running on the CPU."""
     from tiny_audio_tpu_torch.config import tiny_test_config as port_tiny
+    from tiny_audio_tpu_torch.tokenization import ByteTokenizer
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default would build there")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ASRModel(port_tiny())
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        ASRProcessor()
-    assert ASRProcessor(device="cpu").device.type == "cpu"
+        ASRProcessor(ByteTokenizer())
+    assert ASRProcessor(ByteTokenizer(), device="cpu").device.type == "cpu"
+
+
+def test_processor_signature_is_the_jax_packages():
+    """The JAX package's parameters in its order, ``device`` last: a JAX
+    caller's positional tokenizer no longer lands in ``projector``."""
+    import inspect
+
+    ours = list(inspect.signature(ASRProcessor).parameters.values())
+    theirs = list(inspect.signature(JaxASRProcessor).parameters.values())
+    assert [(p.name, p.default) for p in ours[:-1]] == [(p.name, p.default) for p in theirs]
+    assert ours[-1].name == "device" and ours[-1].default == "cuda"
 
 
 def test_pipeline_same_texts(pair):
@@ -233,7 +248,8 @@ import functools, importlib, pkgutil, sys
 class BlockJax:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "tiny_audio_tpu",
-                                  "transformers", "websockets", "websocket"):
+                                  "transformers", "websockets", "websocket", "safetensors",
+                                  "huggingface_hub"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -352,7 +368,7 @@ from tiny_audio_tpu_torch.processing import ASRProcessor
 
 for kind in ("mosa", "moe", "qformer"):
     model = ASRModel(tiny_test_config(projector_type=kind), seed=0, device="cpu")
-    feats = ASRProcessor(model.projector, num_mel_bins=80, device="cpu").extract_features(
+    feats = ASRProcessor(model.tokenizer, model.projector, num_mel_bins=80, device="cpu").extract_features(
         [np.zeros(8000, np.float32)])
     tokens = model.generate(feats["input_features"], feats["audio_attention_mask"],
                             max_new_tokens=2)
@@ -429,9 +445,50 @@ with contextlib.redirect_stdout(io.StringIO()):
 assert vad.NeuralVAD.from_file(tools_dir + "/vad.msgpack", "cpu")(clip).shape
 assert diarization.EcapaEmbedder.from_synthetic(tools_dir + "/ecapa.msgpack", "cpu").trained
 
+# HF-layout towers written and converted back, the CLI over the result, the
+# host tools: with safetensors, transformers and huggingface_hub blocked too
+from pathlib import Path
+from tiny_audio_tpu_torch import (analysis, cli, convert, debug, devtools, doctor, export, hub,
+                                  native)
+from tiny_audio_tpu_torch.bridge import state_dict_to_jax
+from tiny_audio_tpu_torch.utils import safetensors_io, subtitles
+from tiny_audio_tpu_torch.utils.audio_io import write_wav
+
+model = pipe.model
+tree = state_dict_to_jax(model)
+root = Path(tempfile.mkdtemp())
+audio_cfg, text_cfg = export.tower_config_dicts(model.config)
+for sub, sd, tower_cfg in (
+        ("enc", export.export_encoder_state(tree["encoder"], model.config.encoder,
+                                            "audio_tower."), {"audio_config": audio_cfg}),
+        ("dec", export.export_decoder_state(tree["decoder"], model.config.decoder), text_cfg)):
+    (root / sub).mkdir()
+    safetensors_io.save_file(sd, root / sub / "model.safetensors")
+    (root / sub / "config.json").write_text(json.dumps(tower_cfg))
+export.export_reference_artifact(model, root / "ref")
+config = json.loads((root / "ref" / "config.json").read_text())
+(root / "ref" / "config.json").write_text(json.dumps({**config, "kv_cache_dtype": "int8"}))
+converted = convert.convert_reference_checkpoint(root / "ref", encoder_path=root / "enc",
+                                                 decoder_path=root / "dec",
+                                                 output_dir=root / "out", device="cpu")
+for (name, a), (_, b) in zip(model.named_parameters(), converted.named_parameters()):
+    assert a.dtype == b.dtype and torch.equal(a, b), name
+write_wav(root / "a.wav", np.zeros(8000, np.float32))
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    assert cli.main(["transcribe", "-m", str(root / "out"), str(root / "a.wav"),
+                     str(root / "a.wav"), "--json", "--device", "cpu"]) == 0
+    assert cli.main(["transcribe", "-m", str(root / "out"), str(root / "a.wav"), "--srt",
+                     "--device", "cpu"]) == 0
+    assert cli.main(["debug", "check-gradient-flow", "-m", str(root / "out"),
+                     "--device", "cpu"]) == 0
+assert len([l for l in out.getvalue().splitlines() if l.startswith("{")]) == 2
+assert subtitles.to_srt([{"word": "a", "start": 0.0, "end": 0.5}]).startswith("1\n")
+assert hub.stage_artifact(root / "out") and not devtools.security_scan([root / "out"])
+
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "tiny_audio_tpu",
-                                       "transformers", "websockets", "websocket"))
+                                       "transformers", "websockets", "websocket",
+                                       "safetensors", "huggingface_hub"))
 assert not loaded, loaded
 print("OK", len(names))
 """

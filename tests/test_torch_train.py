@@ -198,7 +198,8 @@ def test_lora_generate_token_exact(stage2_pair):
     jm, tm = stage2_pair
     audio = [np.random.default_rng(5).standard_normal(8000).astype(np.float32) * 0.1]
     jf = JaxASRProcessor(jm.tokenizer, jm.projector, num_mel_bins=80).extract_features(audio)
-    tf = ASRProcessor(tm.projector, num_mel_bins=80, device="cpu").extract_features(audio)
+    tproc = ASRProcessor(tm.tokenizer, tm.projector, num_mel_bins=80, device="cpu")
+    tf = tproc.extract_features(audio)
     want = jm.generate(jf["input_features"], jf["audio_attention_mask"], max_new_tokens=8,
                        min_new_tokens=8)
     got = tm.generate(tf["input_features"], tf["audio_attention_mask"], max_new_tokens=8,
@@ -379,32 +380,36 @@ def test_collator_matches_jax(multitask):
 
 def test_augmentation_bit_equal(monkeypatch):
     """RIR, the noise chain and silence injection give the same float32
-    bytes for the same seed and sample key (the JAX package's optional C++
-    FFT is switched off: the port has only the numpy one, which is also the
-    JAX package's fallback)."""
+    bytes for the same seed and sample key, with both packages' C++ FFT
+    convolution (``native``, the default where it builds) and with both on
+    their numpy fallback."""
     from tiny_audio_tpu import native
     from tiny_audio_tpu.train import augmentation as jaug
+    from tiny_audio_tpu_torch import native as port_native
     from tiny_audio_tpu_torch.train import augmentation as paug
 
-    monkeypatch.setattr(native, "fft_convolve", lambda a, k: None)
     rows = _rows(4, seed=9)
-    outs = []
-    for mod in (jaug, paug):
-        pipe = mod.AugmentationPipeline(
-            rir=mod.RIRAugmentation(p=0.9, seed=1),
-            noise=mod.NoiseAugmentation(p_eq=0.9, p_clip=0.9, p_filter=0.9, seed=2),
-            silence_injection_prob=0.3, seed=4)
-        got = []
-        for j, row in enumerate(rows):
-            mod.set_sample_key((0, j))
-            try:
-                got.append(pipe(row))
-            finally:
-                mod.set_sample_key(None)
-        outs.append(got)
-    for w, g in zip(*outs):
-        assert w["text"] == g["text"] and w.get("silence") == g.get("silence")
-        assert w["audio"]["array"].tobytes() == g["audio"]["array"].tobytes()
+    for fallback in (False, True):
+        if fallback:
+            monkeypatch.setattr(native, "fft_convolve", lambda a, k: None)
+            monkeypatch.setattr(port_native, "fft_convolve", lambda a, k: None)
+        outs = []
+        for mod in (jaug, paug):
+            pipe = mod.AugmentationPipeline(
+                rir=mod.RIRAugmentation(p=0.9, seed=1),
+                noise=mod.NoiseAugmentation(p_eq=0.9, p_clip=0.9, p_filter=0.9, seed=2),
+                silence_injection_prob=0.3, seed=4)
+            got = []
+            for j, row in enumerate(rows):
+                mod.set_sample_key((0, j))
+                try:
+                    got.append(pipe(row))
+                finally:
+                    mod.set_sample_key(None)
+            outs.append(got)
+        for w, g in zip(*outs):
+            assert w["text"] == g["text"] and w.get("silence") == g.get("silence")
+            assert w["audio"]["array"].tobytes() == g["audio"]["array"].tobytes()
 
 
 @pytest.mark.parametrize("argv", [[], ["+experiments=smoke"],
@@ -552,3 +557,21 @@ def _paths(tree, prefix=()):
             yield from _paths(value, prefix + (key,))
         else:
             yield prefix + (key,), value
+
+
+def test_collator_signature_is_the_jax_packages():
+    """The JAX package's parameters in its order (``whisper_mode`` seventh),
+    ``device`` last; ``whisper_mode`` reaches the processor."""
+    import inspect
+
+    from tiny_audio_tpu.train.collator import DataCollator as JaxDataCollator
+    from tiny_audio_tpu_torch.tokenization import ByteTokenizer
+    from tiny_audio_tpu_torch.train.collator import DataCollator
+
+    ours = list(inspect.signature(DataCollator).parameters.values())
+    theirs = list(inspect.signature(JaxDataCollator).parameters.values())
+    assert [(p.name, p.default) for p in ours[:-1]] == [(p.name, p.default) for p in theirs]
+    assert ours[-1].name == "device" and ours[-1].default == "cuda"
+    col = DataCollator(ByteTokenizer(), None, 80, 16000, None, None, True, device="cpu")
+    assert col.processor.whisper_mode and col.max_length == 2048
+    assert col.processor.sampling_rate == 16000

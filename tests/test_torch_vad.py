@@ -111,8 +111,10 @@ def test_frame_vad_auto_matches_jax(sample_rate):
 @pytest.mark.parametrize("seed", [0, 5])
 def test_heuristic_frame_vad_matches_jax_numpy_path(monkeypatch, seed):
     from tiny_audio_tpu import native
+    from tiny_audio_tpu_torch import native as port_native
 
     monkeypatch.setattr(native, "vad_features", lambda audio, hop: None)
+    monkeypatch.setattr(port_native, "vad_features", lambda audio, hop: None)
     audio = _clip(700, seed=seed)
     audio[: 50 * vad.HOP] *= 0.01  # a quiet lead-in
     want = jax_diarization.frame_vad(audio)

@@ -23,9 +23,16 @@ unless told otherwise, on a port parameter left unset.
 
 :func:`state_dict_to_jax` is the inverse: the port's parameters as the JAX
 params tree, for writing a checkpoint the JAX package loads.
+
+The HF converters (``convert_hf_*`` beside the port's modules,
+:mod:`tiny_audio_tpu_torch.convert`) build that same tree from an HF state
+dict with :func:`host_array` and :func:`cast_leaf`, so one table here maps
+every name.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -47,6 +54,21 @@ def _as_tensor(leaf) -> torch.Tensor:
     if value.dtype.name == "bfloat16":  # ml_dtypes' bfloat16 has torch's bits
         return torch.from_numpy(value.view(np.uint16).copy()).view(torch.bfloat16)
     return torch.from_numpy(np.array(value))  # a copy: JAX hands out read-only arrays
+
+
+def host_array(w) -> np.ndarray:
+    """A state-dict value as numpy on the host: a torch tensor of any dtype
+    through float32, a numpy array as it is (the JAX package's converters
+    read values so, and the casts below then round them the same way)."""
+    if isinstance(w, torch.Tensor):
+        return w.detach().cpu().float().numpy()
+    return np.asarray(w)
+
+
+def cast_leaf(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A converted leaf as a contiguous CPU tensor of ``dtype``, rounded to
+    nearest even as ``jnp.asarray(a, dtype)`` rounds it."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
 
 
 def _to_torch_layout(leaf_name: str, value: torch.Tensor) -> tuple[str, torch.Tensor]:
@@ -104,6 +126,26 @@ def _set(tree: dict, path: tuple, value) -> None:
     tree[path[-1]] = value
 
 
+def jax_leaf(modules: dict, name: str) -> tuple[tuple, Optional[int], Optional[str]]:
+    """Where the port parameter ``name`` sits in the JAX params tree:
+    (path, layer index of a scanned stack or None, ``"dense"`` / ``"conv"``
+    when the value is transposed into a kernel, else None).  ``modules``
+    is ``dict(model.named_modules())``."""
+    *module_path, leaf = name.split(".")
+    module = modules[".".join(module_path)]
+    layout = None
+    if leaf == "weight" and isinstance(module, nn.Linear):
+        leaf, layout = "kernel", "dense"
+    elif leaf == "weight" and isinstance(module, nn.Conv1d):
+        leaf, layout = "kernel", "conv"
+    elif leaf == "weight" and isinstance(module, nn.Embedding):
+        leaf = "embedding"
+    if len(module_path) > 2 and module_path[1] == "layers":
+        tower, _, index, *rest = module_path
+        return (tower, "layers", *rest, leaf), int(index), layout
+    return (*module_path, leaf), None, layout
+
+
 @torch.no_grad()
 def state_dict_to_jax(model: nn.Module) -> dict:
     """The JAX params tree of a port ``ASRModel``: CPU tensors in the
@@ -113,20 +155,16 @@ def state_dict_to_jax(model: nn.Module) -> dict:
     tree: dict = {}
     stacks: dict = {}  # JAX path -> {layer index: tensor}
     for name, param in model.named_parameters():
-        *module_path, leaf = name.split(".")
-        module = modules[".".join(module_path)]
+        path, index, layout = jax_leaf(modules, name)
         value = param.detach().cpu()
-        if leaf == "weight" and isinstance(module, nn.Linear):
-            leaf, value = "kernel", value.T
-        elif leaf == "weight" and isinstance(module, nn.Conv1d):
-            leaf, value = "kernel", value.permute(2, 1, 0)
-        elif leaf == "weight" and isinstance(module, nn.Embedding):
-            leaf = "embedding"
-        if len(module_path) > 2 and module_path[1] == "layers":
-            tower, _, index, *rest = module_path
-            stacks.setdefault((tower, "layers", *rest, leaf), {})[int(index)] = value
+        if layout == "dense":
+            value = value.T
+        elif layout == "conv":
+            value = value.permute(2, 1, 0)
+        if index is None:
+            _set(tree, path, value.contiguous())
         else:
-            _set(tree, (*module_path, leaf), value.contiguous())
+            stacks.setdefault(path, {})[index] = value
     for path, by_index in stacks.items():
         _set(tree, path, torch.stack([by_index[i] for i in range(len(by_index))]))
     return tree

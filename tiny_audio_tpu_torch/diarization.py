@@ -57,7 +57,8 @@ def frame_vad(
     margin_db: float = 6.0,
 ) -> np.ndarray:
     """Per-frame speech decisions (bool, one per ``hop`` samples): the
-    energy + spectral-flatness heuristic, in numpy.
+    energy + spectral-flatness heuristic (features from the native runtime
+    when it is built, else numpy).
 
     Adaptive threshold: the noise floor is the ``energy_percentile``-th
     percentile of frame energies and the margin above it shrinks with the
@@ -71,13 +72,20 @@ def frame_vad(
     if n_frames == 0:
         return np.zeros(0, dtype=bool)
 
-    frames = audio[: n_frames * hop].reshape(n_frames, hop)
-    energy_db = 10.0 * np.log10(np.mean(frames**2, axis=1) + 1e-10)
-    window = np.hanning(hop).astype(np.float32)
-    spec = np.abs(np.fft.rfft(frames * window, axis=1)) + 1e-10
-    # flatness: geometric mean / arithmetic mean of the power spectrum
-    power = spec**2
-    flatness = np.exp(np.mean(np.log(power), axis=1)) / np.mean(power, axis=1)
+    from tiny_audio_tpu_torch import native
+
+    # the native runtime's features for a power-of-2 hop, else numpy's
+    feats = native.vad_features(audio, hop) if (hop & (hop - 1)) == 0 else None
+    if feats is not None:
+        energy_db, flatness = feats
+    else:
+        frames = audio[: n_frames * hop].reshape(n_frames, hop)
+        energy_db = 10.0 * np.log10(np.mean(frames**2, axis=1) + 1e-10)
+        window = np.hanning(hop).astype(np.float32)
+        spec = np.abs(np.fft.rfft(frames * window, axis=1)) + 1e-10
+        # flatness: geometric mean / arithmetic mean of the power spectrum
+        power = spec**2
+        flatness = np.exp(np.mean(np.log(power), axis=1)) / np.mean(power, axis=1)
 
     floor_db = float(np.percentile(energy_db, energy_percentile))
     ceil_db = float(np.percentile(energy_db, 95.0))
@@ -214,6 +222,15 @@ class EcapaEmbedder:
         params = msgpack_io.load(path or cls.SYNTH_WEIGHTS)
         return cls(module=EcapaTDNN(channels=cls.SYNTH_CHANNELS), params=params,
                    tier="synthetic", device=device)
+
+    @classmethod
+    def from_speechbrain(cls, state_dict: dict, device="cuda") -> "EcapaEmbedder":
+        """Build from a speechbrain ``embedding_model.ckpt`` state dict (the
+        widths inferred from its shapes) on ``device``."""
+        from tiny_audio_tpu_torch.models.ecapa import convert_speechbrain_ecapa
+
+        params, module = convert_speechbrain_ecapa(state_dict)
+        return cls(module=module, params=params, tier="speechbrain", device=device)
 
     def load_weights(self, path) -> None:
         """Converted weights of this embedder's geometry."""

@@ -26,6 +26,9 @@ variables collection (:func:`quantize_decoder_wq`,
 which includes the prefill's ``last_logit_index`` row): W8A8 (``*_t_i8``,
 kernel #5) before weight-only (``*_i8``, kernel #6) before the bf16
 weights, which stay and serve every other product.
+
+:func:`convert_hf_qwen3` reads an HF causal-LM state dict (Qwen3, the Llama
+family, Gemma v1) into the JAX package's params tree.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from tiny_audio_tpu_torch.bridge import cast_leaf, host_array
 from tiny_audio_tpu_torch.config import DecoderConfig
 from tiny_audio_tpu_torch.models.layers import RMSNorm, apply_rotary, rms_norm, rotary_embed
 from tiny_audio_tpu_torch.ops.attention import causal_self_attention, decode_step_attention
@@ -337,3 +341,52 @@ def quantize_decoder_w8a8(decoder: Qwen3Decoder) -> dict:
             _stacked_kernels(decoder, name))
     head_t_i8, head_scale = quantize_head_w8a8(head_kernel(decoder))
     return {"layers": layers, "head_t_i8": head_t_i8, "head_w8a8_scale": head_scale}
+
+
+# ---------------------------------------------------------------------------
+# HF weight conversion
+# ---------------------------------------------------------------------------
+
+
+def convert_hf_qwen3(state_dict: dict, cfg: DecoderConfig,
+                     dtype: torch.dtype = torch.bfloat16) -> dict:
+    """An HF causal-LM state dict (torch tensors or numpy) as the JAX
+    package's decoder params tree of CPU tensors, layers stacked on axis 0:
+    projections and embeddings in ``dtype``, the RMSNorm weights in float32.
+
+    Covers Qwen3ForCausalLM and, with ``cfg.qk_norm=False``, the Llama
+    family (LlamaForCausalLM, SmolLM2, Mistral: the same names without
+    ``q_norm``/``k_norm``), and Gemma v1 (the same names again; its (1 + w)
+    norms, GeGLU and embedding normalizer are :class:`DecoderConfig` knobs
+    that ``decoder_kwargs_from_hf`` sets).  LoRA leaves are not part of an
+    HF base checkpoint."""
+    sd = state_dict
+
+    def t(name, transpose=False, cast=None):
+        w = host_array(sd[name])
+        return cast_leaf(w.T if transpose else w, cast or dtype)
+
+    def stack(fmt, transpose=False, cast=None):
+        return torch.stack([t(fmt.format(i), transpose, cast) for i in range(cfg.num_layers)])
+
+    p = "model.layers.{}."
+    layers = {
+        "input_layernorm": {"weight": stack(p + "input_layernorm.weight", cast=torch.float32)},
+        "post_attention_layernorm": {
+            "weight": stack(p + "post_attention_layernorm.weight", cast=torch.float32)},
+    }
+    for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+        layers[name] = {"kernel": stack(p + f"self_attn.{name}.weight", transpose=True)}
+    for name in ("gate_proj", "up_proj", "down_proj"):
+        layers[name] = {"kernel": stack(p + f"mlp.{name}.weight", transpose=True)}
+    if cfg.qk_norm:
+        layers["q_norm"] = stack(p + "self_attn.q_norm.weight", cast=torch.float32)
+        layers["k_norm"] = stack(p + "self_attn.k_norm.weight", cast=torch.float32)
+    params = {
+        "embed_tokens": {"embedding": t("model.embed_tokens.weight")},
+        "layers": layers,
+        "norm": {"weight": t("model.norm.weight", cast=torch.float32)},
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = {"kernel": t("lm_head.weight", transpose=True)}
+    return params

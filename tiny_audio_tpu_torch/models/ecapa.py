@@ -7,6 +7,8 @@ statistics pooling with global context.  Module names follow the flax tree,
 so :func:`tiny_audio_tpu_torch.bridge.load_flax_tower` fills it from the
 JAX package's files.  The tensors run channels-first (``[B, C, T]``) inside;
 the interface is ``[B, T, n_mels] -> [B, embed_dim]`` as in the JAX package.
+:func:`convert_speechbrain_ecapa` reads speechbrain's checkpoint into that
+tree, the running statistics into the BatchNorm buffers.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tiny_audio_tpu_torch.bridge import cast_leaf, host_array
 
 
 class BatchNorm1dEval(nn.Module):
@@ -143,3 +147,72 @@ class EcapaTDNN(nn.Module):
         sd = torch.sqrt(torch.clamp((w * (h - mu[:, :, None]) ** 2).sum(dim=2), min=eps))
         pooled = self.asp_bn(torch.cat([mu, sd], dim=1))
         return self.fc(pooled)
+
+
+# ---------------------------------------------------------------------------
+# speechbrain checkpoint conversion
+# ---------------------------------------------------------------------------
+
+
+def convert_speechbrain_ecapa(state_dict: dict) -> tuple[dict, "EcapaTDNN"]:
+    """speechbrain ``embedding_model.ckpt`` state dict -> (flax tree of fp32
+    CPU tensors, :class:`EcapaTDNN` on the CPU).
+
+    speechbrain nests the torch modules under ``.conv`` / ``.norm``
+    (``blocks.0.conv.conv.weight``); a BatchNorm's ``running_mean`` and
+    ``running_var`` become the tree's ``mean`` and ``var``, which
+    :func:`tiny_audio_tpu_torch.bridge.load_flax_tower` puts in the
+    module's buffers.  The widths (channels, embedding, Res2Net scale, SE and
+    attention channels) come from the shapes, so the 512- and 1024-channel
+    releases both convert."""
+    sd = {k.removeprefix("embedding_model."): host_array(v) for k, v in state_dict.items()}
+
+    def f32(a):
+        return cast_leaf(a, torch.float32)
+
+    def conv(name):  # torch [out, in, k] -> flax [k, in, out]
+        p = {"kernel": f32(sd[f"{name}.weight"].transpose(2, 1, 0))}
+        if f"{name}.bias" in sd:
+            p["bias"] = f32(sd[f"{name}.bias"])
+        return p
+
+    def bn(name):
+        return {"scale": f32(sd[f"{name}.weight"]), "bias": f32(sd[f"{name}.bias"]),
+                "mean": f32(sd[f"{name}.running_mean"]), "var": f32(sd[f"{name}.running_var"])}
+
+    def tdnn(name):
+        return {"conv": conv(f"{name}.conv.conv"), "norm": bn(f"{name}.norm.norm")}
+
+    params: dict = {"blocks_0": tdnn("blocks.0")}
+    n_res2net = 0
+    while f"blocks.1.res2net_block.blocks.{n_res2net}.conv.conv.weight" in sd:
+        n_res2net += 1
+    for i in (1, 2, 3):
+        params[f"blocks_{i}"] = {
+            "tdnn1": tdnn(f"blocks.{i}.tdnn1"),
+            "tdnn2": tdnn(f"blocks.{i}.tdnn2"),
+            "res2net_block": {f"block_{j}": tdnn(f"blocks.{i}.res2net_block.blocks.{j}")
+                              for j in range(n_res2net)},
+            "se_conv1": conv(f"blocks.{i}.se_block.conv1.conv"),
+            "se_conv2": conv(f"blocks.{i}.se_block.conv2.conv"),
+        }
+    params["mfa"] = tdnn("mfa")
+    params["asp_tdnn"] = tdnn("asp.tdnn")
+    params["asp_conv"] = conv("asp.conv.conv")
+    params["asp_bn"] = bn("asp_bn.norm")
+    fc_w = sd["fc.conv.weight"]  # [embed, 2 * C, 1]
+    fc = {"kernel": f32(fc_w[:, :, 0].T)}
+    if "fc.conv.bias" in sd:
+        fc["bias"] = f32(sd["fc.conv.bias"])
+    params["fc"] = fc
+
+    c0 = sd["blocks.0.conv.conv.weight"].shape[0]
+    c_last = sd["mfa.conv.conv.weight"].shape[0]
+    module = EcapaTDNN(
+        channels=(c0, c0, c0, c0, c_last),
+        embed_dim=fc_w.shape[0],
+        attention_channels=sd["asp.tdnn.conv.conv.weight"].shape[0],
+        res2net_scale=n_res2net + 1,
+        se_channels=sd["blocks.1.se_block.conv1.conv.weight"].shape[0],
+    )
+    return params, module

@@ -6,6 +6,10 @@ positions, pre-LN transformer blocks with biased q/v projections (k has no
 bias) and a final LayerNorm.  One module per layer.  Self-attention goes to
 the encoder attention kernel for CUDA tensors
 (:func:`tiny_audio_tpu_torch.ops.attention.encoder_self_attention`).
+
+The HF converters (:func:`convert_hf_audio_encoder` and the functions it
+uses) are the JAX package's: they build its params tree, which
+:func:`tiny_audio_tpu_torch.bridge.load_jax_params` loads.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tiny_audio_tpu_torch.bridge import cast_leaf, host_array
 from tiny_audio_tpu_torch.config import EncoderConfig, compute_encoder_output_length
 from tiny_audio_tpu_torch.models.layers import sinusoidal_positions
 from tiny_audio_tpu_torch.ops.attention import encoder_self_attention
@@ -137,3 +142,134 @@ class AudioEncoder(nn.Module):
         for layer in self.layers:
             x = layer(x, padding_mask)
         return self.layer_norm(x)
+
+
+# ---------------------------------------------------------------------------
+# HF weight conversion: three checkpoint flavors, one params tree
+#
+#   whisper  -> WhisperModel.encoder           (keys ``[model.][encoder.]...``)
+#   glm      -> GlmAsr full model .audio_tower (keys ``audio_tower....``; the
+#               LM and projector keys of the full checkpoint are dropped)
+#   generic  -> AutoModel                      (Whisper layout assumed; the
+#               alias table below absorbs common renamings)
+# ---------------------------------------------------------------------------
+
+# Substring aliases normalizing GLM/Qwen2Audio-style tower naming onto the
+# Whisper layout, applied after prefix stripping.
+_ENCODER_KEY_ALIASES = [
+    (".self_attn.o_proj.", ".self_attn.out_proj."),
+    (".input_layernorm.", ".self_attn_layer_norm."),
+    (".post_attention_layernorm.", ".final_layer_norm."),
+    (".mlp.fc1.", ".fc1."),
+    (".mlp.fc2.", ".fc2."),
+    ("ln_post.", "layer_norm."),  # openai-whisper export naming
+]
+
+
+#: a block's projections: (params-tree name, Whisper name, has a bias)
+WHISPER_PROJECTIONS = (
+    ("q_proj", "self_attn.q_proj", True),
+    ("k_proj", "self_attn.k_proj", False),
+    ("v_proj", "self_attn.v_proj", True),
+    ("out_proj", "self_attn.out_proj", True),
+    ("fc1", "fc1", True),
+    ("fc2", "fc2", True),
+)
+
+
+def detect_encoder_flavor(state_dict: dict) -> str:
+    """'glm' | 'whisper' | 'generic' from the state dict's key shapes."""
+    keys = list(state_dict)
+    if any(k.startswith(("audio_tower.", "model.audio_tower.")) for k in keys):
+        return "glm"
+    if any(".self_attn." in k or k.startswith(("encoder.", "model.encoder.", "conv1."))
+           for k in keys):
+        return "whisper"
+    return "generic"
+
+
+def normalize_encoder_state_dict(state_dict: dict) -> dict:
+    """Strip wrapper prefixes and rename aliased keys to the Whisper layout.
+    Of a GLM-style full-model checkpoint only the ``audio_tower.*`` subtree
+    stays."""
+    flavor = detect_encoder_flavor(state_dict)
+    out = {}
+    for key, w in state_dict.items():
+        key = key.removeprefix("model.")
+        if flavor == "glm":
+            if not key.startswith("audio_tower."):
+                continue  # LM / projector keys of the full checkpoint
+            key = key.removeprefix("audio_tower.")
+            key = key.removeprefix("model.")  # nested wrapper, if any
+        key = key.removeprefix("encoder.")
+        for old, new in _ENCODER_KEY_ALIASES:
+            if old in key:
+                key = key.replace(old, new)
+        # conv stacks exported as a list module: conv_layers.{i}./convs.{i}./conv.{i}.
+        for stem in ("conv_layers.", "convs.", "conv."):
+            if key.startswith(stem):
+                i, rest = key[len(stem):].split(".", 1)
+                key = f"conv{int(i) + 1}.{rest}"
+                break
+        out[key] = w
+    return out
+
+
+def convert_hf_audio_encoder(state_dict: dict, cfg: EncoderConfig,
+                             dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Three-branch encoder conversion (whisper / GLM audio_tower / generic):
+    the raw dict goes to :func:`convert_hf_whisper_encoder`, which
+    normalizes it once."""
+    return convert_hf_whisper_encoder(state_dict, cfg, dtype=dtype)
+
+
+def convert_hf_whisper_encoder(state_dict: dict, cfg: EncoderConfig,
+                               dtype: torch.dtype = torch.bfloat16) -> dict:
+    """An HF WhisperEncoder state dict (torch tensors or numpy) as the JAX
+    package's encoder params tree of CPU tensors: projections, convs and
+    their biases in ``dtype``, the LayerNorms and ``embed_positions`` in
+    float32.  Keys with or without an ``encoder.`` prefix; GLM
+    ``audio_tower.*`` checkpoints are normalized first."""
+    sd = {key: host_array(w) for key, w in normalize_encoder_state_dict(state_dict).items()}
+    if "conv1.weight" not in sd or not any(k.startswith("layers.0.") for k in sd):
+        raise KeyError(
+            "unrecognized encoder state-dict layout after normalization; "
+            f"sample keys: {sorted(sd)[:12]}"
+        )
+
+    def t(name, cast=None, conv=False, transpose=False):
+        w = sd[name]
+        if conv:  # torch Conv1d [out, in, k] -> flax [k, in, out]
+            w = w.transpose(2, 1, 0)
+        elif transpose:
+            w = w.T
+        return cast_leaf(w, cast or dtype)
+
+    def stack(fmt, cast=None, transpose=False):
+        return torch.stack([t(fmt.format(i), cast=cast, transpose=transpose)
+                            for i in range(cfg.num_layers)])
+
+    layers = {}
+    for flax_name, hf_name, bias in WHISPER_PROJECTIONS:
+        entry = {"kernel": stack("layers.{}." + hf_name + ".weight", transpose=True)}
+        if bias:
+            entry["bias"] = stack("layers.{}." + hf_name + ".bias")
+        layers[flax_name] = entry
+    for name in ("self_attn_layer_norm", "final_layer_norm"):
+        layers[name] = {
+            "weight": stack("layers.{}." + name + ".weight", cast=torch.float32),
+            "bias": stack("layers.{}." + name + ".bias", cast=torch.float32),
+        }
+
+    params = {"layers": layers}
+    for i in range(len(cfg.conv_layers)):
+        params[f"conv{i + 1}"] = {
+            "kernel": t(f"conv{i + 1}.weight", conv=True),
+            "bias": t(f"conv{i + 1}.bias"),
+        }
+    params["embed_positions"] = t("embed_positions.weight", cast=torch.float32)
+    params["layer_norm"] = {
+        "weight": t("layer_norm.weight", cast=torch.float32),
+        "bias": t("layer_norm.bias", cast=torch.float32),
+    }
+    return params

@@ -176,6 +176,9 @@ class MOSAProjector(nn.Module):
                 padding=self.CONV_PADDING, dtype=F32, device=device))
         self.router_fc1 = Dense(cfg.llm_dim, self.ROUTER_HIDDEN_DIM, dtype, device=device)
         self.router_fc2 = Dense(self.ROUTER_HIDDEN_DIM, self.num_experts, dtype, device=device)
+        # identity: a forward hook here reads the routing weights
+        # (tiny_audio_tpu_torch.debug.check_router_health)
+        self.router_probs = nn.Identity()
         for e in range(self.num_experts):
             self.add_module(f"expert_{e}", SimpleAdapter(
                 cfg.llm_dim, self.ADAPTER_HIDDEN_DIM, cfg.llm_dim, dtype, device=device))
@@ -196,7 +199,7 @@ class MOSAProjector(nn.Module):
                                 stride=self.CONV_STRIDE, padding=self.CONV_PADDING))
         x = _foldable(x.transpose(1, 2))
         logits = self.router_fc2(F.relu(self.router_fc1(x)))
-        weights = torch.softmax(logits.to(F32), dim=-1).to(dt)
+        weights = self.router_probs(torch.softmax(logits.to(F32), dim=-1).to(dt))
         out = None
         for e in range(self.num_experts):
             term = getattr(self, f"expert_{e}")(x) * weights[..., e:e + 1]
@@ -230,6 +233,7 @@ class MoEProjector(nn.Module):
         self.norm = RMSNorm(in_dim, 1e-6, device=device)
         self.router = Dense(in_dim, e, dtype, bias=False, device=device)
         self.shared_expert = SimpleAdapter(in_dim, hidden, out_dim, dtype, device=device)
+        self.router_probs = nn.Identity()  # a hook point, as MOSA's
         # flax's layout [E, in, out]: ASRModel.init_weights draws them
         def param(*shape):
             return nn.Parameter(torch.zeros(shape, dtype=F32, device=device))
@@ -253,7 +257,7 @@ class MoEProjector(nn.Module):
             noise.uniform_(1.0 - eps, 1.0 + eps,
                            generator=_need_generator(generator, "router jitter"))
             logits = logits * noise
-        probs = torch.softmax(logits, dim=-1)  # fp32 [B, T, E]
+        probs = self.router_probs(torch.softmax(logits, dim=-1))  # fp32 [B, T, E]
         gate = moe_gate(probs, cfg.num_experts_per_tok)
 
         shared = self.shared_expert(x)

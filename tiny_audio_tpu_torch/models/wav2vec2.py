@@ -12,16 +12,20 @@ Module names follow the flax tree (``conv_0``, ``conv_gn``, ``fp_ln``,
 ``layer_3_q``, ...), so :func:`tiny_audio_tpu_torch.bridge.load_flax_tower`
 fills it from the JAX package's ``wav2vec2_aligner.msgpack``.  Its attention
 is plain PyTorch (the JAX package computes it outside any Pallas kernel).
+:func:`convert_hf_wav2vec2` reads an HF ``Wav2Vec2ForCTC`` state dict into
+that flax tree.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tiny_audio_tpu_torch.bridge import cast_leaf, host_array
 from tiny_audio_tpu_torch.models.layers import MASK_VALUE
 
 # torchaudio WAV2VEC2_ASR_BASE_960H label set (blank '-' first)
@@ -145,3 +149,91 @@ class Wav2Vec2CTC(nn.Module):
 
         logits = self.ctc_head(x)
         return torch.log_softmax(logits.to(torch.float32), dim=-1)
+
+
+def convert_hf_wav2vec2(state_dict: dict, dtype: torch.dtype = torch.float32) -> dict:
+    """An HF ``Wav2Vec2ForCTC`` state dict (torch tensors or numpy) as the
+    flax tree :func:`tiny_audio_tpu_torch.bridge.load_flax_tower` loads into
+    :class:`Wav2Vec2CTC` (CPU tensors of ``dtype``).  The position conv's
+    weight norm is folded in; a 32-token HF head is permuted into
+    ``CTC_LABELS`` order."""
+    sd = {key.removeprefix("wav2vec2."): host_array(w) for key, w in state_dict.items()}
+
+    def t(name, conv=False, transpose=False):
+        w = sd[name]
+        if conv:
+            w = w.transpose(2, 1, 0)  # [out, in, k] -> [k, in, out]
+        elif transpose:
+            w = w.T
+        return cast_leaf(w, dtype)
+
+    p: dict = {}
+    for i in range(len(CONV_LAYERS)):
+        p[f"conv_{i}"] = {"kernel": t(f"feature_extractor.conv_layers.{i}.conv.weight",
+                                      conv=True)}
+    p["conv_gn"] = {"scale": t("feature_extractor.conv_layers.0.layer_norm.weight"),
+                    "bias": t("feature_extractor.conv_layers.0.layer_norm.bias")}
+    p["fp_ln"] = {"scale": t("feature_projection.layer_norm.weight"),
+                  "bias": t("feature_projection.layer_norm.bias")}
+    p["fp_proj"] = {"kernel": t("feature_projection.projection.weight", transpose=True),
+                    "bias": t("feature_projection.projection.bias")}
+    # HF stores pos_conv fused, weight-norm split (weight_g/weight_v), or as
+    # torch parametrizations (original0/original1), depending on version
+    base_pc = "encoder.pos_conv_embed.conv"
+    if f"{base_pc}.weight" in sd:
+        pc = sd[f"{base_pc}.weight"]
+    else:
+        if f"{base_pc}.weight_g" in sd:
+            g, v = sd[f"{base_pc}.weight_g"], sd[f"{base_pc}.weight_v"]
+        else:
+            g = sd[f"{base_pc}.parametrizations.weight.original0"]
+            v = sd[f"{base_pc}.parametrizations.weight.original1"]
+        norm = np.linalg.norm(v, axis=(0, 1), keepdims=True)
+        pc = g * v / np.maximum(norm, 1e-12)
+    # torch conv [out, in/groups, k] -> flax [k, in/groups, out]
+    p["pos_conv"] = {"kernel": cast_leaf(pc.transpose(2, 1, 0), dtype),
+                     "bias": t(f"{base_pc}.bias")}
+    p["enc_ln"] = {"scale": t("encoder.layer_norm.weight"), "bias": t("encoder.layer_norm.bias")}
+    for i in range(NUM_LAYERS):
+        base = f"encoder.layers.{i}"
+        for ours, theirs in [
+            (f"layer_{i}_q", "attention.q_proj"),
+            (f"layer_{i}_k", "attention.k_proj"),
+            (f"layer_{i}_v", "attention.v_proj"),
+            (f"layer_{i}_o", "attention.out_proj"),
+            (f"layer_{i}_fc1", "feed_forward.intermediate_dense"),
+            (f"layer_{i}_fc2", "feed_forward.output_dense"),
+        ]:
+            p[ours] = {"kernel": t(f"{base}.{theirs}.weight", transpose=True),
+                       "bias": t(f"{base}.{theirs}.bias")}
+        p[f"layer_{i}_ln1"] = {"scale": t(f"{base}.layer_norm.weight"),
+                               "bias": t(f"{base}.layer_norm.bias")}
+        p[f"layer_{i}_ln2"] = {"scale": t(f"{base}.final_layer_norm.weight"),
+                               "bias": t(f"{base}.final_layer_norm.bias")}
+    p["ctc_head"] = {"kernel": _remap_ctc_head(t("lm_head.weight", transpose=True), axis=1),
+                     "bias": _remap_ctc_head(t("lm_head.bias"), axis=0)}
+    return p
+
+
+# Real HF facebook/wav2vec2-base-960h vocab.json ordering (32 tokens):
+# letters sit at +3 against torchaudio's 29-label set (<s>/</s>/<unk>).
+_HF_960H_VOCAB = (
+    "<pad>", "<s>", "</s>", "<unk>", "|", "E", "T", "A", "O", "N", "I",
+    "H", "S", "R", "D", "L", "U", "M", "W", "C", "F", "G", "Y", "P", "B",
+    "V", "K", "'", "X", "J", "Q", "Z",
+)
+
+
+def _remap_ctc_head(w: torch.Tensor, axis: int) -> torch.Tensor:
+    """Permute a real HF 32-token CTC head into ``CTC_LABELS`` order (blank
+    '-' first, then '|', then letters); 29-wide heads pass through."""
+    if w.shape[axis] == len(CTC_LABELS):
+        return w
+    if w.shape[axis] != len(_HF_960H_VOCAB):
+        raise ValueError(
+            f"unexpected CTC head vocab size {w.shape[axis]}; expected "
+            f"{len(CTC_LABELS)} (torchaudio) or {len(_HF_960H_VOCAB)} (HF 960h)"
+        )
+    hf_index = {tok: i for i, tok in enumerate(_HF_960H_VOCAB)}
+    perm = [hf_index["<pad>" if lab == "-" else lab] for lab in CTC_LABELS]
+    return torch.index_select(w, axis, torch.tensor(perm)).contiguous()

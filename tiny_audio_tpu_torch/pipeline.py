@@ -86,6 +86,7 @@ class ASRPipeline:
     def __init__(self, model, processor=None):
         self.model = model
         self.processor = processor or ASRProcessor(
+            model.tokenizer,
             projector=model.projector,
             num_mel_bins=model.config.encoder.num_mel_bins,
             encoder_conv_layers=model.config.encoder_conv_layers,

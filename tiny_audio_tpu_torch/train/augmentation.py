@@ -1,9 +1,10 @@
 """Audio augmentation: RIR reverb + noise chain, self-contained numpy DSP.
 
 Port of :mod:`tiny_audio_tpu.train.augmentation` (the port's own copy): the
-same seed and sample key give the same samples, bit for bit.  The FFT
-convolution is numpy's (the JAX package prefers its optional C++ runtime
-when built, and falls back to the same numpy code).
+same seed and sample key give the JAX package's samples, bit for bit, on the
+same FFT path.  The FFT convolution runs in the native C++ runtime
+(:mod:`tiny_audio_tpu_torch.native`) when it is built, as in the JAX
+package, else in numpy.
 
 Re-designed equivalent of the reference's ``tiny_audio/augmentation.py``
 (292 LoC), which composes audiomentations/torchaudio transforms.  Here every
@@ -97,6 +98,11 @@ class _ThreadRng:
 
 
 def _fft_convolve(audio: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    from tiny_audio_tpu_torch import native
+
+    out = native.fft_convolve(audio, kernel)
+    if out is not None:
+        return out
     n = len(audio) + len(kernel) - 1
     nfft = 1 << (n - 1).bit_length()
     out = np.fft.irfft(

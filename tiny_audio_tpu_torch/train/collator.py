@@ -30,7 +30,6 @@ from tiny_audio_tpu_torch.config import (
     compute_encoder_output_length,
 )
 from tiny_audio_tpu_torch.processing import DEFAULT_MEL_BUCKETS, ASRProcessor
-from tiny_audio_tpu_torch.tokenization import AUDIO_TOKEN
 
 TRANSCRIBE_PROMPTS = ["Transcribe the speech to text"]
 DESCRIBE_PROMPTS = ["Describe all the information you can hear"]
@@ -62,31 +61,6 @@ def normalize_label(raw_text: str) -> str:
     return _WHITESPACE_RE.sub(" ", text).strip()
 
 
-def build_messages(
-    num_audio_tokens: int,
-    text: Optional[str] = None,
-    system_prompt: Optional[str] = None,
-    user_prompt: Optional[str] = None,
-) -> list[dict]:
-    """Chat messages of one sample: the user turn holds the audio
-    placeholders and the prompt, the assistant turn the target text (the
-    JAX package's ``ASRProcessor.build_messages``)."""
-    prompt = TRANSCRIBE_PROMPTS[0] if user_prompt is None else user_prompt
-    if num_audio_tokens > 0:
-        user_content = AUDIO_TOKEN * num_audio_tokens
-        if prompt:
-            user_content += " " + prompt
-    else:
-        user_content = prompt or ""
-    messages = []
-    if system_prompt:
-        messages.append({"role": "system", "content": system_prompt})
-    messages.append({"role": "user", "content": user_content})
-    if text is not None:
-        messages.append({"role": "assistant", "content": text})
-    return messages
-
-
 def mask_labels_chatml(
     tokenizer,
     messages: list[dict],
@@ -116,7 +90,8 @@ class DataCollator:
     """Collate raw dataset rows into a padded training batch: numpy
     ``input_ids``, ``attention_mask``, ``labels`` [B, T] int32 and
     ``audio_token_counts``, and the mel features as tensors on ``device``
-    (the CUDA device unless the caller asks for ``"cpu"``)."""
+    (the CUDA device unless the caller asks for ``"cpu"``).  The parameters
+    are the JAX package's, in its order, with ``device`` last."""
 
     def __init__(
         self,
@@ -126,6 +101,7 @@ class DataCollator:
         sample_rate: int = 16000,
         system_prompt: Optional[str] = None,
         encoder_conv_layers: Optional[list] = None,
+        whisper_mode: bool = False,
         max_length: int = 2048,
         pad_text_multiple: int = 64,
         mel_buckets: Optional[Sequence[int]] = None,
@@ -141,10 +117,13 @@ class DataCollator:
         self.pad_text_multiple = pad_text_multiple
         self.rng = np.random.default_rng(seed)
         self.processor = ASRProcessor(
+            tokenizer,
             projector=projector,
             num_mel_bins=num_mel_bins,
             encoder_conv_layers=self.encoder_conv_layers,
+            whisper_mode=whisper_mode,
             mel_buckets=tuple(mel_buckets or DEFAULT_MEL_BUCKETS),
+            sampling_rate=sample_rate,
             device=device,
         )
 
@@ -192,7 +171,7 @@ class DataCollator:
     def _build_messages(self, feature: dict, num_audio_tokens: int) -> list[dict]:
         text = normalize_label(feature.get("text") or "")
         prompt = self.rng.choice(TRANSCRIBE_PROMPTS)
-        return build_messages(
+        return self.processor.build_messages(
             num_audio_tokens, text=text, system_prompt=self.system_prompt,
             user_prompt=str(prompt),
         )
@@ -250,7 +229,7 @@ class MultiTaskDataCollator(DataCollator):
             # in multitask runs any more than in the base collator
             response = normalize_label(feature.get("text") or "")
             prompt = str(self.rng.choice(TRANSCRIBE_PROMPTS))
-        return build_messages(
+        return self.processor.build_messages(
             num_audio_tokens, text=response, system_prompt=self.system_prompt,
             user_prompt=prompt,
         )

@@ -1,10 +1,9 @@
 """Audio I/O without external dependencies: WAV read and write, resampling.
 
 The port's own copy of what :mod:`tiny_audio_tpu.utils.audio_io` gives the
-pipeline: PCM WAV is read with the stdlib ``wave`` module and resampled with
-scipy's polyphase filter.  (The JAX package can also decode through its native
-C++ runtime; the port keeps the stdlib decoder, which that runtime is tested
-against.)
+pipeline: PCM WAV is decoded by the native C++ runtime
+(:mod:`tiny_audio_tpu_torch.native`) when it is built, else by the stdlib
+``wave`` module (its oracle), and resampled with scipy's polyphase filter.
 """
 
 from __future__ import annotations
@@ -21,6 +20,11 @@ import numpy as np
 def read_wav(source: Union[str, Path, bytes]) -> tuple[np.ndarray, int]:
     """Read a PCM WAV file/bytes -> (float32 mono waveform in [-1, 1], rate)."""
     data = Path(source).read_bytes() if isinstance(source, (str, Path)) else source
+    from tiny_audio_tpu_torch import native
+
+    decoded = native.wav_decode(data)
+    if decoded is not None:
+        return decoded
     with wave.open(io.BytesIO(data), "rb") as w:
         rate = w.getframerate()
         n_channels = w.getnchannels()
