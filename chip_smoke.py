@@ -54,6 +54,12 @@ flagship width (random weights from seed 0, int8 KV cache):
   from its start (the JAX gate's seed-0 projector and decoder and the
   CTC-pretrained encoder) with its thresholds, then 50 steps of the CTC
   pretrain (#1's forward, its gradient by plain recompute);
+- multi-GPU serving and training (``parallel_phase``, last): the flagship
+  at tp = 2 with both ranks on the one card over gloo (``generate`` with
+  both ranks' tokens identical and its prefill logits against tp = 1, each
+  rank's launches of #1, #2 and #4 at its head slice and each kernel held
+  on rank 0's inputs, the handler, two stage-1 steps with #2b/#2c), the
+  tiny fp32 dryrun at (2, 2) and tp = 4 token-exact, an NCCL world of one;
 - the decoding modes at the flagship on the serving batch (32 tokens, EOS
   masked, exact launches): beams (K = 4) on both decode steps with the same
   tokens, ``top_k=1`` sampling drawing only largest logits (greedy's tokens
@@ -245,6 +251,14 @@ PREVIOUS_DECODE_GRAPH_MS = {
     ("bf16", 48, 595): (0.054499240148635136, 0.05471866471426828),
     ("bf16", 1, 468): (0.017548376659177384, 0.017560150638316414),
 }
+# the parallel phase: the flagship at tp = 2 on the one card (two ranks over
+# gloo), its generate's tokens, and the bound on its prefill logits against
+# tp = 1: a share of the logits' largest magnitude (bf16 all-reduces sum the
+# ranks' partial products in another order than one matmul's accumulator)
+PARALLEL_TP = 2
+PARALLEL_NEW = 32
+PARALLEL_REQUEST_NEW = 16
+PARALLEL_LOGIT_SHARE = 0.05
 TRAIN_BATCH = 6  # configs/training/production.yaml's per_device_batch_size
 TRAIN_CLIP_S = (10.0, 30.0)
 TRAIN_STEPS = 10  # stage 1 on one repeated batch
@@ -2087,7 +2101,8 @@ def trainer_run(label: str, model, rows, steps: int, out_root: Path, reset_count
     micro-step and no other.  Fails on non-finite losses or gradient norms,
     a frozen parameter that changed or no trainable one that did; prints the
     run's line and returns its losses, aux losses, counts, changed
-    parameters and output directory."""
+    parameters and output directory.  A model placed on a mesh trains on
+    that grid, and the checks read rank 0's shard."""
     from tiny_audio_tpu_torch.train.collator import DataCollator
     from tiny_audio_tpu_torch.train.optim import OptimizerConfig
     from tiny_audio_tpu_torch.train.trainer import Trainer, TrainingConfig
@@ -2098,10 +2113,11 @@ def trainer_run(label: str, model, rows, steps: int, out_root: Path, reset_count
                             encoder_conv_layers=model.config.encoder_conv_layers,
                             device=model.device)
     out_dir = out_root / label
+    mesh = model.mesh
     config = TrainingConfig(
         output_dir=str(out_dir), max_steps=steps, per_device_batch_size=TRAIN_BATCH,
         gradient_accumulation_steps=accum, logging_steps=1, save_steps=0, eval_steps=0,
-        dataloader_workers=0, seed=SEED,
+        dataloader_workers=0, seed=SEED, tp=mesh.tp if mesh else 1, dp=mesh.dp if mesh else None,
         optimizer=OptimizerConfig(learning_rate=TRAIN_LR, lr_scheduler_type="constant"))
     # snapshots on the host, so the device's peak memory is the run's own
     snapshot = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
@@ -2232,6 +2248,198 @@ def train_phases(reset_counts, read_counts) -> dict:
     path = compare_backward_on_path_inputs(path_inputs["backward"])
     shutil.rmtree(tmp)
     return {"path": path, "counts": results["stage1"]["counts"]}
+
+
+def parallel_phase(wrappers: dict, reset_counts, read_counts) -> dict:
+    """Multi-GPU serving and training (``tiny_audio_tpu_torch.parallel``) on
+    the one card: the flagship at tp = 2, its two ranks sharing the card over
+    gloo (NCCL refuses two ranks on one device): ``generate`` (4 x 30 s,
+    PARALLEL_NEW tokens, EOS masked) with both ranks' tokens identical, its
+    prefill logits against tp = 1 within PARALLEL_LOGIT_SHARE of their
+    scale and the share of tokens that agree; each rank's launches of #1
+    (at 10 heads), #2 (8 / 4 heads) and #4 (per step); each kernel against
+    its plain version on rank 0's first-call inputs (its head slice); the
+    handler answering three requests (PARALLEL_REQUEST_NEW tokens each); two
+    stage-1 Trainer steps at batch 6 (#2b and #2c held on rank 0's backward
+    inputs).  Then the tiny fp32
+    dryrun at (2, 2) and at tp = 4 (four ranks on the card, token-exact),
+    and an NCCL world of one.  Returns each kernel's per-rank launches and
+    the backward kernels' path numbers."""
+    from tiny_audio_tpu_torch import ASRConfig
+    from tiny_audio_tpu_torch.config import tiny_test_config
+    from tiny_audio_tpu_torch.handler import EndpointHandler
+    from tiny_audio_tpu_torch.models.asr import ASRModel, Seeded
+    from tiny_audio_tpu_torch.ops import attention as attention_dispatch
+    from tiny_audio_tpu_torch.ops import fused_decode as fused_module
+    from tiny_audio_tpu_torch.ops.decode_attention import decode_attention_update_plain
+    from tiny_audio_tpu_torch.ops.encoder_attention import encoder_attention_plain
+    from tiny_audio_tpu_torch.ops.prefill_attention import prefill_attention_plain
+    from tiny_audio_tpu_torch.parallel import dryrun
+    from tiny_audio_tpu_torch.parallel.launch import Probe
+    from tiny_audio_tpu_torch.parallel.mesh import make_mesh
+    from tiny_audio_tpu_torch.pipeline import ASRPipeline
+    from tiny_audio_tpu_torch.train.data import synthetic_dataset
+
+    t_phase = time.perf_counter()
+    cfg = ASRConfig(kv_cache_dtype="int8")
+    n_enc, n_dec = cfg.encoder.num_layers, cfg.decoder.num_layers
+    model = ASRModel(cfg, seed=SEED)
+    pipe = ASRPipeline(model)
+    rng = np.random.default_rng(SEED)
+    audio = serving_audio(rng)
+    feats = pipe.processor.extract_features(audio)
+    args = (feats["input_features"], feats["audio_attention_mask"])
+    kw = dict(mel_length=int(feats["mel_lengths"].max()), min_new_tokens=PARALLEL_NEW,
+              max_new_tokens=PARALLEL_NEW)
+    want_logits = model.prompt_logits(*args)
+    want_tokens = model.generate(*args, **kw)
+    phase_done()
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(dp=1, tp=PARALLEL_TP, devices=["cuda:0"] * PARALLEL_TP, backend="gloo",
+                     timeout=300)
+    up_s = time.perf_counter() - t0
+    probe = Probe.place(mesh)
+    t0 = time.perf_counter()
+    model.place_on(mesh, Seeded(cfg, SEED))
+    place_s = time.perf_counter() - t0
+    print(f"parallel mesh=(dp=1, tp={PARALLEL_TP}) devices=cuda:0x{PARALLEL_TP} backend=gloo "
+          f"ranks_up_s={up_s!r} place_s={place_s!r} "
+          f"heads_per_rank: encoder={model.encoder.layers[0].num_heads} "
+          f"decoder_q={model.decoder.layers[0].num_heads} "
+          f"decoder_kv={model.decoder.layers[0].num_kv_heads}")
+    paths = [f"{fn.__module__}:{fn.__name__}" for fn in wrappers.values()]
+
+    def reset_all() -> None:
+        mesh.dispatch(probe, "launches", (paths, True), {})
+
+    def per_rank() -> list:
+        return mesh.dispatch(probe, "launches", (paths,), {}, gather=True)
+
+    # ---- generate at tp = 2: identical tokens on both ranks ----
+    path_inputs: dict = {}
+    reset_all()
+    with record_first_call(attention_dispatch, "encoder_attention", path_inputs), \
+            record_first_call(attention_dispatch, "prefill_attention", path_inputs), \
+            record_first_call(fused_module, "decode_attention_update", path_inputs):
+        t0 = time.perf_counter()
+        tokens = mesh.dispatch(model, "generate", args, kw, gather=True)
+        first_s = time.perf_counter() - t0
+    counts = per_rank()
+    want = {name: 0 for name in wrappers}
+    want.update({"encoder_attention": n_enc, "prefill_attention": n_dec,
+                 "decode_attention_update": n_dec * (PARALLEL_NEW - 1)})
+    for rank, got in enumerate(counts):
+        if got != want:
+            fail(f"parallel generate: rank {rank} launches {got}, expected {want}")
+    if not all(np.array_equal(tokens[0], t) for t in tokens[1:]):
+        fail("parallel generate: the ranks decoded different tokens")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = model.generate(*args, **kw)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    if not np.array_equal(again, tokens[0]):
+        fail("parallel generate: two calls gave different tokens")
+    agree = float((tokens[0] == want_tokens).mean())
+    got_logits = model.prompt_logits(*args)
+    scale = float(np.abs(want_logits).max())
+    err = float(np.abs(got_logits - want_logits).max())
+    top1 = float((got_logits.argmax(-1) == want_logits.argmax(-1)).mean())
+    if not np.isfinite(got_logits).all() or err > PARALLEL_LOGIT_SHARE * scale:
+        fail(f"parallel prefill logits: max |tp{PARALLEL_TP} - tp1| = {err} over the bound "
+             f"{PARALLEL_LOGIT_SHARE} x {scale}")
+    print(f"parallel generate tp={PARALLEL_TP} batch={BATCH} clip_s={CLIP_S} "
+          f"new_tokens={PARALLEL_NEW} kv=int8 bf16 first_call_s={first_s!r} "
+          f"batch_wall_s={wall_s!r} ranks_tokens_identical=true "
+          f"token_agreement_with_tp1={agree!r} prefill_logits_max_abs_err={err!r} "
+          f"bound={PARALLEL_LOGIT_SHARE}*max|tp1 logits|={PARALLEL_LOGIT_SHARE * scale!r} "
+          f"prefill_top1_agreement={top1!r} launches_per_rank={json.dumps(counts)}")
+    heads = {name: [list(a.shape) for a in call[0][:3]] for name, call in path_inputs.items()}
+    print(f"parallel rank0_kernel_inputs={json.dumps(heads)}")
+    stats = {
+        "encoder_attention": compare_on_path_inputs(
+            "encoder_attention", wrappers["encoder_attention"], encoder_attention_plain,
+            path_inputs["encoder_attention"]),
+        "prefill_attention": compare_on_path_inputs(
+            "prefill_attention", wrappers["prefill_attention"], prefill_attention_plain,
+            path_inputs["prefill_attention"]),
+        "decode_attention_update": compare_decode_on_path_inputs(
+            "decode_attention_update", wrappers["decode_attention_update"],
+            decode_attention_update_plain, path_inputs["decode_attention_update"]),
+    }
+    del path_inputs
+    launches = {name: counts[0][name] for name in stats}
+    phase_done()
+
+    # ---- the handler on the grid: three requests ----
+    handler = EndpointHandler(pipeline=pipe, tp=PARALLEL_TP)  # the model is placed
+    reset_all()
+    t0 = time.perf_counter()
+    for seconds in REQUEST_SECONDS:
+        clip = rng.standard_normal(int(seconds * 16000)).astype(np.float32) * 0.1
+        # 16 tokens, EOS masked: a decode step through gloo costs ~0.1 s
+        result = handler({"inputs": clip, "parameters": {"min_new_tokens": PARALLEL_REQUEST_NEW,
+                                                         "max_new_tokens": PARALLEL_REQUEST_NEW}})
+        if not isinstance(result.get("text"), str):
+            fail(f"parallel handler gave {result!r} for a {seconds} s request")
+    counts = per_rank()
+    if counts[0] != counts[1] or not counts[0]["decode_attention_update"]:
+        fail(f"parallel handler launches per rank {counts}")
+    print(f"parallel handler requests={len(REQUEST_SECONDS)} wall_s={time.perf_counter() - t0!r} "
+          f"launches_per_rank={json.dumps(counts)}")
+    del handler, pipe, model
+    torch.cuda.empty_cache()
+    phase_done()
+
+    # ---- two stage-1 Trainer steps at tp = 2 ----
+    train_model = ASRModel(ASRConfig(), seed=SEED)
+    train_model.place_on(mesh, Seeded(ASRConfig(), SEED))
+    rows = synthetic_dataset(TRAIN_BATCH, seed=SEED, min_s=TRAIN_CLIP_S[0], max_s=TRAIN_CLIP_S[1])
+    backward: dict = {}
+    tmp = Path(tempfile.mkdtemp())
+    run = trainer_run(f"tp{PARALLEL_TP}_stage1", train_model, rows, 2, tmp, reset_all,
+                      read_counts, backward_store=backward)
+    counts = per_rank()
+    if counts[0] != counts[1]:
+        fail(f"parallel training launches per rank {counts}")
+    for name in ("prefill_attention_bwd_dkv", "prefill_attention_bwd_dq"):
+        launches[name] = counts[0][name]
+    q, k = backward["backward"][:2]
+    print(f"parallel train steps=2 batch={TRAIN_BATCH} step_ms_after_first={run['step_ms']!r} "
+          f"rank0_backward_q={list(q.shape)} k={list(k.shape)} launches_per_rank="
+          f"{json.dumps(counts)}")
+    stats.update(compare_backward_on_path_inputs(backward["backward"]))
+    del train_model, backward
+    shutil.rmtree(tmp)
+    mesh.close()
+    torch.cuda.empty_cache()
+    phase_done()
+
+    # ---- the tiny fp32 towers: the dryrun at (2, 2) and at tp = 4 ----
+    t0 = time.perf_counter()
+    for tp in (2, 4):
+        dryrun.run(4, tp, "cuda", log=lambda line: print(f"parallel dryrun {line}"))
+    dryrun_s = time.perf_counter() - t0
+    phase_done()
+
+    # ---- an NCCL world of one: tp = 1 through the collectives ----
+    tiny = tiny_test_config(model_dtype="float32")
+    single = ASRModel(tiny, seed=SEED)
+    x = np.random.default_rng(SEED).standard_normal((2, 80, 50)).astype(np.float32)
+    m = np.ones((2, 50), np.int32)
+    want_tiny = single.generate(x, m, max_new_tokens=6)
+    with make_mesh(dp=1, tp=1, devices=["cuda:0"], backend="nccl", timeout=120) as world:
+        single.place_on(world)
+        if not np.array_equal(single.generate(x, m, max_new_tokens=6), want_tiny):
+            fail("the NCCL world of one changed the tiny towers' tokens")
+    print("parallel nccl world=1 backend=nccl tp=1 tokens_exact=true")
+    if torch.cuda.device_count() >= 2:
+        dryrun.run(2, 2, "cuda", log=lambda line: print(f"parallel nccl tp=2 {line}"))
+    else:
+        print("nccl across cards: not run (1 card)")
+    print(f"parallel phase_s={time.perf_counter() - t_phase!r} dryrun_s={dryrun_s!r}")
+    return {"launches": launches, "stats": stats}
 
 
 def projector_phases(audio: list, reset_counts, read_counts) -> dict:
@@ -4722,6 +4930,36 @@ def tools_phase() -> None:
         fail(f"handler_local failed: {lines}")
 
 
+def kernel_wrappers() -> dict:
+    """Every kernel's wrapper by name; each counts its launches in
+    ``.launches``."""
+    from tiny_audio_tpu_torch.ops.decode_attention import decode_attention, decode_attention_update
+    from tiny_audio_tpu_torch.ops.encoder_attention import encoder_attention
+    from tiny_audio_tpu_torch.ops.encoder_attention_variants import encoder_attention_variant
+    from tiny_audio_tpu_torch.ops.encoder_ffn import encoder_ffn
+    from tiny_audio_tpu_torch.ops.mel_fused import log_mel_spectrogram_fused
+    from tiny_audio_tpu_torch.ops.prefill_attention import (
+        prefill_attention,
+        prefill_attention_bwd_dkv,
+        prefill_attention_bwd_dq,
+    )
+    from tiny_audio_tpu_torch.ops.wq_head import w8a8_matmul
+    from tiny_audio_tpu_torch.ops.wq_head_variants import a8_matmul, a8t_matmul, wq_matmul_pipe
+    from tiny_audio_tpu_torch.ops.wq_matmul import wq_matmul
+
+    return {"encoder_attention": encoder_attention, "prefill_attention": prefill_attention,
+            "decode_attention": decode_attention,
+            "decode_attention_update": decode_attention_update,
+            "w8a8_matmul": w8a8_matmul, "wq_matmul": wq_matmul,
+            "prefill_attention_bwd_dkv": prefill_attention_bwd_dkv,
+            "prefill_attention_bwd_dq": prefill_attention_bwd_dq,
+            "log_mel_spectrogram_fused": log_mel_spectrogram_fused,
+            "encoder_ffn": encoder_ffn,
+            "encoder_attention_variant": encoder_attention_variant,
+            "wq_matmul_pipe": wq_matmul_pipe, "a8_matmul": a8_matmul,
+            "a8t_matmul": a8t_matmul}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device; this smoke run measures the GPU and never runs on the CPU")
@@ -4790,32 +5028,16 @@ def main() -> None:
         encoder_attention,
         encoder_attention_plain,
     )
-    from tiny_audio_tpu_torch.ops.encoder_attention_variants import encoder_attention_variant
-    from tiny_audio_tpu_torch.ops.encoder_ffn import encoder_ffn
-    from tiny_audio_tpu_torch.ops.mel_fused import log_mel_spectrogram_fused
     from tiny_audio_tpu_torch.ops.prefill_attention import (
         prefill_attention,
-        prefill_attention_bwd_dkv,
-        prefill_attention_bwd_dq,
         prefill_attention_plain,
     )
     from tiny_audio_tpu_torch.models import decoder as decoder_module
     from tiny_audio_tpu_torch.ops.wq_head import w8a8_matmul, w8a8_matmul_plain
-    from tiny_audio_tpu_torch.ops.wq_head_variants import a8_matmul, a8t_matmul, wq_matmul_pipe
     from tiny_audio_tpu_torch.ops.wq_matmul import wq_matmul, wq_matmul_plain
     from tiny_audio_tpu_torch.pipeline import ASRPipeline
 
-    wrappers = {"encoder_attention": encoder_attention, "prefill_attention": prefill_attention,
-                "decode_attention": decode_attention,
-                "decode_attention_update": decode_attention_update,
-                "w8a8_matmul": w8a8_matmul, "wq_matmul": wq_matmul,
-                "prefill_attention_bwd_dkv": prefill_attention_bwd_dkv,
-                "prefill_attention_bwd_dq": prefill_attention_bwd_dq,
-                "log_mel_spectrogram_fused": log_mel_spectrogram_fused,
-                "encoder_ffn": encoder_ffn,
-                "encoder_attention_variant": encoder_attention_variant,
-                "wq_matmul_pipe": wq_matmul_pipe, "a8_matmul": a8_matmul,
-                "a8t_matmul": a8t_matmul}
+    wrappers = kernel_wrappers()
     # the serving paths launch neither int8 product (outside their modes), nor
     # a backward kernel, nor the fused front end (#7), the encoder FFN (#8) or
     # the bench variants (#9a-#9d), which only their own entry points reach
@@ -5143,6 +5365,10 @@ def main() -> None:
                                            reset_counts, read_counts)
     phase_done()
 
+    # ---- 14. multi-GPU serving and training on the one card ----
+    parallel = parallel_phase(wrappers, reset_counts, read_counts)
+    phase_done()
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                                                    "msgpack", "tiny_audio_tpu",
                                                                    "scripts"))
@@ -5167,12 +5393,16 @@ def main() -> None:
         {"name": "encoder_attention", "route": "cuda", "source": source,
          "replaces": "tiny_audio_tpu/ops/encoder_attention.py:159",
          "launches": launches["encoder_attention"], **enc_path,
-         "max_abs_err": max(enc["max_abs_err"], enc_path["max_abs_err"])},
+         "tp2_launches_per_rank": parallel["launches"]["encoder_attention"],
+         "max_abs_err": max(enc["max_abs_err"], enc_path["max_abs_err"],
+                            parallel["stats"]["encoder_attention"]["max_abs_err"])},
         {"name": "prefill_attention", "route": "cuda", "source": source,
          "replaces": "tiny_audio_tpu/ops/attention.py:65",
          "launches": launches["prefill_attention"], **pre_path,
+         "tp2_launches_per_rank": parallel["launches"]["prefill_attention"],
          "max_abs_err": max(pre["max_abs_err"], pre_shapes["prefill_attention"],
-                            pre_path["max_abs_err"])},
+                            pre_path["max_abs_err"],
+                            parallel["stats"]["prefill_attention"]["max_abs_err"])},
         {"name": "decode_attention", "route": "cuda", "source": decode_source,
          "replaces": "tiny_audio_tpu/ops/decode_attention.py:152",
          "launches": launches["decode_attention"], **dec_path,
@@ -5186,9 +5416,11 @@ def main() -> None:
          "launches": launches["decode_attention_update"], **upd_path,
          "ms": dec_graph[("int8", BATCH, 468)]["decode_attention_update"]["ms"],
          "per_row_ms": dec_rows["int8"]["times"]["rows"]["decode_attention_update"],
+         "tp2_launches_per_rank": parallel["launches"]["decode_attention_update"],
          "max_abs_err": max(dec["decode_attention_update"], dec_shapes["decode_attention_update"],
                             dec_rows["int8"]["err"], dec_rows["bf16"]["err"],
-                            upd_path["max_abs_err"])},
+                            upd_path["max_abs_err"],
+                            parallel["stats"]["decode_attention_update"]["max_abs_err"])},
         {"name": "w8a8_matmul", "route": "cuda", "source": int8_source,
          "replaces": "tiny_audio_tpu/ops/wq_head.py:128",
          "launches": mode_launches["w8a8_matmul"], **int8_path["w8a8_matmul"],
@@ -5201,7 +5433,9 @@ def main() -> None:
          "max_abs_err": max(int8_errs["wq_matmul"], int8_path["wq_matmul"]["max_abs_err"])},
         *({"name": name, "route": "cuda", "source": bwd_source, "replaces": replaces,
            "launches": trained["counts"][name], **trained["path"][name],
-           "max_abs_err": max(pre_shapes[name], trained["path"][name]["max_abs_err"])}
+           "tp2_launches_per_rank": parallel["launches"][name],
+           "max_abs_err": max(pre_shapes[name], trained["path"][name]["max_abs_err"],
+                              parallel["stats"][name]["max_abs_err"])}
           for name, replaces in BWD_REPLACES.items()),
         {"name": "log_mel_spectrogram_fused", "route": "cuda",
          "source": "tiny_audio_tpu_torch/csrc/mel.cu",

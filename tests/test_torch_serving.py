@@ -80,10 +80,12 @@ class TestEndpointHandler:
         assert "error" in handlers[1]({"inputs": object()})
 
     def test_mesh_raises(self, handlers):
-        with pytest.raises(NotImplementedError, match="Queue 1 #13"):
-            EndpointHandler(pipeline=handlers[1].pipe, tp=2)
-        with pytest.raises(NotImplementedError, match="Queue 1 #13"):
-            EndpointHandler(pipeline=handlers[1].pipe, dp=2)
+        """A grid the model cannot be split over raises before any rank
+        starts (tests/test_torch_parallel.py serves over real grids)."""
+        with pytest.raises(ValueError, match=r"tp=3 does not divide the decoder query heads"):
+            EndpointHandler(pipeline=handlers[1].pipe, tp=3)
+        with pytest.raises(ValueError, match=r"tp=3 does not divide"):
+            EndpointHandler(pipeline=handlers[1].pipe, tp=3, dp=2)
 
 
 @pytest.mark.parametrize("flag,env,keys", [

@@ -9,7 +9,9 @@ and the JAX package blocked, serves a checkpoint over HTTP and over the
 realtime WebSocket server, runs ``run_eval`` through the realtime backend and
 the pipecat service under a stub ``pipecat``, runs a stage-2 train step,
 builds the MOSA, MoE and QFormer projectors, runs the convergence ladder's
-pieces, beams and sampling, the neural VAD, diarization and the aligner.
+pieces, beams and sampling, the neural VAD, diarization and the aligner, and
+serves over a tp = 2 grid of two rank processes (the started rank imports
+none of the blocked packages either).
 """
 
 import os
@@ -298,6 +300,20 @@ req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/trans
 with urllib.request.urlopen(req, timeout=120) as r:
     assert isinstance(json.loads(r.read())["text"], str)
 batcher.close()
+
+# a world of two ranks: the handler over a tp=2 grid of CPU ranks; the started
+# rank imports none of the blocked packages either
+from tiny_audio_tpu_torch.parallel.launch import Probe
+
+grid = EndpointHandler(ckpt, device="cpu", tp=2)
+assert isinstance(grid({"inputs": np.zeros(8000, np.float32)})["text"], str)
+rank_modules = grid.mesh.dispatch(Probe.place(grid.mesh), "loaded_modules", (), {},
+                                  gather=True)[1]
+assert "tiny_audio_tpu_torch.models.asr" in rank_modules
+blocked = [m for m in rank_modules
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "tiny_audio_tpu")]
+assert not blocked, blocked
+grid.close()
 server.shutdown()
 
 # a realtime session (the port's server and client, the neural stream VAD),

@@ -511,12 +511,14 @@ def test_trainer_steps_match_jax_trainer(tmp_path):
     assert trainer.train()["final_step"] == 5
 
 
-def test_trainer_refuses_meshes(stage1_pair):
+def test_trainer_refuses_meshes(stage1_pair, tmp_path):
+    """A grid the model cannot be split over raises before any rank starts
+    (tests/test_torch_parallel_train.py trains over real grids)."""
     from tiny_audio_tpu_torch.train.trainer import Trainer, TrainingConfig
 
-    for kw in ({"dp": 2}, {"tp": 2}):
-        with pytest.raises(NotImplementedError, match="one device"):
-            Trainer(stage1_pair[1], TrainingConfig(output_dir="/nonexistent", **kw), [], None)
+    for kw in ({"dp": 2, "tp": 3}, {"tp": 3}):
+        with pytest.raises(ValueError, match=r"tp=3 does not divide the decoder query heads"):
+            Trainer(stage1_pair[1], TrainingConfig(output_dir=str(tmp_path), **kw), [], None)
 
 
 # ------------------------------------------------------------- checkpoints

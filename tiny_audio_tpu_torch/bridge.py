@@ -147,16 +147,18 @@ def jax_leaf(modules: dict, name: str) -> tuple[tuple, Optional[int], Optional[s
 
 
 @torch.no_grad()
-def state_dict_to_jax(model: nn.Module) -> dict:
+def state_dict_to_jax(model: nn.Module, values: Optional[dict] = None) -> dict:
     """The JAX params tree of a port ``ASRModel``: CPU tensors in the
     parameters' dtypes, layers stacked on axis 0, Linear and Conv1d weights
-    as Dense and Conv kernels, Embedding weights as ``embedding``."""
+    as Dense and Conv kernels, Embedding weights as ``embedding``.
+    ``values``: the tensors by parameter name instead of the model's own (a
+    sharded model's gathered parameters)."""
     modules = dict(model.named_modules())
     tree: dict = {}
     stacks: dict = {}  # JAX path -> {layer index: tensor}
     for name, param in model.named_parameters():
         path, index, layout = jax_leaf(modules, name)
-        value = param.detach().cpu()
+        value = (param if values is None else values[name]).detach().cpu()
         if layout == "dense":
             value = value.T
         elif layout == "conv":

@@ -75,9 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
                           "decode slots that requests join and leave between decode "
                           "chunks (continuous); PERF.md has both measured on the card")
     srv.add_argument("--tp", type=int, default=1,
-                     help="tensor-parallel degree (multi-GPU is not ported: above 1 raises)")
+                     help="tensor-parallel degree: shard the towers over tp cards")
     srv.add_argument("--dp", type=int, default=None,
-                     help="data-parallel degree (multi-GPU is not ported: above 1 raises)")
+                     help="data-parallel degree (default 1): dp x tp cards in all")
     srv.add_argument("--realtime-port", type=int, default=None,
                      help="also serve realtime websocket transcription on this port "
                           "(shares the card with HTTP traffic)")

@@ -21,6 +21,11 @@ n-gram bans, sampling or ``min_new_tokens``); other generation configs are
 refused, and ``serving.serve`` then falls back to the dynamic batcher.  A
 slot's output ends at the first EOS or pad token.
 
+The slot state and the calls that change it are :class:`EngineSlots`: on a
+mesh every rank holds one (its shard of the cache) and each call runs on
+every rank; dp ranks hold every slot (the engine's slots are not split over
+dp).
+
 One stream: every device call of the engine (prefill, insert, decode
 chunks) runs on the default stream, under the engine's ``lock``, which the
 HTTP server's solo path and a co-hosted realtime server share.  The decode
@@ -41,11 +46,72 @@ import torch
 
 from tiny_audio_tpu_torch.batching import BacklogFull
 from tiny_audio_tpu_torch.generation import (
+    GenerationConfig,
     decode_chunk,
     init_slot_state,
     insert_slots,
     prefill_prompt_cache,
 )
+from tiny_audio_tpu_torch.parallel.launch import mesh_call, message_class
+
+
+class EngineSlots:
+    """The engine's device work: the slot state of ``model`` and its
+    prefill-and-insert and decode-chunk calls.  On a mesh (:meth:`create`
+    places one on every rank) rank 0's calls run on every rank."""
+
+    def __init__(self, model, n_slots: int, s_max: int, pad_token_id: int):
+        self.model = model
+        self.mesh = model.mesh
+        self.state = init_slot_state(model.decoder, n_slots, s_max, pad_token_id)
+
+    @classmethod
+    def create(cls, model, n_slots: int, s_max: int, pad_token_id: int) -> "EngineSlots":
+        slots = cls(model, n_slots, s_max, pad_token_id)
+        if model.mesh is not None:
+            model.mesh.place(slots, _SlotsBuilder(model._mesh_handle, n_slots, s_max,
+                                                  pad_token_id))
+        return slots
+
+    @mesh_call
+    @torch.inference_mode()
+    def prefill(self, input_features, audio_attention_mask, input_ids, t_real: int,
+                slot_ids: list, eos_ids, max_new_tokens: int):
+        """Prefill a group of requests and insert them into ``slot_ids``;
+        returns (first tokens, finished at the prefill) as numpy."""
+        model = self.model
+        device = model.device
+        input_ids = torch.as_tensor(input_ids, device=device)
+        embeds = model._splice_embeds(input_features, audio_attention_mask, input_ids)
+        tok0_dev, pcache = prefill_prompt_cache(model.decoder, embeds, t_real)
+        tok0 = tok0_dev.cpu().numpy()
+        first_finished = np.array([int(t) in eos_ids or max_new_tokens <= 1 for t in tok0])
+        n = len(slot_ids)
+        insert_slots(
+            self.state, pcache, tok0_dev,
+            torch.tensor(slot_ids, dtype=torch.long, device=device),
+            torch.full((n,), t_real, dtype=torch.int32, device=device),
+            torch.from_numpy(first_finished).to(device),
+        )
+        return tok0, first_finished
+
+    @mesh_call
+    def decode(self, gen: GenerationConfig, n_steps: int) -> np.ndarray:
+        """``n_steps`` decode steps over every slot; the tokens ``[N,
+        n_steps]`` as numpy (the chunk's one read back to the host)."""
+        self.state, toks = decode_chunk(self.model.decoder, self.state, gen, n_steps)
+        return toks.cpu().numpy()
+
+
+@message_class
+class _SlotsBuilder:
+    """A rank's :class:`EngineSlots` over the model placed under ``handle``."""
+
+    def __init__(self, handle: int, n_slots: int, s_max: int, pad_token_id: int):
+        self.handle, self.args = handle, (n_slots, s_max, pad_token_id)
+
+    def __call__(self, mesh, objects) -> EngineSlots:
+        return EngineSlots(objects[self.handle], *self.args)
 
 
 class ContinuousEngine:
@@ -88,8 +154,7 @@ class ContinuousEngine:
         max_prompt = len(model.build_prompt_ids(
             model._num_audio_tokens(model.mel_window_frames())))
         self.s_max = -(-(max_prompt + gen.max_new_tokens + 1) // 16) * 16
-        self._state = init_slot_state(model.decoder, self.n_slots, self.s_max,
-                                      gen.pad_token_id)
+        self._device = EngineSlots.create(model, self.n_slots, self.s_max, gen.pad_token_id)
         # host-side per-slot bookkeeping: None = free
         self._slots: list[Optional[dict]] = [None] * self.n_slots
         self._free: list[int] = list(range(self.n_slots))
@@ -271,25 +336,15 @@ class ContinuousEngine:
         t_pad = model._bucket_prompt_len(t_real, n_audio)
         ids_np = np.full((n_real, t_pad), self.gen.pad_token_id, np.int64)
         ids_np[:, :t_real] = ids
-        device = model.device
-        input_ids = torch.from_numpy(ids_np).to(device)
         # allocate slots up front, commit only on success (a failed prefill
         # must not leak them)
         slot_ids = self._free[-n_real:]
         assert len(slot_ids) == n_real, "admitted more than free slots"
-        with self.lock, torch.inference_mode():
-            embeds = model._splice_embeds(feats["input_features"],
-                                          feats["audio_attention_mask"], input_ids)
-            tok0_dev, pcache = prefill_prompt_cache(model.decoder, embeds, t_real)
-            tok0 = tok0_dev.cpu().numpy()
-            first_finished = np.array([int(t) in self._eos or self.gen.max_new_tokens <= 1
-                                       for t in tok0])
-            insert_slots(
-                self._state, pcache, tok0_dev,
-                torch.tensor(slot_ids, dtype=torch.long, device=device),
-                torch.full((n_real,), t_real, dtype=torch.int32, device=device),
-                torch.from_numpy(first_finished).to(device),
-            )
+        with self.lock:
+            tok0, first_finished = self._device.prefill(
+                feats["input_features"], feats["audio_attention_mask"],
+                torch.from_numpy(ids_np), t_real, list(slot_ids), self._eos,
+                self.gen.max_new_tokens)
         del self._free[-n_real:]  # commit the allocation
         for i, (req, sid) in enumerate(zip(reqs, slot_ids)):
             slot = {"future": req["future"], "tokens": [int(tok0[i])], "done": False}
@@ -301,10 +356,8 @@ class ContinuousEngine:
                 self._slots[sid] = slot
 
     def _decode_one_chunk(self) -> None:
-        with self.lock:
-            self._state, toks = decode_chunk(self.model.decoder, self._state, self.gen,
-                                             self.chunk_steps)
-            toks = toks.cpu().numpy()  # the chunk's one read back to the host
+        with self.lock:  # the chunk's one read back to the host
+            toks = self._device.decode(self.gen, self.chunk_steps)
         for sid, slot in enumerate(self._slots):
             if slot is None:
                 continue

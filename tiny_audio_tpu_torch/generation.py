@@ -41,6 +41,7 @@ from typing import Iterator, Optional, Sequence
 import torch
 
 from tiny_audio_tpu_torch.models.decoder import Qwen3Decoder
+from tiny_audio_tpu_torch.models.layers import draw_for_rows
 from tiny_audio_tpu_torch.ops.fused_decode import fused_decode_step
 
 
@@ -161,7 +162,9 @@ def _select_token(logits: torch.Tensor, gen: GenerationConfig,
     if not gen.do_sample:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     filtered = _filter_logits(logits, gen)
-    u = torch.rand(filtered.shape, generator=generator, device=filtered.device)
+    # a dp rank draws the whole batch's uniforms and keeps its rows
+    u = draw_for_rows(filtered.shape, lambda shape: torch.rand(
+        shape, generator=generator, device=filtered.device))
     gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
     return torch.argmax(filtered + gumbel, dim=-1).to(torch.int32)
 

@@ -5,7 +5,10 @@ checkpoint of the JAX package's layout (:meth:`ASRModel.from_pretrained`)
 into an :class:`~tiny_audio_tpu_torch.pipeline.ASRPipeline` on the card;
 calling it with ``{"inputs": <bytes|array|path>, "parameters": {...}}``
 returns the pipeline's result dict.  The int8 decode modes are opt-in, by
-argument or environment variable.  There is no compile cache to enable:
+argument or environment variable.  ``tp``/``dp`` shard the towers over a
+``(dp, tp)`` grid of rank processes (:mod:`tiny_audio_tpu_torch.parallel`),
+one card each; the int8 modes are then ignored, as in the JAX package.
+There is no compile cache to enable:
 :meth:`warmup` runs every bucket once so that the first request does not
 pay for the kernels' build and the first use of each shape.
 """
@@ -34,12 +37,16 @@ class EndpointHandler:
         (``enable_w8a8_decode``, kernel #5; supersedes both); also
         ``TA_W8A8_DECODE=1``.
 
-        ``tp``/``dp`` > 1 (a device mesh) are not ported (ROADMAP.md Queue 1
-        #13) and raise."""
-        if tp > 1 or (dp or 1) > 1:
-            raise NotImplementedError(
-                "tp/dp > 1: multi-GPU serving is not ported to PyTorch yet "
-                "(ROADMAP.md Queue 1 #13)")
+        ``tp``/``dp``: shard the towers over a ``(dp, tp)`` grid of rank
+        processes (``parallel.mesh`` rules; the tp-sharded generate is
+        token-exact against one device in fp32).  The grid uses exactly
+        ``dp * tp`` devices, ``dp`` defaulting to 1: the first cards (NCCL),
+        or CPU ranks (gloo) for a model on the CPU.  A ``pipeline`` whose
+        model is placed on a mesh already (``model.place_on``, e.g. several
+        ranks sharing one card over gloo) stays on it, and its caller closes
+        it.  A mesh this handler made closes with :meth:`close` (and at
+        exit).  Defaults stay single-device."""
+        sharded = tp > 1 or (dp or 1) > 1
         if pipeline is not None:
             self.pipe = pipeline
         else:
@@ -48,11 +55,56 @@ class EndpointHandler:
 
             self.pipe = ASRPipeline(ASRModel.from_pretrained(path, device=device))
         if wq_decode or os.environ.get("TA_WQ_DECODE") == "1":
-            self.pipe.model.enable_wq_decode()
+            if sharded:
+                print("[handler] --wq-decode ignored under --tp/--dp "
+                      "(wq weights are unsharded; mesh serving stays bf16)")
+            else:
+                self.pipe.model.enable_wq_decode()
         if w8a8_head or os.environ.get("TA_W8A8_HEAD") == "1":
-            self.pipe.model.enable_w8a8_head()
+            if sharded:
+                print("[handler] --w8a8-head ignored under --tp/--dp "
+                      "(head_t_i8 is unsharded; mesh serving stays bf16)")
+            else:
+                self.pipe.model.enable_w8a8_head()
         if w8a8_decode or os.environ.get("TA_W8A8_DECODE") == "1":
-            self.pipe.model.enable_w8a8_decode()
+            if sharded:
+                print("[handler] --w8a8-decode ignored under --tp/--dp "
+                      "(the wq collection is unsharded; mesh serving "
+                      "stays bf16)")
+            else:
+                self.pipe.model.enable_w8a8_decode()
+        self.mesh = None
+        self._own_mesh = False
+        if sharded:
+            self._shard(path if pipeline is None else None, tp, dp or 1)
+
+    def _shard(self, path: Optional[str], tp: int, dp: int) -> None:
+        """Place the pipeline's model on a new ``(dp, tp)`` mesh of exactly
+        ``dp * tp`` devices, unless it is placed on one already."""
+        from tiny_audio_tpu_torch.models.asr import Pretrained
+        from tiny_audio_tpu_torch.parallel.mesh import check_grid, make_mesh
+
+        model = self.pipe.model
+        check_grid(model.config, tp)  # before any rank starts
+        if model.mesh is not None:  # placed already (by the caller)
+            if (model.mesh.dp, model.mesh.tp) != (dp, tp):
+                raise ValueError(f"the model is on mesh (dp={model.mesh.dp}, "
+                                 f"tp={model.mesh.tp}), not (dp={dp}, tp={tp})")
+            self.mesh = model.mesh
+            return
+        devices = ["cpu"] * (dp * tp) if model.device.type == "cpu" else None
+        self.mesh = mesh = make_mesh(dp=dp, tp=tp, devices=devices)
+        self._own_mesh = True
+        try:
+            model.place_on(mesh, Pretrained(path) if path else None)
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self) -> None:
+        """Stop the rank processes of a mesh this handler made."""
+        if self._own_mesh and self.mesh is not None:
+            self.mesh.close()
 
     def warmup(self, seconds: Optional[float] = None,
                longform: bool = True, batched: bool = False,

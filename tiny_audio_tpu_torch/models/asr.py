@@ -13,6 +13,18 @@ adapters in ``adapter.msgpack``); and its training half:
 dropout, projector and its aux loss, splice, causal decoder, shifted CE), with
 ``requires_grad`` following the optimizer's labels (frozen towers get no
 gradient), LoRA on the decoder and gradient checkpointing.
+
+On a ``(dp, tp)`` mesh (:meth:`ASRModel.place_on`, the JAX package's
+``shard_params``): every rank holds its shard, and rank 0's calls of
+:meth:`~ASRModel.generate`, :meth:`~ASRModel.generate_streaming`,
+:meth:`~ASRModel.prompt_logits` and :meth:`~ASRModel.save_pretrained` run
+on every rank (:mod:`tiny_audio_tpu_torch.parallel.launch`).  A batch is
+split over dp (padded to a multiple of dp by repeating rows) and the tokens
+gathered back; every rank of a dp row sees the full logits, so greedy picks,
+sampling draws (each rank draws from the same seeded generator) and
+``finished`` agree on every rank.  :meth:`~ASRModel.compute_loss` sums the
+token losses and counts over dp before dividing, with the vocabulary-
+parallel cross-entropy under tp.
 """
 
 from __future__ import annotations
@@ -45,9 +57,16 @@ from tiny_audio_tpu_torch.models.decoder import (
     quantize_decoder_wq,
 )
 from tiny_audio_tpu_torch.models.encoder import AudioEncoder
-from tiny_audio_tpu_torch.models.layers import sinusoidal_positions
+from tiny_audio_tpu_torch.models.layers import (
+    batch_rows,
+    draw_for_rows,
+    sinusoidal_positions,
+    tp_reduce,
+)
 from tiny_audio_tpu_torch.models.projectors import create_projector
 from tiny_audio_tpu_torch.ops.wq_head import quantize_head_w8a8
+from tiny_audio_tpu_torch.parallel.launch import mesh_call, mesh_stream
+from tiny_audio_tpu_torch.parallel.mesh import dp_rows, gather_params, shard_batch, shard_model
 
 TRANSCRIBE_PROMPT = "Transcribe the speech to text"
 
@@ -192,6 +211,8 @@ class ASRModel(nn.Module):
                     f"({config.kv_cache_dtype!r}) and DecoderConfig "
                     f"({dec_cfg.kv_cache_dtype!r})"
                 )
+        #: the mesh this model's shard is on (None: one device)
+        self.mesh = None
         self.encoder = AudioEncoder(config.encoder, dtype=dtype, device=self.device)
         self.projector = create_projector(config, dtype=dtype, device=self.device)
         self.decoder = Qwen3Decoder(dec_cfg, dtype=dtype, device=self.device)
@@ -275,16 +296,23 @@ class ASRModel(nn.Module):
     def wq(self, wq: Optional[dict]) -> None:
         self.decoder.wq = wq
 
+    def _no_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise ValueError(f"{what}: the int8 decode weights are unsharded; "
+                             "mesh serving stays bf16")
+
     def enable_wq_decode(self) -> None:
         """Opt-in weight-only int8 decode: every T == 1 layer projection and
         the one-position LM head read per-channel int8 weights (kernel #6);
         prefill keeps the bf16 weights.  A numerics trade, never a default."""
+        self._no_mesh("enable_wq_decode")
         self.wq = quantize_decoder_wq(self.decoder)
 
     def enable_w8a8_head(self) -> None:
         """Opt-in W8A8 LM head for one-position logits (kernel #5, int8
         activations too).  Composes with :meth:`enable_wq_decode`: the W8A8
         head then takes precedence, the layers keep their mode."""
+        self._no_mesh("enable_w8a8_head")
         wt_i8, scale = quantize_head_w8a8(head_kernel(self.decoder))
         wq = dict(self.wq) if self.wq is not None else {}
         wq["head_t_i8"], wq["head_w8a8_scale"] = wt_i8, scale
@@ -293,6 +321,7 @@ class ASRModel(nn.Module):
     def enable_w8a8_decode(self) -> None:
         """Opt-in W8A8 for every T == 1 product, layer projections and the
         head (kernel #5); supersedes the two modes above."""
+        self._no_mesh("enable_w8a8_decode")
         self.wq = quantize_decoder_w8a8(self.decoder)
 
     # ------------------------------------------------------------- audio path
@@ -315,8 +344,8 @@ class ASRModel(nn.Module):
                                   frame_mask=torch.as_tensor(audio_attention_mask, device=dev))
         p = float(self.config.audio_token_dropout)
         if train and p > 0.0:
-            keep = torch.bernoulli(torch.full(hidden.shape[:-1], 1.0 - p, device=dev),
-                                   generator=generator)
+            keep = draw_for_rows(hidden.shape[:-1], lambda shape: torch.bernoulli(
+                torch.full(shape, 1.0 - p, device=dev), generator=generator))
             hidden = hidden * keep[..., None].to(hidden.dtype)
         return self.projector(hidden, train=train, generator=generator)
 
@@ -344,7 +373,26 @@ class ASRModel(nn.Module):
         router jitter and QFormer dropout drawn from ``generator``).
         Returns ``(loss, {"ce_loss", "aux_loss", "num_label_tokens"})`` as
         0-d tensors.
+
+        On a mesh every rank gets the whole batch and takes its dp rows
+        (rows added to reach a multiple of dp carry no labels, and the
+        random draws are those of the whole batch); the loss is the sum of
+        the token losses over dp divided by their count over dp, the same on
+        every rank, whose backward gives each rank its rows' share.
         """
+        mesh = self.mesh
+        if mesh is None or mesh.dp == 1:
+            return self._loss(batch, train, generator, None)
+        n = len(batch["input_ids"])
+        start, stop, padded = dp_rows(n, mesh)
+        local = shard_batch(batch, mesh)
+        if stop > n:
+            pad_rows = torch.arange(start, stop, device=local["labels"].device) >= n
+            local["labels"] = torch.where(pad_rows[:, None], -100, local["labels"])
+        with batch_rows((start, stop - start, padded)):
+            return self._loss(local, train, generator, mesh.dp_axis)
+
+    def _loss(self, batch: dict, train: bool, generator, dp) -> tuple:
         dev = self.device
         as_long = lambda x: torch.as_tensor(x, device=dev).long()  # noqa: E731
         input_ids, labels, attn = (as_long(batch[key]) for key in
@@ -357,17 +405,39 @@ class ASRModel(nn.Module):
         inputs_embeds = splice_audio(text_embeds, input_ids == self.tokenizer.audio_token_id,
                                      audio_embeds)
         positions = torch.clamp(torch.cumsum(attn, dim=1) - 1, min=0)
-        logits = self.decoder(inputs_embeds, positions, padding_mask=attn)
+        logits = self.decoder(inputs_embeds, positions, padding_mask=attn, vocab_parallel=True)
 
         # shift: predict token t+1 from position t
         shift_labels = labels[:, 1:]
         valid = shift_labels != -100
-        logprobs = torch.log_softmax(logits[:, :-1].float(), dim=-1)
         safe_labels = torch.where(valid, shift_labels, 0)
-        token_ll = torch.gather(logprobs, -1, safe_labels[..., None])[..., 0]
+        tp = self.decoder.tp
+        if tp is None or tp.size == 1:
+            logprobs = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+            token_ll = torch.gather(logprobs, -1, safe_labels[..., None])[..., 0]
+        else:
+            token_ll = self._vocab_parallel_ll(logits[:, :-1].float(), safe_labels)
         n_valid = valid.sum()
-        ce = -(token_ll * valid).sum() / torch.clamp(n_valid, min=1)
+        if dp is None:
+            ce = -(token_ll * valid).sum() / torch.clamp(n_valid, min=1)
+        else:
+            n_valid = dp.all_reduce(n_valid)
+            ce = tp_reduce(-(token_ll * valid).sum() / torch.clamp(n_valid, min=1), dp)
         return ce + aux, {"ce_loss": ce, "aux_loss": aux, "num_label_tokens": n_valid}
+
+    def _vocab_parallel_ll(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """log p(label) from this rank's vocabulary slice of the logits
+        ``[B, T, V / tp]``: the max and the sum of exponentials, and the
+        label's logit from the rank that holds it, reduced over tp (the full
+        ``[B, T, V]`` is never gathered)."""
+        tp = self.decoder.tp
+        m = tp.all_reduce(logits.detach().amax(dim=-1), "max")
+        sum_exp = tp_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), tp)
+        local = labels - self.decoder.vocab_start
+        inside = (local >= 0) & (local < logits.shape[-1])
+        target = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])[..., 0]
+        target = tp_reduce(torch.where(inside, target, torch.zeros_like(target)), tp)
+        return target - m - torch.log(sum_exp)
 
     def _num_audio_tokens(self, mel_length: int) -> int:
         enc_len = compute_encoder_output_length(
@@ -412,6 +482,26 @@ class ASRModel(nn.Module):
 
     # -------------------------------------------------------------- inference
 
+    def _dp_split(self, *tensors: torch.Tensor):
+        """This rank's dp rows of each ``[B, ...]`` tensor (the batch padded
+        to a multiple of dp), and the ``(start, count, total)`` of
+        :func:`batch_rows` (None on one device or dp = 1)."""
+        mesh = self.mesh
+        if mesh is None or mesh.dp == 1:
+            return tensors, None
+        n = tensors[0].shape[0]
+        start, stop, padded = dp_rows(n, mesh)
+        local = shard_batch(dict(enumerate(tensors)), mesh)
+        return tuple(local[i] for i in range(len(tensors))), (start, stop - start, padded)
+
+    def _dp_gather(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        """Every dp row's rows of ``t`` back in batch order, the first ``n``."""
+        mesh = self.mesh
+        if mesh is None or mesh.dp == 1:
+            return t
+        return mesh.dp_axis.all_gather(t, 0)[:n]
+
+    @mesh_call
     @torch.inference_mode()
     def generate(
         self,
@@ -439,11 +529,64 @@ class ASRModel(nn.Module):
         greedy and sampling only, as in the JAX package."""
         input_features = torch.as_tensor(input_features, device=self.device)
         audio_attention_mask = torch.as_tensor(audio_attention_mask, device=self.device)
-        b = input_features.shape[0]
+        n_rows = input_features.shape[0]
         real_mel = (
             int(mel_length) if mel_length is not None
             else int(audio_attention_mask.sum(dim=-1).max())
         )
+        (input_features, audio_attention_mask), rows = self._dp_split(
+            input_features, audio_attention_mask)
+        with batch_rows(rows):
+            return self._generate(input_features, audio_attention_mask, real_mel, n_rows,
+                                  user_prompt, system_prompt, fused_decode, generator,
+                                  overrides)
+
+    def _prompt(self, input_features, audio_attention_mask, ids: list, n_audio: int,
+                pad_token_id: int, exact: bool = False):
+        """A prefill's input: the prompt ``ids`` right-padded to a
+        PROMPT_BUCKET multiple, as the JAX package pads it (pad rows are
+        causally invisible to the real rows; ``exact`` keeps the prompt as it
+        is, as beams do), its embeddings with the audio spliced in.  Returns
+        (inputs_embeds, input_ids, real prompt length)."""
+        b = input_features.shape[0]
+        t_real = len(ids)
+        t_pad = t_real if exact else self._bucket_prompt_len(t_real, n_audio)
+        ids_np = np.full((b, t_pad), pad_token_id, np.int64)
+        ids_np[:, :t_real] = ids
+        input_ids = torch.from_numpy(ids_np).to(self.device)
+        prompt_mask = torch.arange(t_pad, device=self.device)[None, :] < t_real
+
+        audio_embeds, _ = self._encode_audio(input_features, audio_attention_mask)
+        text_embeds = self.decoder.embed(input_ids)
+        audio_mask = (input_ids == self.tokenizer.audio_token_id) & prompt_mask
+        return splice_audio(text_embeds, audio_mask, audio_embeds), input_ids, t_real
+
+    @mesh_call
+    @torch.inference_mode()
+    def prompt_logits(self, input_features, audio_attention_mask,
+                      user_prompt: Optional[str] = None,
+                      system_prompt: Optional[str] = None) -> np.ndarray:
+        """The fp32 next-token logits ``[B, V]`` after the prompt, as numpy:
+        the prefill's output that greedy ``generate`` picks its first token
+        from (the same padded prompt and the same prefill)."""
+        input_features = torch.as_tensor(input_features, device=self.device)
+        audio_attention_mask = torch.as_tensor(audio_attention_mask, device=self.device)
+        n_rows = input_features.shape[0]
+        n_audio = self._num_audio_tokens(int(audio_attention_mask.sum(dim=-1).max()))
+        ids = self.build_prompt_ids(n_audio, user_prompt, system_prompt)
+        (input_features, audio_attention_mask), _ = self._dp_split(
+            input_features, audio_attention_mask)
+        inputs_embeds, _, t_real = self._prompt(input_features, audio_attention_mask, ids,
+                                                n_audio, self.gen_config.pad_token_id)
+        b, t, _ = inputs_embeds.shape
+        cache = self.decoder.init_cache(b, -(-t // 16) * 16)
+        positions = torch.arange(t, device=self.device).expand(b, t)
+        logits = self.decoder(inputs_embeds, positions, cache=cache, cache_index=0,
+                              last_logit_index=t_real - 1)[:, 0].float()
+        return self._dp_gather(logits, n_rows).cpu().numpy()
+
+    def _generate(self, input_features, audio_attention_mask, real_mel: int, n_rows: int,
+                  user_prompt, system_prompt, fused_decode, generator, overrides):
         n_audio = self._num_audio_tokens(real_mel)
         ids = self.build_prompt_ids(n_audio, user_prompt, system_prompt)
 
@@ -455,20 +598,8 @@ class ASRModel(nn.Module):
                 "beam search carries its own hypothesis scores"
             )
 
-        # Right-pad the prompt to a PROMPT_BUCKET multiple, as the JAX
-        # package does; pad rows are causally invisible to the real rows.
-        # Beams keep the exact prompt.
-        t_real = len(ids)
-        t_pad = t_real if beams else self._bucket_prompt_len(t_real, n_audio)
-        ids_np = np.full((b, t_pad), gen.pad_token_id, np.int64)
-        ids_np[:, :t_real] = ids
-        input_ids = torch.from_numpy(ids_np).to(self.device)
-        prompt_mask = torch.arange(t_pad, device=self.device)[None, :] < t_real
-
-        audio_embeds, _ = self._encode_audio(input_features, audio_attention_mask)
-        text_embeds = self.decoder.embed(input_ids)
-        audio_mask = (input_ids == self.tokenizer.audio_token_id) & prompt_mask
-        inputs_embeds = splice_audio(text_embeds, audio_mask, audio_embeds)
+        inputs_embeds, input_ids, t_real = self._prompt(
+            input_features, audio_attention_mask, ids, n_audio, gen.pad_token_id, exact=beams)
         if beams:
             wq, self.wq = self.wq, None  # beams keep full precision
             try:
@@ -476,14 +607,16 @@ class ASRModel(nn.Module):
                                            fused_decode=fused_decode)
             finally:
                 self.wq = wq
-            return tokens.cpu().numpy()
+            return self._dp_gather(tokens, n_rows).cpu().numpy()
         out = generate_tokens(self.decoder, inputs_embeds, input_ids, gen, prompt_len=t_real,
                               fused_decode=fused_decode, generator=generator)
         if gen.return_scores:
             tokens, _, scores = out
-            return tokens.cpu().numpy(), scores.cpu().numpy()
-        return out[0].cpu().numpy()
+            return (self._dp_gather(tokens, n_rows).cpu().numpy(),
+                    self._dp_gather(scores, n_rows).cpu().numpy())
+        return self._dp_gather(out[0], n_rows).cpu().numpy()
 
+    @mesh_stream
     @torch.inference_mode()
     def generate_streaming(
         self,
@@ -553,8 +686,33 @@ class ASRModel(nn.Module):
 
         yield from filter_think_stream(decoded_chunks())
 
+    # ----------------------------------------------------------------- mesh
+
+    def place_on(self, mesh, build=None) -> "ASRModel":
+        """Shard this model over ``mesh`` (rank 0's :class:`~tiny_audio_tpu_
+        torch.parallel.mesh.Mesh`): each other rank builds the same model
+        with ``build`` (``build(device) -> ASRModel``: :class:`Pretrained`,
+        :class:`Seeded`; default :class:`SavedWeights`, this model written
+        once to the mesh's temporary directory) and takes its shard, and this
+        one takes its own in place.  Raises
+        ``ValueError`` when tp does not divide what it splits, or when an int8
+        decode mode is on (the int8 weights are unsharded).  Returns self."""
+        from tiny_audio_tpu_torch.parallel.mesh import check_grid
+
+        check_grid(self.config, mesh.tp)
+        if self.mesh is not None:
+            raise ValueError(f"the model is on a mesh already ({self.mesh})")
+        if self.wq is not None:
+            raise ValueError("an int8 decode mode is on: the int8 decode weights are "
+                             "unsharded; mesh serving stays bf16 (set model.wq = None)")
+        if build is None:
+            build = SavedWeights.write(self, Path(mesh.spec.tmpdir) / f"model-{id(self)}")
+        mesh.place(self, _ShardBuilder(build), local=lambda: shard_model(self, mesh))
+        return self
+
     # ------------------------------------------------------------ persistence
 
+    @mesh_call
     def save_pretrained(self, save_directory, save_towers: bool = True) -> None:
         """The JAX package's checkpoint: ``config.json``,
         ``projector.msgpack``, ``adapter.msgpack`` (the LoRA leaves, when
@@ -562,11 +720,17 @@ class ASRModel(nn.Module):
         language model is frozen), ``towers.msgpack`` (encoder and base
         decoder) and ``tpu_metadata.json``, in flax's msgpack layout and the
         JAX params tree, so the JAX package's ``ASRModel.from_pretrained``
-        loads it."""
+        loads it.  A sharded model gathers its parameters over tp and rank 0
+        writes the single-device files."""
+        values = None
+        if self.mesh is not None:
+            values = gather_params(self)
+            if self.mesh.rank != 0:
+                return
         save_dir = Path(save_directory)
         save_dir.mkdir(parents=True, exist_ok=True)
         self.config.save_pretrained(save_dir)
-        params = state_dict_to_jax(self)
+        params = state_dict_to_jax(self, values)
         dec_base, dec_lora = split_lora(params["decoder"])
         msgpack_io.save(save_dir / "projector.msgpack", params["projector"])
         if dec_lora:
@@ -639,3 +803,58 @@ class ASRModel(nn.Module):
                 except Exception as e:
                     print(f"[asr] ecapa weights unusable ({e}); "
                           "diarization keeps the synthetic tier")
+
+
+class SavedWeights:
+    """``build(device)``: another model, written with :meth:`write` as a
+    checkpoint (:meth:`ASRModel.save_pretrained`, an HF tokenizer's files
+    beside it) and read back with
+    :meth:`ASRModel.from_pretrained`, with that model's generation settings."""
+
+    def __init__(self, path, gen_config: GenerationConfig, system_prompt):
+        self.path, self.gen_config, self.system_prompt = str(path), gen_config, system_prompt
+
+    @classmethod
+    def write(cls, model: ASRModel, path) -> "SavedWeights":
+        model.save_pretrained(path)
+        if isinstance(model.tokenizer, HFTokenizerAdapter):
+            model.tokenizer.tok.save_pretrained(str(path))
+        return cls(path, model.gen_config, model.system_prompt)
+
+    def __call__(self, device) -> ASRModel:
+        model = ASRModel.from_pretrained(self.path, device=device)
+        model.gen_config, model.system_prompt = self.gen_config, self.system_prompt
+        return model
+
+
+class Pretrained:
+    """``build(device)``: :meth:`ASRModel.from_pretrained` of ``path``."""
+
+    def __init__(self, path):
+        self.path = str(path)
+
+    def __call__(self, device) -> ASRModel:
+        return ASRModel.from_pretrained(self.path, device=device)
+
+
+class Seeded:
+    """``build(device)``: ``ASRModel(config, seed=seed)`` (the same weights
+    on every device of one kind)."""
+
+    def __init__(self, config: ASRConfig, seed: int = 0):
+        self.config, self.seed = config, seed
+
+    def __call__(self, device) -> ASRModel:
+        return ASRModel(self.config, seed=self.seed, device=device)
+
+
+class _ShardBuilder:
+    """A rank's shard: ``build`` on the rank's device, then ``shard_model``."""
+
+    def __init__(self, build):
+        self.build = build
+
+    def __call__(self, mesh, objects) -> ASRModel:
+        model = self.build(mesh.device)
+        shard_model(model, mesh)
+        return model

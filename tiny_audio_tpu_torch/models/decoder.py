@@ -19,6 +19,18 @@ the JAX package's names and layout, and every product of that projection
 ``cfg.gradient_checkpointing`` the blocks of a causal forward with grad
 enabled run under ``torch.utils.checkpoint`` (the JAX package's ``nn.remat``).
 
+Tensor parallelism (:func:`tiny_audio_tpu_torch.parallel.mesh.shard_model`):
+a block keeps its rank's ``num_heads / tp`` query heads and KV heads (the
+one KV head its query heads read when tp exceeds them); q/k/v/gate/up are
+column-parallel, o/down row-parallel with one all-reduce each (LoRA's
+``lora_b`` split with a column-parallel output, ``lora_a`` with a
+row-parallel input, whose delta joins the partial sums before the reduce);
+the embedding and the (tied) LM head hold the rank's vocabulary slice:
+:meth:`Qwen3Decoder.embed` masks the ids outside it and all-reduces,
+:meth:`Qwen3Decoder.logits` all-gathers the full ``[B, T, V]`` unless asked
+for the rank's slice (the vocabulary-parallel loss).  The cache holds the
+rank's KV heads.
+
 Int8 decode weights: ``Qwen3Decoder.wq`` holds the JAX package's ``wq``
 variables collection (:func:`quantize_decoder_wq`,
 :func:`quantize_decoder_w8a8`; None = off).  One-position products read it
@@ -42,7 +54,15 @@ from torch.utils.checkpoint import checkpoint
 
 from tiny_audio_tpu_torch.bridge import cast_leaf, host_array
 from tiny_audio_tpu_torch.config import DecoderConfig
-from tiny_audio_tpu_torch.models.layers import RMSNorm, apply_rotary, rms_norm, rotary_embed
+from tiny_audio_tpu_torch.models.layers import (
+    RMSNorm,
+    apply_rotary,
+    rms_norm,
+    rotary_embed,
+    tp_copy,
+    tp_gather,
+    tp_reduce,
+)
 from tiny_audio_tpu_torch.ops.attention import causal_self_attention, decode_step_attention
 from tiny_audio_tpu_torch.ops.decode_attention import write_cache_rows
 from tiny_audio_tpu_torch.ops.wq_head import (
@@ -54,6 +74,8 @@ from tiny_audio_tpu_torch.ops.wq_matmul import NT, quantize_weight, wq_matmul
 
 #: the block projections the int8 decode modes quantize
 PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+#: the row-parallel ones (their input is split over tp)
+ROW_PARALLEL = ("o_proj", "down_proj")
 
 
 def int8_matmul(x: torch.Tensor, wq: dict, name: str) -> Optional[torch.Tensor]:
@@ -101,23 +123,46 @@ class Qwen3Block(nn.Module):
                     (cfg.lora_rank, linear.out_features), dtype=torch.float32, device=device)))
         #: this layer's slice of ``Qwen3Decoder.wq["layers"]`` (None = off)
         self.wq: Optional[dict] = None
+        #: the tp axis of a sharded model (None: one device) and this
+        #: rank's head counts
+        self.tp = None
+        self.num_heads, self.num_kv_heads = cfg.num_heads, cfg.num_kv_heads
 
-    def dense(self, h: torch.Tensor, name: str) -> torch.Tensor:
+    def shard_axes(self, mesh) -> None:
+        """Take the rank's heads on ``mesh``'s tp axis (the weights were
+        sliced by ``shard_model``)."""
+        self.tp = mesh.tp_axis
+        self.num_heads = self.cfg.num_heads // mesh.tp
+        self.num_kv_heads = max(self.cfg.num_kv_heads // mesh.tp, 1)
+
+    def dense(self, h: torch.Tensor, name: str, hc: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
         """Projection ``name`` of ``h [B, T, K]``: a decode step (T == 1)
         reads this layer's int8 weights when there are any, else the bf16
-        ``nn.Linear``; plus the LoRA delta when ``name`` is a LoRA target."""
+        ``nn.Linear``; plus the LoRA delta when ``name`` is a LoRA target.
+        Under tp, ``hc`` is ``tp_copy(h)``, the input of a column-parallel
+        product, and a row-parallel one returns this rank's partial sum."""
+        hc = h if hc is None else hc
         y = None
         if self.wq is not None and h.shape[1] == 1:
-            y = int8_matmul(h[:, 0], self.wq, name)
+            y = int8_matmul(hc[:, 0], self.wq, name)
             if y is not None:
                 y = y[:, None].to(self.dtype)
         if y is None:
-            y = getattr(self, name)(h)
+            y = getattr(self, name)(hc)
         if self.cfg.lora_rank > 0 and name in self.cfg.lora_targets:
             a, b = getattr(self, f"{name}_lora_a"), getattr(self, f"{name}_lora_b")
-            delta = (h.float() @ a) @ b * (self.cfg.lora_alpha / self.cfg.lora_rank)
+            u = h.float() @ a
+            if name not in ROW_PARALLEL:
+                u = tp_copy(u, self.tp)  # b holds this rank's output slice
+            delta = u @ b * (self.cfg.lora_alpha / self.cfg.lora_rank)
             y = y + delta.to(y.dtype)
         return y
+
+    def row(self, h: torch.Tensor, name: str) -> torch.Tensor:
+        """A row-parallel projection: this rank's partial sum (LoRA's delta
+        included) all-reduced over tp."""
+        return tp_reduce(self.dense(h, name), self.tp)
 
     def forward(
         self,
@@ -157,9 +202,10 @@ class Qwen3Block(nn.Module):
         b, t, _ = x.shape
         hd = cfg.head_dim
         h = self.input_layernorm(x)
-        q = self.dense(h, "q_proj").reshape(b, t, cfg.num_heads, hd)
-        k = self.dense(h, "k_proj").reshape(b, t, cfg.num_kv_heads, hd)
-        v = self.dense(h, "v_proj").reshape(b, t, cfg.num_kv_heads, hd)
+        hc = tp_copy(h, self.tp)
+        q = self.dense(h, "q_proj", hc).reshape(b, t, self.num_heads, hd)
+        k = self.dense(h, "k_proj", hc).reshape(b, t, self.num_kv_heads, hd)
+        v = self.dense(h, "v_proj", hc).reshape(b, t, self.num_kv_heads, hd)
         if cfg.qk_norm:
             q = rms_norm(q, self.q_norm, cfg.rms_norm_eps)
             k = rms_norm(k, self.k_norm, cfg.rms_norm_eps)
@@ -169,12 +215,13 @@ class Qwen3Block(nn.Module):
         """The rest of the block after attention: output projection and
         residual, then the SwiGLU / GeGLU MLP with its pre-LN and residual."""
         b, t, _ = x.shape
-        x = x + self.dense(attn_out.reshape(b, t, -1), "o_proj")
+        x = x + self.row(attn_out.reshape(b, t, -1), "o_proj")
         h = self.post_attention_layernorm(x)
-        gate, up = self.dense(h, "gate_proj"), self.dense(h, "up_proj")
+        hc = tp_copy(h, self.tp)
+        gate, up = self.dense(h, "gate_proj", hc), self.dense(h, "up_proj", hc)
         silu = self.cfg.hidden_activation == "silu"
         act = F.silu(gate) if silu else F.gelu(gate, approximate="tanh")
-        return x + self.dense(act * up, "down_proj")
+        return x + self.row(act * up, "down_proj")
 
 
 class Qwen3Decoder(nn.Module):
@@ -207,6 +254,20 @@ class Qwen3Decoder(nn.Module):
                 cfg.hidden_size, cfg.vocab_size, bias=False, dtype=dtype, device=device
             )
         self.wq = None
+        #: the tp axis of a sharded model (None: one device), and the first
+        #: id of this rank's vocabulary slice
+        self.tp = None
+        self.vocab_start = 0
+
+    def shard_axes(self, mesh) -> None:
+        """Take the rank's vocabulary slice on ``mesh``'s tp axis."""
+        self.tp = mesh.tp_axis
+        self.vocab_start = mesh.tp_rank * (self.cfg.vocab_size // mesh.tp)
+
+    @property
+    def num_kv_heads(self) -> int:
+        """The KV heads this rank's cache holds."""
+        return self.layers[0].num_kv_heads
 
     @property
     def wq(self) -> Optional[dict]:
@@ -222,7 +283,14 @@ class Qwen3Decoder(nn.Module):
             layer.wq = None if layers is None else {name: buf[i] for name, buf in layers.items()}
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.embed_tokens(input_ids)
+        if self.tp is None:
+            return self.embed_tokens(input_ids)
+        # vocabulary-parallel: ids outside this rank's slice embed to 0, and
+        # the one rank that holds each id supplies it through the sum
+        local = input_ids - self.vocab_start
+        inside = (local >= 0) & (local < self.embed_tokens.num_embeddings)
+        e = self.embed_tokens(torch.where(inside, local, 0))
+        return tp_reduce(torch.where(inside[..., None], e, torch.zeros_like(e)), self.tp)
 
     def scale_inputs(self, inputs_embeds: torch.Tensor) -> torch.Tensor:
         """Embeddings in the compute dtype, times sqrt(hidden) for Gemma."""
@@ -232,18 +300,23 @@ class Qwen3Decoder(nn.Module):
             x = x * torch.tensor(self.cfg.hidden_size ** 0.5, dtype=self.dtype)
         return x
 
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
+    def logits(self, x: torch.Tensor, vocab_parallel: bool = False) -> torch.Tensor:
         """Final norm and the (tied) LM head.  One position reads the int8
         head of ``wq`` when there is one (bf16 logits, sliced to the
-        vocabulary: the int8 head is padded)."""
+        vocabulary: the int8 head is padded).  Under tp the full ``[B, T, V]``
+        is gathered from the ranks' slices, unless ``vocab_parallel`` asks
+        for this rank's ``[B, T, V / tp]``."""
         x = self.norm(x)
         if self.wq is not None and x.shape[1] == 1:
             y = int8_matmul(x[:, 0], self.wq, "head")
             if y is not None:
                 return y[:, None, : self.cfg.vocab_size]
+        x = tp_copy(x, self.tp)
         if self.cfg.tie_word_embeddings:
-            return F.linear(x, self.embed_tokens.weight)
-        return self.lm_head(x)
+            y = F.linear(x, self.embed_tokens.weight)
+        else:
+            y = self.lm_head(x)
+        return y if vocab_parallel else tp_gather(y, self.tp)
 
     def forward(
         self,
@@ -254,8 +327,10 @@ class Qwen3Decoder(nn.Module):
         cache: Optional[dict] = None,
         cache_index: Union[int, torch.Tensor] = 0,
         last_logit_index: Optional[int] = None,
+        vocab_parallel: bool = False,
     ) -> torch.Tensor:
-        """Returns logits [B, T', V] (T' = 1 with ``last_logit_index``)."""
+        """Returns logits [B, T', V] (T' = 1 with ``last_logit_index``;
+        V / tp of them with ``vocab_parallel``, see :meth:`logits`)."""
         cfg = self.cfg
         cos, sin = rotary_embed(positions, cfg.head_dim, cfg.rope_theta)
         x = self.scale_inputs(inputs_embeds)
@@ -280,12 +355,12 @@ class Qwen3Decoder(nn.Module):
                           kv_len)
         if last_logit_index is not None:
             x = x[:, last_logit_index : last_logit_index + 1]
-        return self.logits(x)
+        return self.logits(x, vocab_parallel)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         cfg = self.cfg
         device = self.embed_tokens.weight.device
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        shape = (cfg.num_layers, batch, max_len, self.num_kv_heads, cfg.head_dim)
         if cfg.kv_cache_dtype == "int8":
             return {
                 "k": torch.zeros(shape, dtype=torch.int8, device=device),

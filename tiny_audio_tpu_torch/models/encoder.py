@@ -5,7 +5,10 @@ from ``EncoderConfig.conv_layers`` (a GELU after each conv), sinusoidal
 positions, pre-LN transformer blocks with biased q/v projections (k has no
 bias) and a final LayerNorm.  One module per layer.  Self-attention goes to
 the encoder attention kernel for CUDA tensors
-(:func:`tiny_audio_tpu_torch.ops.attention.encoder_self_attention`).
+(:func:`tiny_audio_tpu_torch.ops.attention.encoder_self_attention`).  Under
+tp a block keeps its rank's ``num_heads / tp`` heads: q/k/v and fc1 are
+column-parallel (the q, v and fc1 biases split with them), out_proj and fc2
+row-parallel with their whole biases added once after the all-reduce.
 
 The HF converters (:func:`convert_hf_audio_encoder` and the functions it
 uses) are the JAX package's: they build its params tree, which
@@ -22,7 +25,7 @@ from torch import nn
 
 from tiny_audio_tpu_torch.bridge import cast_leaf, host_array
 from tiny_audio_tpu_torch.config import EncoderConfig, compute_encoder_output_length
-from tiny_audio_tpu_torch.models.layers import sinusoidal_positions
+from tiny_audio_tpu_torch.models.layers import row_linear, sinusoidal_positions, tp_copy
 from tiny_audio_tpu_torch.ops.attention import encoder_self_attention
 
 
@@ -71,24 +74,31 @@ class EncoderBlock(nn.Module):
         self.final_layer_norm = LayerNorm(d, cfg.layer_norm_eps, device=device)
         self.fc1 = nn.Linear(d, cfg.ffn_dim, **kw)
         self.fc2 = nn.Linear(cfg.ffn_dim, d, **kw)
+        #: the tp axis of a sharded model (None: one device), this rank's heads
+        self.tp = None
+        self.num_heads = cfg.num_heads
+
+    def shard_axes(self, mesh) -> None:
+        self.tp = mesh.tp_axis
+        self.num_heads = self.cfg.num_heads // mesh.tp
 
     def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
         b, t, _ = x.shape
-        h, hd = cfg.num_heads, cfg.head_dim
+        h, hd = self.num_heads, cfg.head_dim
 
         residual = x
-        x = self.self_attn_layer_norm(x)
+        x = tp_copy(self.self_attn_layer_norm(x), self.tp)
         # packed [B, T, H*D] straight from the projections; the reshape is a view
         q = self.q_proj(x).reshape(b, t, h, hd)
         k = self.k_proj(x).reshape(b, t, h, hd)
         v = self.v_proj(x).reshape(b, t, h, hd)
         out = encoder_self_attention(q, k, v, padding_mask)
-        x = residual + self.out_proj(out.reshape(b, t, h * hd))
+        x = residual + row_linear(out.reshape(b, t, h * hd), self.out_proj, self.tp)
 
         residual = x
-        x = self.final_layer_norm(x)
-        x = self.fc2(_gelu(self.fc1(x), cfg))
+        x = tp_copy(self.final_layer_norm(x), self.tp)
+        x = row_linear(_gelu(self.fc1(x), cfg), self.fc2, self.tp)
         return residual + x
 
 

@@ -1,17 +1,30 @@
-"""Shared building blocks: RMSNorm, rotary embeddings, the attention oracle.
+"""Shared building blocks: RMSNorm, rotary embeddings, the attention oracle,
+and the tensor-parallel application of a projection.
 
 Port of :mod:`tiny_audio_tpu.models.layers`.  Attention math keeps its
 products and softmax in float32 even for bf16 inputs: a bf16 matmul in
 PyTorch rounds its output to bf16, so the oracle upcasts its operands (exact)
 where the JAX code asks for ``preferred_element_type=float32``.
+
+Tensor parallelism (a module's ``tp``: the tp :class:`~tiny_audio_tpu_torch.
+parallel.mesh.Axis` of a sharded model, None on one device): the input of a
+column-parallel projection goes through :func:`tp_copy` (identity; its
+gradient is summed over the axis), a row-parallel product's partial sums
+through :func:`tp_reduce` (all-reduce; the gradient passes as it is), the
+vocabulary-parallel logits through :func:`tp_gather`.  Every rank computes
+the same loss from replicated activations, so these are the gradients of
+the one model (Megatron-LM's f and g operators).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # Large-negative mask value; -0.7*float32_max avoids NaN from (-inf) - (-inf)
@@ -114,6 +127,95 @@ def attention(
         v.to(torch.float32),
     )
     return out.reshape(b, tq, hq, d).to(q.dtype)
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.all_reduce(grad), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.width = axis, dim, x.shape[dim]
+        return axis.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        own = grad.narrow(ctx.dim, ctx.axis.index * ctx.width, ctx.width)
+        return own.contiguous(), None, None
+
+
+def tp_copy(x: torch.Tensor, axis) -> torch.Tensor:
+    """The replicated input of a column-parallel product (None: ``x``)."""
+    return x if axis is None else _Copy.apply(x, axis)
+
+
+def tp_reduce(x: torch.Tensor, axis) -> torch.Tensor:
+    """The sum over the axis of row-parallel partial sums (None: ``x``)."""
+    return x if axis is None else _Reduce.apply(x, axis)
+
+
+def tp_gather(x: torch.Tensor, axis, dim: int = -1) -> torch.Tensor:
+    """Every rank's slice of ``x`` along ``dim``, concatenated in axis order
+    (None: ``x``)."""
+    return x if axis is None else _Gather.apply(x, axis, dim % x.ndim)
+
+
+def row_linear(x: torch.Tensor, linear: nn.Linear, axis) -> torch.Tensor:
+    """A row-parallel ``nn.Linear`` (its weight holds this rank's input
+    slice): the partial products summed over the axis, then the (whole)
+    bias added once.  One rank, or no axis, is the module's own call."""
+    if axis is None or axis.size == 1:
+        return tp_reduce(linear(x), axis)
+    y = tp_reduce(F.linear(x, linear.weight), axis)
+    return y if linear.bias is None else y + linear.bias
+
+
+_ROWS = threading.local()
+
+
+@contextlib.contextmanager
+def batch_rows(rows: Optional[tuple[int, int, int]]):
+    """While active, :func:`draw_for_rows` draws for rows ``[start, start +
+    count)`` of a ``total``-row batch (``rows = (start, count, total)``: a
+    dp rank's slice); None draws for the batch as it is."""
+    prev = getattr(_ROWS, "value", None)
+    _ROWS.value = rows
+    try:
+        yield
+    finally:
+        _ROWS.value = prev
+
+
+def draw_for_rows(shape, draw: Callable) -> torch.Tensor:
+    """``draw(shape)``, a random draw whose leading axis runs over the batch
+    rows (``k`` entries a row).  Under :func:`batch_rows` it draws for the
+    whole batch and keeps this rank's rows, so that a dp rank's draws are the
+    ones a single device would make for those rows."""
+    rows = getattr(_ROWS, "value", None)
+    if rows is None:
+        return draw(shape)
+    start, count, total = rows
+    per = shape[0] // count
+    full = draw((per * total, *shape[1:]))
+    return full[per * start: per * (start + count)]
 
 
 def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:

@@ -21,6 +21,13 @@ Weights are kept in fp32 and cast to the compute dtype at use, as flax
 JAX params tree, so :mod:`tiny_audio_tpu_torch.bridge` carries them by name
 (the stacked MoE experts keep flax's ``[E, in, out]`` layout).  The expert
 products and QFormer's attention are plain PyTorch.
+
+On a mesh the MoE projector holds its rank's ``E / tp`` experts (expert
+parallelism) and all-reduces the gate-weighted sum; its router loss sums the
+router's statistics over dp before the nonlinear terms.  The other
+projectors are replicated.  Every draw goes through
+:func:`~tiny_audio_tpu_torch.models.layers.draw_for_rows`, so a dp rank
+draws what one device draws for its rows.
 """
 
 from __future__ import annotations
@@ -33,7 +40,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from tiny_audio_tpu_torch.config import ASRConfig
-from tiny_audio_tpu_torch.models.layers import RMSNorm, attention
+from tiny_audio_tpu_torch.models.layers import (
+    RMSNorm,
+    attention,
+    draw_for_rows,
+    tp_copy,
+    tp_reduce,
+)
 
 F32 = torch.float32
 
@@ -76,8 +89,9 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     if not train or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.bernoulli(torch.full(x.shape, keep_prob, dtype=F32, device=x.device),
-                           generator=_need_generator(generator, "dropout masks"))
+    generator = _need_generator(generator, "dropout masks")
+    keep = draw_for_rows(x.shape, lambda shape: torch.bernoulli(
+        torch.full(shape, keep_prob, dtype=F32, device=x.device), generator=generator))
     return torch.where(keep.to(torch.bool), x / keep_prob, torch.zeros_like(x))
 
 
@@ -241,6 +255,15 @@ class MoEProjector(nn.Module):
         self.experts_fc1_bias = param(e, hidden)
         self.experts_fc2_kernel = param(e, hidden, out_dim)
         self.experts_fc2_bias = param(e, out_dim)
+        #: on a mesh: the tp axis (this rank's experts from ``expert_start``)
+        #: and the dp axis (the router loss's sums)
+        self.tp = self.dp = None
+        self.expert_start = 0
+
+    def shard_axes(self, mesh) -> None:
+        self.tp = mesh.tp_axis
+        self.dp = mesh.dp_axis if mesh.dp > 1 else None
+        self.expert_start = mesh.tp_rank * (self.cfg.num_experts // mesh.tp)
 
     def get_output_length(self, input_length):
         k = self.cfg.projector_pool_stride
@@ -253,26 +276,41 @@ class MoEProjector(nn.Module):
         logits = self.router(x).to(F32)
         if train and cfg.router_jitter_noise > 0:
             eps = cfg.router_jitter_noise
-            noise = torch.empty(logits.shape, dtype=F32, device=logits.device)
-            noise.uniform_(1.0 - eps, 1.0 + eps,
-                           generator=_need_generator(generator, "router jitter"))
+            generator = _need_generator(generator, "router jitter")
+            noise = draw_for_rows(logits.shape, lambda shape: torch.empty(
+                shape, dtype=F32, device=logits.device).uniform_(
+                    1.0 - eps, 1.0 + eps, generator=generator))
             logits = logits * noise
         probs = self.router_probs(torch.softmax(logits, dim=-1))  # fp32 [B, T, E]
         gate = moe_gate(probs, cfg.num_experts_per_tok)
 
         shared = self.shared_expert(x)
-        h = torch.einsum("bti,eih->bteh", x, self.experts_fc1_kernel.to(dt))
+        xe, ge = x, gate
+        if self.tp is not None:  # this rank's experts; the sum reduced below
+            n_local = self.experts_fc1_kernel.shape[0]
+            xe = tp_copy(x, self.tp)
+            ge = tp_copy(gate, self.tp)[..., self.expert_start:self.expert_start + n_local]
+        h = torch.einsum("bti,eih->bteh", xe, self.experts_fc1_kernel.to(dt))
         h = F.gelu(h + self.experts_fc1_bias.to(dt)[None, None])
         eo = torch.einsum("bteh,eho->bteo", h, self.experts_fc2_kernel.to(dt))
         eo = eo + self.experts_fc2_bias.to(dt)[None, None]
-        sparse = torch.einsum("bteo,bte->bto", eo, gate.to(dt))
+        sparse = tp_reduce(torch.einsum("bteo,bte->bto", eo, ge.to(dt)), self.tp)
 
         aux = _zero_aux(x)
         if train:
             e = cfg.num_experts
-            prob_per_expert = probs.reshape(-1, e).mean(dim=0)
+            lse2 = torch.logsumexp(logits, dim=-1) ** 2
+            if self.dp is None:
+                prob_per_expert = probs.reshape(-1, e).mean(dim=0)
+                z_mean = torch.mean(lse2)
+            else:
+                # nonlinear in the means over the whole batch: reduce the
+                # sums and the count over dp first
+                count = self.dp.all_reduce(torch.tensor(float(lse2.numel()), device=x.device))
+                prob_per_expert = tp_reduce(probs.reshape(-1, e).sum(dim=0), self.dp) / count
+                z_mean = tp_reduce(lse2.sum(), self.dp) / count
             balance = cfg.router_aux_loss_coef * torch.mean((prob_per_expert - 1.0 / e) ** 2) * e
-            z = cfg.router_z_loss_coef * torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+            z = cfg.router_z_loss_coef * z_mean
             aux = balance + z
         return shared + sparse, aux
 

@@ -248,8 +248,10 @@ def serve(model_path: str, host: str = "0.0.0.0", port: int = 8000,
     requests join and leave between decode chunks; it falls back to
     ``"dynamic"`` when the model's generation config is not the greedy
     serving default) or ``"none"`` (the lock-serialized solo path only);
-    ``dynamic_batching=False`` means ``"none"``.  ``tp``/``dp`` meshes
-    (ROADMAP.md Queue 1 #13) are not ported and raise.  ``realtime_port``:
+    ``dynamic_batching=False`` means ``"none"``.  ``tp``/``dp``: shard the
+    towers over a ``(dp, tp)`` grid of exactly ``dp * tp`` cards, ``dp``
+    defaulting to 1 (:class:`~tiny_audio_tpu_torch.handler.EndpointHandler`);
+    every engine runs unchanged on rank 0.  ``realtime_port``:
     also run the realtime WebSocket server
     (:class:`~tiny_audio_tpu_torch.realtime.RealtimeServer`) on that port, on
     this server's pipeline, lock and batcher (either engine); ``/metrics`` then
@@ -272,6 +274,8 @@ def serve(model_path: str, host: str = "0.0.0.0", port: int = 8000,
             ("w8a8 head", "head_t_i8" in wq_vars),
         ) if on]
         print(f"[serve] int8 decode enabled: {', '.join(modes)}")
+    if handler.mesh is not None:
+        print(f"[serve] towers sharded over mesh {handler.mesh.shape}")
     batcher = None
     if engine == "continuous":
         # Construct (= check the generation config) before warmup, so that a
@@ -332,3 +336,4 @@ def serve(model_path: str, host: str = "0.0.0.0", port: int = 8000,
         if batcher is not None:
             batcher.close()
         server.shutdown()
+        handler.close()

@@ -18,6 +18,13 @@ clip_by_global_norm, multi_transform({label: adamw})))``):
 
 Parameters are addressed by their names in the model (``named_parameters``);
 :func:`param_labels` labels them as the JAX package labels its params tree.
+
+On a mesh (a model placed with ``ASRModel.place_on``) each rank's optimizer
+holds its shard's parameters and moments; :class:`MeshGrads` completes the
+gradients (over tp where a replicated leaf saw only the rank's slice, then
+an all-reduce over dp), sums the squares of split leaves over tp and counts
+replicated leaves once for the global norm, and decides the non-finite skip
+over every rank, so every rank takes the same update.
 """
 
 from __future__ import annotations
@@ -29,11 +36,14 @@ from typing import Callable, Optional
 import torch
 
 from tiny_audio_tpu_torch.models.asr import is_frozen
+from tiny_audio_tpu_torch.parallel.launch import message_class
+from tiny_audio_tpu_torch.parallel.mesh import grad_reduction, kv_replicas, slice_named, split_plans
 
 MAX_CONSECUTIVE_ERRORS = 100  # optax.apply_if_finite's budget in the JAX package
 GROUPS = ("other_decay", "other_nodecay", "decoder_decay", "decoder_nodecay")
 
 
+@message_class
 @dataclass
 class OptimizerConfig:
     learning_rate: float = 1e-3
@@ -105,6 +115,72 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
 
 
+def _flat_all_reduce(axis, tensors: list) -> list:
+    """Sum a list of tensors over ``axis`` in one all-reduce (fp32)."""
+    if not tensors:
+        return []
+    flat = axis.all_reduce(torch.cat([t.float().flatten() for t in tensors]))
+    out, i = [], 0
+    for t in tensors:
+        out.append(flat[i:i + t.numel()].view(t.shape).to(t.dtype))
+        i += t.numel()
+    return out
+
+
+class MeshGrads:
+    """The gradients of a sharded model's trainable parameters made those
+    of the one model (``parallel.mesh.grad_reduction``: completed over tp,
+    then summed over dp), their global norm and their finiteness, the same
+    on every rank."""
+
+    def __init__(self, model, names):
+        self.model = model
+        self.mesh = model.mesh
+        plans = split_plans(model)
+        self.kind = {n: grad_reduction(model, n) for n in names}
+        self.split_dim = {n: plans[n][1] for n in names}
+        self.kv_replicas = kv_replicas(model)
+
+    def reduce(self, grads: dict) -> dict:
+        mesh = self.mesh
+        grads = dict(grads)
+        # over tp, in one all-reduce: the replicated leaves used on this
+        # rank's slice only ("sum"), and the KV heads several ranks hold
+        # ("kv": each rank's gradient at its head's place in a zero tensor of
+        # the full leaf, so that the sum holds every head's total)
+        kv = {n: g.new_zeros(self.model.full_shapes[n])
+              for n, g in grads.items() if self.kind[n] == "kv"}
+        for n, own in slice_named(self.model, kv).items():
+            own.copy_(grads[n])
+        over_tp = {**{n: g for n, g in grads.items() if self.kind[n] == "sum"}, **kv}
+        over_tp = dict(zip(over_tp, _flat_all_reduce(mesh.tp_axis, list(over_tp.values()))))
+        grads.update(over_tp)
+        grads.update((n, own.contiguous()) for n, own in
+                     slice_named(self.model, {n: over_tp[n] for n in kv}).items())
+        if mesh.dp > 1:
+            grads = dict(zip(grads, _flat_all_reduce(mesh.dp_axis, list(grads.values()))))
+        return grads
+
+    def norm(self, grads: dict) -> torch.Tensor:
+        """sqrt of the sum of squares of the one model's gradient: split
+        leaves summed over tp (a KV head held by r ranks weighted 1 / r),
+        replicated leaves counted once."""
+        device = next(iter(grads.values())).device
+        replicated = torch.zeros((), dtype=torch.float32, device=device)
+        split = torch.zeros((), dtype=torch.float32, device=device)
+        for n, g in grads.items():
+            sq = torch.sum(g.float() ** 2)
+            if self.split_dim[n] is None:
+                replicated = replicated + sq
+            else:
+                split = split + (sq / self.kv_replicas if self.kind[n] == "kv" else sq)
+        return torch.sqrt(replicated + self.mesh.tp_axis.all_reduce(split))
+
+    def finite(self, grads: dict) -> bool:
+        bad = torch.stack([~torch.isfinite(g).all() for g in grads.values()]).sum()
+        return int(self.mesh.world_axis.all_reduce(bad)) == 0
+
+
 class GroupedAdamW:
     """The JAX package's optimizer over named parameters (see the module
     docstring).  :meth:`step` takes the gradients of the trainable
@@ -126,6 +202,8 @@ class GroupedAdamW:
                              "decoder_decay": dec_wd, "decoder_nodecay": 0.0}
         self.params = {n: p for n, p in params.items() if labels[n] != "frozen"}
         self.labels = {n: labels[n] for n in self.params}
+        #: a sharded model's MeshGrads (set by build_optimizer), else None
+        self.mesh_grads: Optional[MeshGrads] = None
         self.state = {
             "count": {g: 0 for g in GROUPS},
             "mu": {n: torch.zeros_like(p) for n, p in self.params.items()},
@@ -134,11 +212,26 @@ class GroupedAdamW:
             "total_notfinite": 0,
         }
 
+    def reduce(self, grads: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """The one model's gradients from this rank's (as they are on one
+        device)."""
+        return grads if self.mesh_grads is None else self.mesh_grads.reduce(grads)
+
+    def grad_norm(self, grads: dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of the (reduced) gradients."""
+        if self.mesh_grads is None:
+            return global_norm(grads.values())
+        return self.mesh_grads.norm(grads)
+
     def step(self, grads: dict[str, torch.Tensor]) -> bool:
         """One update from ``grads`` (a tensor for every trainable
-        parameter).  Returns False when a non-finite gradient skipped it."""
+        parameter, reduced on a mesh).  Returns False when a non-finite
+        gradient skipped it."""
         grads = {n: grads[n] for n in self.params}
-        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads.values()]).all())
+        if self.mesh_grads is None:
+            finite = bool(torch.stack([torch.isfinite(g).all() for g in grads.values()]).all())
+        else:
+            finite = self.mesh_grads.finite(grads)
         st = self.state
         st["notfinite_count"] = 0 if finite else st["notfinite_count"] + 1
         if not finite:
@@ -146,7 +239,7 @@ class GroupedAdamW:
             if st["notfinite_count"] <= MAX_CONSECUTIVE_ERRORS:
                 return False
         opt = self.opt
-        norm = global_norm(grads.values())
+        norm = self.grad_norm(grads)
         if not bool(norm < opt.max_grad_norm):
             grads = {n: g / norm.to(g.dtype) * opt.max_grad_norm for n, g in grads.items()}
         b1, b2 = opt.adam_beta1, opt.adam_beta2
@@ -188,7 +281,10 @@ def build_optimizer(config, opt: OptimizerConfig, model: torch.nn.Module):
     """(optimizer, labels) for an ``ASRModel``: AdamW per label group,
     global-norm clipping, the non-finite skip; frozen parameters untouched."""
     labels = param_labels(model, config)
-    return GroupedAdamW(dict(model.named_parameters()), labels, opt), labels
+    optimizer = GroupedAdamW(dict(model.named_parameters()), labels, opt)
+    if getattr(model, "mesh", None) is not None:
+        optimizer.mesh_grads = MeshGrads(model, list(optimizer.params))
+    return optimizer, labels
 
 
 def _loss_and_grads(model, optimizer: GroupedAdamW, batch: dict, generator):
@@ -213,7 +309,8 @@ def make_train_step(model, optimizer: GroupedAdamW):
 
     def train_step(batch: dict, generator=None):
         loss, metrics, grads = _loss_and_grads(model, optimizer, batch, generator)
-        metrics["grad_norm"] = global_norm(grads.values())
+        grads = optimizer.reduce(grads)
+        metrics["grad_norm"] = optimizer.grad_norm(grads)
         optimizer.step(grads)
         return loss, metrics
 
@@ -243,8 +340,9 @@ def make_accum_steps(model, optimizer: GroupedAdamW, accum_steps: int):
 
     def update_step(accum: dict, batch: dict, generator=None):
         loss, metrics = accumulate_step(accum, batch, generator)
-        mean = {n: (a * inv).to(optimizer.params[n].dtype) for n, a in accum.items()}
-        metrics["grad_norm"] = global_norm(mean.values())
+        mean = optimizer.reduce(
+            {n: (a * inv).to(optimizer.params[n].dtype) for n, a in accum.items()})
+        metrics["grad_norm"] = optimizer.grad_norm(mean)
         optimizer.step(mean)
         for a in accum.values():
             a.zero_()

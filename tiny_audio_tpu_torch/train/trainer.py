@@ -1,6 +1,6 @@
-"""Training loop on one device: accumulation, NaN watchdog, checkpoints.
+"""Training loop: accumulation, NaN watchdog, checkpoints, a ``(dp, tp)`` grid.
 
-Port of :mod:`tiny_audio_tpu.train.trainer` to PyTorch on one card:
+Port of :mod:`tiny_audio_tpu.train.trainer` to PyTorch:
 
 - the same host loop: a shuffled ``batch_iterator`` (numpy
   ``default_rng(seed)``, so the batch order equals the JAX package's) run by
@@ -11,13 +11,19 @@ Port of :mod:`tiny_audio_tpu.train.trainer` to PyTorch on one card:
   non-finite run; ``logging_steps`` records to ``metrics.jsonl`` (and W&B
   when installed and asked for); ``evaluate`` under ``no_grad``; early
   stopping on eval loss;
-- one device only: ``dp``/``tp`` other than None/1 raise
-  ``NotImplementedError`` (multi-GPU is queued in ROADMAP.md);
+- ``dp``/``tp``: the model is sharded over a grid of ``dp * tp`` rank
+  processes (``dp`` defaulting to the card count over tp, one on the CPU),
+  the global batch is ``per_device_batch_size * dp`` rows and each dp rank
+  takes its rows (:meth:`ASRModel.compute_loss`); the host loop, the data
+  and the checkpoints stay on rank 0, and every step, evaluation and
+  checkpoint gather runs on every rank (:class:`RankTrainer`);
 - resume checkpoints are the port's own format, not Orbax's:
   ``checkpoints/<step>/state.pt`` holds the trainable parameters by name,
   the optimizer state and the step (``torch.save``), at most
   ``save_total_limit`` of them; ``model/`` beside them is
-  ``save_pretrained(save_towers=False)`` in the JAX package's layout.
+  ``save_pretrained(save_towers=False)`` in the JAX package's layout.  On a
+  grid both hold the full (gathered) tensors, as one device writes them,
+  and a resume slices each rank's shard from them.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from tiny_audio_tpu_torch.parallel.launch import mesh_call, message_class
+from tiny_audio_tpu_torch.parallel.mesh import gather_named, slice_named
 from tiny_audio_tpu_torch.train.optim import (
     OptimizerConfig,
     build_optimizer,
@@ -44,6 +52,7 @@ from tiny_audio_tpu_torch.train.optim import (
 )
 
 
+@message_class
 @dataclass
 class TrainingConfig:
     """HF ``TrainingArguments`` analogue (the JAX package's fields)."""
@@ -61,7 +70,7 @@ class TrainingConfig:
     resume_from_checkpoint: bool = False
     group_by_length: bool = False
     seed: int = 0
-    # mesh: one device only in the port
+    # mesh: dp defaults to the device count over tp (one on the CPU)
     dp: Optional[int] = None
     tp: int = 1
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
@@ -214,8 +223,94 @@ def batch_iterator(
             pool.shutdown(wait=False)
 
 
+class RankTrainer:
+    """A rank's part of training: its model (shard), the optimizer over its
+    trainable parameters, the accumulator and the generator of its draws.
+    On a grid, rank 0's :class:`Trainer` calls these methods and every rank
+    runs them (``parallel.launch.mesh_call``); on one device they run here."""
+
+    def __init__(self, model, config: TrainingConfig):
+        self.model = model
+        self.mesh = model.mesh
+        opt_cfg = dataclasses.replace(config.optimizer, total_steps=config.max_steps)
+        self.optimizer, self.param_labels = build_optimizer(model.config, opt_cfg, model)
+        self.accum = max(config.gradient_accumulation_steps, 1)
+        self.grad_accum = None
+        self.generator = None
+        if self.accum > 1:
+            self.grad_accum = init_grad_accum(self.optimizer)
+            self._steps = dict(zip(("accumulate", "update"), make_accum_steps(
+                model, self.optimizer, self.accum)))
+        else:
+            self._steps = {"train": make_train_step(model, self.optimizer)}
+
+    @mesh_call
+    def seed(self, seed: int) -> None:
+        """A fresh generator for the train-mode draws (the same on every rank:
+        each draws for the whole batch and keeps its rows)."""
+        self.generator = torch.Generator(device=self.model.device).manual_seed(seed)
+
+    @mesh_call
+    def step(self, kind: str, batch: dict):
+        """One micro-step: ``"train"`` (no accumulation), ``"accumulate"``
+        or ``"update"``; returns (loss, metrics) as device tensors."""
+        if kind == "train":
+            return self._steps["train"](batch, self.generator)
+        return self._steps[kind](self.grad_accum, batch, self.generator)
+
+    @mesh_call
+    @torch.no_grad()
+    def eval_metrics(self, batch: dict) -> dict:
+        """``compute_loss``'s metrics in eval mode, as floats."""
+        _, metrics = self.model.compute_loss(batch, train=False)
+        return {k: float(v) for k, v in metrics.items()}
+
+    @mesh_call
+    def checkpoint_state(self) -> dict:
+        """The trainable parameters and the optimizer state as one device
+        holds them (gathered over tp on a grid), on the host."""
+        params = {n: p.detach() for n, p in self.optimizer.params.items()}
+        opt_state = self.optimizer.state_dict()
+        if self.mesh is not None:
+            params = gather_named(self.model, params)
+            for key in ("mu", "nu"):
+                opt_state[key] = gather_named(self.model, opt_state[key])
+        return {"params": {n: p.cpu() for n, p in params.items()},
+                "opt_state": opt_state}
+
+    @mesh_call
+    def load_checkpoint(self, path: str) -> int:
+        """Load a checkpoint file of :meth:`checkpoint_state` (each rank
+        slicing its shard on a grid); returns its step."""
+        state = torch.load(path, map_location=self.model.device, weights_only=True)
+        params, opt_state = state["params"], state["opt_state"]
+        if self.mesh is not None:
+            params = slice_named(self.model, params)
+            for key in ("mu", "nu"):
+                opt_state[key] = slice_named(self.model, opt_state[key])
+        with torch.no_grad():
+            for name, value in params.items():
+                self.optimizer.params[name].copy_(value)
+        self.optimizer.load_state_dict(opt_state)
+        return int(state["step"])
+
+
+@message_class
+class _RankTrainerBuilder:
+    """A rank's :class:`RankTrainer` over the model placed under ``handle``."""
+
+    def __init__(self, handle: int, config: TrainingConfig):
+        self.handle, self.config = handle, config
+
+    def __call__(self, mesh, objects) -> RankTrainer:
+        return RankTrainer(objects[self.handle], self.config)
+
+
 class Trainer:
-    """Training loop over a port :class:`ASRModel` on its device."""
+    """Training loop over a port :class:`ASRModel`: on its device, or with
+    ``config.dp``/``config.tp`` on a grid of rank processes (the model is
+    sharded in place; a model placed on a mesh already trains on that one).
+    A grid the trainer started closes with :meth:`close` (and at exit)."""
 
     CHECKPOINT_FILE = "state.pt"
 
@@ -229,10 +324,6 @@ class Trainer:
         transform: Optional[Callable[[dict], dict]] = None,
         callbacks: Optional[list] = None,
     ):
-        if config.dp not in (None, 1) or config.tp != 1:
-            raise NotImplementedError(
-                f"dp={config.dp} tp={config.tp}: the port trains on one device "
-                "(multi-GPU is queued in ROADMAP.md)")
         self.model = model
         self.config = config
         self.train_dataset = train_dataset
@@ -244,16 +335,11 @@ class Trainer:
         self.out_dir.mkdir(parents=True, exist_ok=True)
         self.device = model.device
 
-        opt_cfg = dataclasses.replace(config.optimizer, total_steps=config.max_steps)
-        self.optimizer, self.param_labels = build_optimizer(model.config, opt_cfg, model)
-        self._accum = max(config.gradient_accumulation_steps, 1)
-        if self._accum > 1:
-            self.grad_accum = init_grad_accum(self.optimizer)
-            self._accumulate_step, self._update_step = make_accum_steps(
-                model, self.optimizer, self._accum)
-        else:
-            self.grad_accum = None
-            self._train_step = make_train_step(model, self.optimizer)
+        self.mesh, self._own_mesh = self._make_mesh()
+        self._rank = RankTrainer(model, config) if self.mesh is None else self._place()
+        self.optimizer, self.param_labels = self._rank.optimizer, self._rank.param_labels
+        self.grad_accum = self._rank.grad_accum
+        self._accum = self._rank.accum
 
         self._ckpt_dir = (self.out_dir / "checkpoints").absolute()
         self._metrics_file = self.out_dir / "metrics.jsonl"
@@ -268,6 +354,51 @@ class Trainer:
             except Exception:
                 self._wandb = None
 
+    # ------------------------------------------------------------------ mesh
+
+    def _make_mesh(self):
+        """(mesh, whether this trainer started it): the model's own mesh, a
+        new grid of ``dp * tp`` ranks, or None on one device."""
+        cfg = self.config
+        mesh = self.model.mesh
+        if mesh is not None:
+            if (cfg.dp not in (None, mesh.dp)) or cfg.tp != mesh.tp:
+                raise ValueError(f"mesh is (dp={mesh.dp}, tp={mesh.tp}), the config "
+                                 f"(dp={cfg.dp}, tp={cfg.tp})")
+            return mesh, False
+        on_card = self.model.device.type == "cuda"
+        dp = cfg.dp if cfg.dp is not None else (
+            torch.cuda.device_count() // cfg.tp if on_card else 1)
+        if dp * cfg.tp == 1:
+            return None, False
+        from tiny_audio_tpu_torch.parallel.mesh import check_grid, make_mesh
+
+        check_grid(self.model.config, cfg.tp)
+        devices = None if on_card else ["cpu"] * (dp * cfg.tp)
+        return make_mesh(dp=dp, tp=cfg.tp, devices=devices), True
+
+    def _place(self) -> RankTrainer:
+        """Shard the model over the mesh (unless it is there already) and put
+        a RankTrainer on every rank."""
+        try:
+            if self.model.mesh is None:
+                self.model.place_on(self.mesh)
+            rank = RankTrainer(self.model, self.config)
+            self.mesh.place(rank, _RankTrainerBuilder(self.model._mesh_handle, self.config))
+        except BaseException:
+            self.close()
+            raise
+        return rank
+
+    def close(self) -> None:
+        """Stop the rank processes of a grid this trainer started."""
+        if self._own_mesh and self.mesh is not None:
+            self.mesh.close()
+
+    @property
+    def _dp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.dp
+
     # ------------------------------------------------------------ checkpoints
 
     def _checkpoint_steps(self) -> list[int]:
@@ -277,8 +408,7 @@ class Trainer:
                       if p.name.isdigit() and (p / self.CHECKPOINT_FILE).exists())
 
     def _save_checkpoint(self, step: int) -> None:
-        trainable = {n: p.detach().cpu() for n, p in self.optimizer.params.items()}
-        state = {"params": trainable, "opt_state": self.optimizer.state_dict(), "step": step}
+        state = {**self._rank.checkpoint_state(), "step": step}
         ckpt = self._ckpt_dir / str(step)
         ckpt.mkdir(parents=True, exist_ok=True)
         tmp = ckpt / (self.CHECKPOINT_FILE + ".tmp")
@@ -299,15 +429,11 @@ class Trainer:
         steps = self._checkpoint_steps()
         if not steps:
             return 0
-        state = torch.load(self._ckpt_dir / str(steps[-1]) / self.CHECKPOINT_FILE,
-                           map_location=self.device, weights_only=True)
-        with torch.no_grad():
-            for name, value in state["params"].items():
-                self.optimizer.params[name].copy_(value)
-        self.optimizer.load_state_dict(state["opt_state"])
+        step = self._rank.load_checkpoint(
+            str(self._ckpt_dir / str(steps[-1]) / self.CHECKPOINT_FILE))
         print(f"[trainer] resumed from step {steps[-1]}")
-        self._last_saved_step = int(state["step"])  # already on disk
-        return int(state["step"])
+        self._last_saved_step = step  # already on disk
+        return step
 
     # --------------------------------------------------------------- logging
 
@@ -332,13 +458,13 @@ class Trainer:
         if self.eval_dataset is None:
             return {}
         losses, aux = [], []
-        global_bs = self.config.per_device_batch_size
+        global_bs = self.config.per_device_batch_size * self._dp
         it = batch_iterator(self.eval_dataset, self.collator, global_bs,
                             seed=0, epochs=1, drop_last=False)
         for i, batch in enumerate(it):
             if i >= self.config.eval_batches:
                 break
-            _, metrics = self.model.compute_loss(self._put_batch(batch, global_bs), train=False)
+            metrics = self._rank.eval_metrics(self._put_batch(batch, global_bs))
             losses.append(float(metrics["ce_loss"]))
             aux.append(float(metrics["aux_loss"]))
         if not losses:
@@ -365,8 +491,8 @@ class Trainer:
     def train(self) -> dict:
         cfg = self.config
         start_step = self._maybe_resume()
-        generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        global_bs = cfg.per_device_batch_size
+        self._rank.seed(cfg.seed)
+        global_bs = cfg.per_device_batch_size * self._dp
 
         it = _Prefetcher(
             batch_iterator(self.train_dataset, self.collator, global_bs, seed=cfg.seed,
@@ -402,11 +528,10 @@ class Trainer:
                     break
                 batch = self._put_batch(batch, global_bs)
                 if accum > 1:
-                    is_update = (micro + 1) % accum == 0
-                    fn = self._update_step if is_update else self._accumulate_step
-                    loss, metrics = fn(self.grad_accum, batch, generator)
+                    kind = "update" if (micro + 1) % accum == 0 else "accumulate"
                 else:
-                    loss, metrics = self._train_step(batch, generator)
+                    kind = "train"
+                loss, metrics = self._rank.step(kind, batch)
                 micro += 1
                 # the watchdog reads the previous micro-step's loss, so the
                 # host never waits on the step it just queued
