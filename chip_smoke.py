@@ -25,6 +25,10 @@ flagship width (random weights from seed 0, int8 KV cache):
   in one call (CUDA events);
 - ``ASRPipeline`` on three requests;
 - ``ASRPipeline.transcribe_streaming`` on one 30 s clip, 32 tokens;
+- the serving stage split of ``tools/bench_stages.py`` at B = 4 (one rep,
+  128 tokens), and one warm ``generate`` traced by ``utils/profiling.trace``:
+  the trace must hold the CUDA kernel events of #1, #2 and #4 under the
+  port's kernel names, as many as their wrappers counted;
 - ``generate`` again under each int8 decode mode (``enable_wq_decode``:
   kernel #6; ``enable_w8a8_head`` and ``enable_w8a8_decode``: kernel #5);
 - the HTTP server: ``save_pretrained`` of the flagship model,
@@ -223,6 +227,7 @@ import torch
 
 SEED = 0
 BATCH = 4
+TRACE_NEW = 8  # tokens of the traced generate: its trace stays a few MB
 CLIP_S = 30.0
 MAX_NEW = 128
 REQUEST_SECONDS = (5, 12, 30)
@@ -4930,6 +4935,87 @@ def tools_phase() -> None:
         fail(f"handler_local failed: {lines}")
 
 
+#: the port's kernel names in a profiler trace (demangled, or mangled where
+#: the trace keeps the symbol): #1 the bidirectional Hopper forward at D = 64,
+#: #2 the causal one at D = 128, #4 the decode kernel with the append
+TRACE_KERNELS = {
+    "encoder_attention": re.compile(
+        r"attention_fwd_sm90(?:<64, ?\d+, ?(?:false|0), ?(?:false|0)>|ILi64ELi\d+ELb0ELb0E)"),
+    "prefill_attention": re.compile(
+        r"attention_fwd_sm90(?:<128, ?\d+, ?(?:true|1), ?(?:false|0)>|ILi128ELi\d+ELb1ELb0E)"),
+    "decode_attention_update": re.compile(r"decode_kernel(?:<.*, ?(?:true|1)>|I.*Lb1EEv)"),
+}
+
+
+def measurement_phase(model, no_int8: dict, reset_counts, read_counts) -> None:
+    """``tools/bench_stages.measure_stages`` on the flagship at B = 4 (one
+    rep; EOS masked, so the decode residual is 127 steps), then one warm
+    ``generate`` of ``TRACE_NEW`` tokens inside ``utils/profiling.trace``:
+    the trace's CUDA kernel events of #1, #2 and #4, found by the port's
+    kernel names, must equal the launches their wrappers counted."""
+    from tiny_audio_tpu_torch.tools import bench_stages
+    from tiny_audio_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    saved = model.gen_config
+    model.gen_config = dataclasses.replace(saved, min_new_tokens=MAX_NEW, max_new_tokens=MAX_NEW)
+    try:
+        r = bench_stages.measure_stages(model, BATCH, reps=1, clip_s=CLIP_S)
+    finally:
+        model.gen_config = saved
+    print(f"stages batch={BATCH} clip_s={CLIP_S} new_tokens={MAX_NEW} reps=1 (tools/bench_stages, "
+          f"StageTimer closed by torch.cuda.synchronize) t_real={r['t_real']} t_pad={r['t_pad']} "
+          f"n_audio={r['n_audio']} frontend_ms={r['frontend_ms']!r} splice_ms={r['splice_ms']!r} "
+          f"prefill_ms={r['prefill_ms']!r} e2e_ms={r['e2e_ms']!r} decode_ms={r['decode_ms']!r} "
+          f"decode_step_ms={r['decode_ms'] / (MAX_NEW - 1)!r} rtfx={r['rtfx']!r} "
+          f"stages_s={time.perf_counter() - t_phase!r}")
+    inputs = bench_stages.stage_inputs(model, BATCH, CLIP_S)
+    feats, mask = bench_stages.frontend(model, inputs["audio"], inputs["lengths"],
+                                        inputs["n_frames"])
+
+    def traced_generate():
+        return model.generate(feats, mask, mel_length=inputs["n_frames"],
+                              min_new_tokens=TRACE_NEW, max_new_tokens=TRACE_NEW)
+
+    want_tokens = traced_generate()  # warm
+    log_dir = Path(tempfile.mkdtemp())
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with profiling.trace(log_dir):
+            tokens = traced_generate()
+        traced_s = time.perf_counter() - t0
+        counts = read_counts()
+        files = list(log_dir.glob("*.pt.trace.json"))
+        if len(files) != 1:
+            fail(f"profiling.trace wrote {[f.name for f in files]}, expected one trace file")
+        trace_mb = files[0].stat().st_size / 2**20
+        events = json.loads(files[0].read_text())["traceEvents"]
+    finally:
+        shutil.rmtree(log_dir)
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {name: sum(1 for k in kernels if pattern.search(k))
+             for name, pattern in TRACE_KERNELS.items()}
+    want = {"encoder_attention": model.config.encoder.num_layers,
+            "prefill_attention": model.config.decoder.num_layers,
+            "decode_attention": 0,
+            "decode_attention_update": model.config.decoder.num_layers * (TRACE_NEW - 1),
+            **no_int8}
+    if counts != want:
+        fail(f"the traced generate launched {counts}, expected {want}")
+    if not np.array_equal(tokens, want_tokens):
+        fail("the traced generate gave other tokens than the same call untraced")
+    if any(found[name] != counts[name] or not found[name] for name in TRACE_KERNELS):
+        names = sorted(set(kernels))
+        fail(f"the trace's kernel events {found} are not the wrappers' launches "
+             f"{ {n: counts[n] for n in TRACE_KERNELS} }; kernels in the trace: {names[:20]}")
+    print(f"trace generate batch={BATCH} new_tokens={TRACE_NEW} (utils/profiling.trace, CPU + "
+          f"CUDA) wall_s={traced_s!r} trace_mb={trace_mb!r} kernel_events={len(kernels)} "
+          f"distinct_kernels={len(set(kernels))} port_kernel_events={json.dumps(found)} "
+          f"wrapper_launches={json.dumps({n: counts[n] for n in TRACE_KERNELS})} "
+          f"phase_s={time.perf_counter() - t_phase!r}")
+
+
 def kernel_wrappers() -> dict:
     """Every kernel's wrapper by name; each counts its launches in
     ``.launches``."""
@@ -5216,6 +5302,10 @@ def main() -> None:
           f"time_to_first_token_s={first_token_at[0] - t0!r} total_s={stream_s!r} "
           f"fragments={len(fragments)} text_chars={sum(map(len, fragments))} "
           f"launches={json.dumps(counts)}")
+    phase_done()
+
+    # ---- 7a. the serving stage split and a traced generate ----
+    measurement_phase(model, no_int8, reset_counts, read_counts)
     phase_done()
 
     # ---- 7b. sampling, beams and n-gram bans at the flagship ----

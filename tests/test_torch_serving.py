@@ -223,6 +223,47 @@ def test_backlog_full_is_503(handlers):
         batcher.submit(_clip(0))
 
 
+def test_a_burst_gets_503s_while_the_accept_loop_lags(handlers):
+    """40 clients connecting at once while the accept loop lags 50 ms a
+    connection (as when it waits for the interpreter lock): every one is
+    answered 503, none is reset by a full listen backlog."""
+    batcher = DynamicBatcher(handlers[1].pipe, max_queue=0)
+    server = make_server(handlers[1], host="127.0.0.1", port=0, batcher=batcher)
+    accept = server.process_request
+
+    def lagging(request, client_address):
+        time.sleep(0.05)
+        accept(request, client_address)
+
+    server.process_request = lagging
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/transcribe"
+    codes, errors, lock = [], [], threading.Lock()
+
+    def one():
+        try:
+            _post(url, np.zeros(8000, np.float32).tobytes())
+        except urllib.error.HTTPError as e:
+            with lock:
+                codes.append(e.code)
+        except OSError as e:
+            with lock:
+                errors.append(type(e).__name__)
+
+    threads = [threading.Thread(target=one) for _ in range(40)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        batcher.close()
+        server.shutdown()
+        server.server_close()
+    assert errors == [] and codes == [503] * 40
+
+
 def test_concurrent_requests_coalesce_into_one_batch(handlers):
     pipe = handlers[1].pipe
     audios = [_clip(6), _clip(7, 9000)]
@@ -354,6 +395,99 @@ def test_serve_signature_is_the_jax_packages():
     theirs = list(inspect.signature(jax_serving.serve).parameters.values())
     assert [(p.name, p.default) for p in ours[:-1]] == [(p.name, p.default) for p in theirs]
     assert ours[-1].name == "device" and ours[-1].default == "cuda"
+
+
+def test_model_signatures_are_the_jax_packages():
+    """``ASRModel(config, tokenizer, params, seed, mesh)`` in JAX's order
+    with ``device`` last; ``from_pretrained(path, tokenizer, **kwargs)``."""
+    import inspect
+
+    def params(fn):
+        return [(p.name, p.default, p.kind) for p in inspect.signature(fn).parameters.values()]
+
+    ours, theirs = params(ASRModel.__init__), params(JaxASRModel.__init__)
+    assert ours[:-1] == theirs
+    assert ours[-1][:2] == ("device", "cuda")
+    assert params(ASRModel.from_pretrained) == params(JaxASRModel.from_pretrained)
+
+
+def test_model_takes_jax_params_by_position():
+    """The third positional argument is a JAX-layout params tree: the model
+    decodes the JAX model's tokens, whatever its own seed draws."""
+    from tiny_audio_tpu_torch.tokenization import ByteTokenizer
+
+    cfg = tiny_test_config(model_dtype="float32")
+    cfg.max_new_tokens = 8
+    jm = JaxASRModel(cfg, None, None, 2)
+    port_cfg = PortASRConfig.from_dict(cfg.to_dict())
+    tm = ASRModel(port_cfg, ByteTokenizer(port_cfg.decoder.vocab_size),
+                  jax.tree.map(np.asarray, jm.params), 5, device="cpu")
+    feats = np.random.default_rng(0).standard_normal((2, 80, 100)).astype(np.float32)
+    mask = np.ones((2, 100), np.int32)
+    np.testing.assert_array_equal(tm.generate(feats, mask), np.asarray(jm.generate(feats, mask)))
+    with pytest.raises(KeyError, match="left unset"):
+        ASRModel(port_cfg, None, {"projector": jax.tree.map(np.asarray, jm.params["projector"])},
+                 device="cpu")
+
+
+def test_from_pretrained_seeds_a_tower_without_a_file(tmp_path):
+    """``from_pretrained(path, seed=3)``: the encoder, which has no file,
+    takes the seed-3 draw of the package's own initializers, in both
+    packages; the projector comes from its file."""
+    from tiny_audio_tpu_torch.bridge import state_dict_to_jax
+
+    cfg = tiny_test_config(model_dtype="float32")
+    JaxASRModel(cfg, seed=0).save_pretrained(tmp_path, save_towers=False)
+    assert not (tmp_path / "towers.msgpack").exists()
+
+    def leaves(tree):
+        return [np.asarray(x) for x in jax.tree.leaves(tree)]
+
+    jax_loaded = JaxASRModel.from_pretrained(tmp_path, seed=3)
+    for got, want in zip(leaves(jax_loaded.params["encoder"]),
+                         leaves(JaxASRModel(cfg, seed=3).params["encoder"])):
+        np.testing.assert_array_equal(got, want)
+    loaded = ASRModel.from_pretrained(tmp_path, seed=3, device="cpu")
+    port_cfg = PortASRConfig.from_dict(cfg.to_dict())
+    got = state_dict_to_jax(loaded)
+    seeded = {seed: state_dict_to_jax(ASRModel(port_cfg, seed=seed, device="cpu"))
+              for seed in (0, 3)}
+    differ = 0
+    for a, b, c in zip(leaves(got["encoder"]), leaves(seeded[3]["encoder"]),
+                       leaves(seeded[0]["encoder"])):
+        np.testing.assert_array_equal(a, b)
+        differ += not np.array_equal(a, c)
+    assert differ  # the random leaves are seed 3's, not seed 0's
+    for a, b in zip(leaves(got["projector"]), leaves(jax_loaded.params["projector"])):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_mesh_goes_through_the_constructor_and_from_pretrained(tmp_path):
+    """``mesh=`` places the model on the port's grid: given to the
+    constructor (with JAX ``params``) or to ``from_pretrained`` (after the
+    files are loaded), the grid decodes the one-device tokens."""
+    from tiny_audio_tpu_torch.parallel import mesh as port_mesh
+
+    cfg = tiny_test_config(model_dtype="float32")
+    cfg.max_new_tokens = 6
+    jm = JaxASRModel(cfg, seed=1)
+    jm.save_pretrained(tmp_path)
+    port_cfg = PortASRConfig.from_dict(cfg.to_dict())
+    params = jax.tree.map(np.asarray, jm.params)
+    single = ASRModel(port_cfg, params=params, device="cpu")
+    feats = np.random.default_rng(3).standard_normal((2, 80, 50)).astype(np.float32)
+    mask = np.ones((2, 50), np.int32)
+    want = single.generate(feats, mask)
+    np.testing.assert_array_equal(want, np.asarray(jm.generate(feats, mask)))
+    mesh = port_mesh.make_mesh(dp=1, tp=2, devices=["cpu", "cpu"], timeout=120.0)
+    try:
+        built = ASRModel(port_cfg, None, params, 0, mesh, device="cpu")
+        loaded = ASRModel.from_pretrained(tmp_path, mesh=mesh, device="cpu")
+        for model in (built, loaded):
+            assert model.mesh is mesh and model.decoder.layers[0].num_heads == 2
+            np.testing.assert_array_equal(model.generate(feats, mask), want)
+    finally:
+        mesh.close()
 
 
 def test_serve_without_dynamic_batching_takes_the_solo_path(monkeypatch, tmp_path):

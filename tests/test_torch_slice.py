@@ -9,9 +9,11 @@ and the JAX package blocked, serves a checkpoint over HTTP and over the
 realtime WebSocket server, runs ``run_eval`` through the realtime backend and
 the pipecat service under a stub ``pipecat``, runs a stage-2 train step,
 builds the MOSA, MoE and QFormer projectors, runs the convergence ladder's
-pieces, beams and sampling, the neural VAD, diarization and the aligner, and
+pieces, beams and sampling, the neural VAD, diarization and the aligner,
 serves over a tp = 2 grid of two rank processes (the started rank imports
-none of the blocked packages either).
+none of the blocked packages either), and runs the profiler, the stage split
+of ``tools/bench_stages`` and the backpressure part of
+``tools/bench_serving``.
 """
 
 import os
@@ -500,6 +502,23 @@ with contextlib.redirect_stdout(io.StringIO()) as out:
 assert len([l for l in out.getvalue().splitlines() if l.startswith("{")]) == 2
 assert subtitles.to_srt([{"word": "a", "start": 0.0, "end": 0.5}]).startswith("1\n")
 assert hub.stage_artifact(root / "out") and not devtools.security_scan([root / "out"])
+
+# the profiler and the serving measurement tools
+from tiny_audio_tpu_torch.tools import bench_serving, bench_stages
+from tiny_audio_tpu_torch.utils import profiling
+
+assert {"tiny_audio_tpu_torch.utils.profiling", "tiny_audio_tpu_torch.tools.bench_stages",
+        "tiny_audio_tpu_torch.tools.bench_serving"} <= set(names)
+timer = profiling.StageTimer()
+with profiling.trace(root / "traces", device="cpu"), timer.stage("stages"):
+    stages = bench_stages.measure_stages(model, 1, reps=1, clip_s=0.5)
+assert stages["n_audio"] > 0 and timer.summary()["stages"]["count"] == 1
+assert list((root / "traces").glob("*.pt.trace.json"))
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    burst = bench_serving.bench_backpressure(handler, handler.pipe,
+                                             np.zeros(8000, np.float32).tobytes(), burst=6)
+assert out.getvalue().startswith("backpressure")
+assert burst["n_200"] + burst["n_503"] == 6
 
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "tiny_audio_tpu",

@@ -168,16 +168,21 @@ def filter_think_stream(chunks):
 
 
 class ASRModel(nn.Module):
-    """Encoder + projector + decoder on one device.
+    """Encoder + projector + decoder on one device, or sharded over a mesh.
 
-    ``ASRModel(config, tokenizer=None, seed=0, device=...)`` builds the
-    towers at the config's widths with random weights drawn from a seeded
-    ``torch.Generator`` on ``device`` (the CUDA device unless the caller
-    asks for ``"cpu"``), following the JAX package's flax
-    defaults (lecun-normal Dense/Conv kernels, zero biases, unit norms,
-    flax's Embed init, sinusoidal encoder positions).  Load a checkpoint of
-    the JAX package with :meth:`from_pretrained`, or a JAX params tree with
-    :func:`tiny_audio_tpu_torch.bridge.load_jax_params`.
+    ``ASRModel(config, tokenizer=None, params=None, seed=0, mesh=None,
+    device=...)`` takes the JAX package's parameters in its order, with
+    ``device`` last.  It builds the towers at the config's widths on
+    ``device`` (the CUDA device unless the caller asks for ``"cpu"``) with
+    random weights drawn from a ``torch.Generator`` seeded with ``seed``,
+    following the JAX package's flax defaults (lecun-normal Dense/Conv
+    kernels, zero biases, unit norms, flax's Embed init, sinusoidal encoder
+    positions).  ``params``: a whole params tree in the JAX layout (numpy or
+    tensor leaves) loaded in place of the random weights
+    (:func:`tiny_audio_tpu_torch.bridge.load_jax_params`).  ``mesh``: the
+    port's :class:`~tiny_audio_tpu_torch.parallel.mesh.Mesh`; the model is
+    placed on it (:meth:`place_on`).  Load a checkpoint of the JAX package
+    with :meth:`from_pretrained`.
     """
 
     TRANSCRIBE_PROMPT = TRANSCRIBE_PROMPT
@@ -186,7 +191,9 @@ class ASRModel(nn.Module):
         self,
         config: ASRConfig,
         tokenizer=None,
+        params: Optional[dict] = None,
         seed: int = 0,
+        mesh=None,
         device="cuda",
     ):
         super().__init__()
@@ -222,7 +229,11 @@ class ASRModel(nn.Module):
             config, self.tokenizer.eos_token_ids, self.tokenizer.pad_token_id
         )
         self.init_weights(seed)
+        if params is not None:
+            load_jax_params(self, params)
         self.freeze()
+        if mesh is not None:
+            self.place_on(mesh)
 
     def freeze(self) -> None:
         """``requires_grad`` off for the parameters :func:`is_frozen` names
@@ -744,21 +755,24 @@ class ASRModel(nn.Module):
         (save_dir / "tpu_metadata.json").write_text(json.dumps(meta, indent=2))
 
     @classmethod
-    def from_pretrained(cls, path, tokenizer=None, device="cuda") -> "ASRModel":
+    def from_pretrained(cls, path, tokenizer=None, **kwargs) -> "ASRModel":
         """Load a checkpoint of the JAX package (or of :meth:`save_pretrained`)
         with neither flax nor msgpack: ``config.json``, then
         ``towers.msgpack``, ``decoder.msgpack`` and ``projector.msgpack``
-        where present (a tower without a file keeps its seeded random
-        weights, as in the JAX package), and ``adapter.msgpack`` when the
+        where present (a tower without a file keeps its random weights from
+        ``seed``, as in the JAX package), and ``adapter.msgpack`` when the
         config has ``use_lora``.  ``tokenizer_config.json`` loads an HF
         tokenizer (needs ``transformers``).  ``wav2vec2_aligner.msgpack`` and
         ``ecapa_embedder.msgpack`` attach the aligner and the speaker
-        embedder on the model's device (:meth:`_attach_aux_towers`)."""
+        embedder on the model's device (:meth:`_attach_aux_towers`).
+        ``kwargs`` go to the constructor (``params``, ``seed``, ``mesh``,
+        ``device``); a ``mesh`` takes the model once its files are loaded."""
         path = Path(path)
         config = ASRConfig.from_pretrained(path)
         if tokenizer is None and (path / "tokenizer_config.json").exists():
             tokenizer = HFTokenizerAdapter.from_pretrained(str(path))
-        model = cls(config, tokenizer=tokenizer, device=device)
+        mesh = kwargs.pop("mesh", None)
+        model = cls(config, tokenizer=tokenizer, **kwargs)
         params = {}
         if (path / "towers.msgpack").exists():
             params.update(msgpack_io.load(path / "towers.msgpack"))
@@ -770,6 +784,8 @@ class ASRModel(nn.Module):
                                            msgpack_io.load(path / "adapter.msgpack"))
         load_jax_params(model, params, require_all=False)
         cls._attach_aux_towers(path, model.device)
+        if mesh is not None:
+            model.place_on(mesh)
         return model
 
     @staticmethod

@@ -17,6 +17,7 @@ Routes:
 from __future__ import annotations
 
 import json
+import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -100,6 +101,13 @@ class ServerMetrics:
                 lines.append(f"# TYPE {name} gauge")
                 lines.append(f"{name} {value}")
             return "\n".join(lines) + "\n"
+
+
+class _Server(ThreadingHTTPServer):
+    # socketserver listens with a backlog of 5: a burst of clients that
+    # connect while the accept loop waits for the interpreter lock overflows
+    # it, and the kernel resets them where backpressure must answer 503
+    request_queue_size = socket.SOMAXCONN
 
 
 def make_server(
@@ -224,7 +232,7 @@ def make_server(
                 result = handler({"inputs": inputs, "parameters": params})
             self._send(200 if "error" not in result else 500, result)
 
-    server = ThreadingHTTPServer((host, port), Handler)
+    server = _Server((host, port), Handler)
     server.metrics = metrics  # exposed for tests / embedding
     return server
 
