@@ -44,6 +44,14 @@ flagship width (random weights from seed 0, int8 KV cache):
   towers bitwise unchanged, trainable parameters changed, the repeated
   batch's loss falling, and ``model/`` loaded back with ``from_pretrained``
   and generating on the card;
+- the training measurement tools: ``tools/bench_train_stages``' parent runs
+  stage 1 in a child process (the kernels loaded, not built again; its
+  step ms, samples/s, peak memory within the card's and trainable count,
+  which must be the stage-1 run's), one warm stage-1 step of that tool's
+  making traced by ``utils/profiling.trace`` (the CUDA kernel events of #1,
+  #2 with statistics, #2b and #2c, 32 / 28 / 28 / 28, as many as their
+  wrappers counted, and no other port kernel), and
+  ``tools/bench_host_pipeline`` on 24 rows against the stage's rate;
 - the MOSA, MoE and QFormer presets at the flagship width, each built as
   ``python -m tiny_audio_tpu_torch.train +experiments=<kind>`` builds it
   (int8 KV): ``generate`` on the serving batch twice (32 tokens, EOS
@@ -268,6 +276,7 @@ TRAIN_BATCH = 6  # configs/training/production.yaml's per_device_batch_size
 TRAIN_CLIP_S = (10.0, 30.0)
 TRAIN_STEPS = 10  # stage 1 on one repeated batch
 TRAIN_LR = 1e-3
+HOST_ROWS = 24  # tools/bench_host_pipeline's rows in the smoke (the tool's default: 96)
 
 # H100 SXM peaks at its 700 W limit (NVIDIA's data sheet; dense rates)
 HBM_BYTES_PER_S = 3.35e12
@@ -2186,7 +2195,8 @@ def trainer_run(label: str, model, rows, steps: int, out_root: Path, reset_count
 
 def train_phases(reset_counts, read_counts) -> dict:
     """Training at the flagship width on the card (see the module docstring).
-    Returns the backward kernels' path numbers and the stage-1 run's counts."""
+    Returns the backward kernels' path numbers, the stage-1 run's counts and
+    its trainable-parameter count."""
     from tiny_audio_tpu_torch import ASRConfig
     from tiny_audio_tpu_torch.models.asr import ASRModel
     from tiny_audio_tpu_torch.train.data import synthetic_dataset
@@ -2206,8 +2216,8 @@ def train_phases(reset_counts, read_counts) -> dict:
     t0 = time.perf_counter()
     model = ASRModel(ASRConfig(), seed=SEED)  # stage 1: freeze_language_model, the default
     phase_done()
-    print(f"train init_s={time.perf_counter() - t0!r} trainable_params="
-          f"{sum(p.numel() for p in model.parameters() if p.requires_grad)}")
+    stage1_trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"train init_s={time.perf_counter() - t0!r} trainable_params={stage1_trainable}")
     losses = run("stage1", model, TRAIN_STEPS, record=True)
     if not losses[-1] < losses[0]:
         fail(f"stage 1 on one repeated batch did not lower the loss: {losses}")
@@ -2252,7 +2262,92 @@ def train_phases(reset_counts, read_counts) -> dict:
 
     path = compare_backward_on_path_inputs(path_inputs["backward"])
     shutil.rmtree(tmp)
-    return {"path": path, "counts": results["stage1"]["counts"]}
+    return {"path": path, "counts": results["stage1"]["counts"],
+            "stage1_trainable": stage1_trainable}
+
+
+def train_measurement_phase(stage1_trainable: int, reset_counts, read_counts) -> dict:
+    """The training measurement tools on the card: (a) ``tools/
+    bench_train_stages``' parent runs ``stage1_projector`` in its child
+    process (the child loads the kernels this run built; its trainable count
+    is ``train_phases``' stage-1 count, its peak memory within the card's,
+    its loss finite); (b) one warm stage-1 ``train_step`` of that tool's
+    making, in process, inside ``utils/profiling.trace``: launches #1 32,
+    #2 (with statistics) 28, #2b 28, #2c 28 and nothing else, and the
+    trace's kernel events of each equal to its wrapper's count; (c)
+    ``tools/bench_host_pipeline`` on ``HOST_ROWS`` rows against the rate of
+    (a).  Returns the stage's result and the trace's counts."""
+    from tiny_audio_tpu_torch.models.asr import ASRModel
+    from tiny_audio_tpu_torch.tools import bench_host_pipeline, bench_train_stages
+
+    t_phase = time.perf_counter()
+    name = "stage1_projector"
+    lines = []
+    (res,) = bench_train_stages.run_stages(name, "cuda", log=lines.append)
+    stages_s = time.perf_counter() - t_phase
+    for line in lines:
+        print(f"train_stages {line}")
+    if "error" in res:
+        fail(f"bench_train_stages' {name} failed: {res}")
+    child = next(ln for ln in lines if ln.startswith(f"[stages] {name}: kernels "))
+    if not child.startswith(f"[stages] {name}: kernels loaded "):
+        fail(f"the {name} child did not load the kernels this run built: {child}")
+    if res["trainable_params_m"] != round(stage1_trainable / 1e6, 2):
+        fail(f"bench_train_stages counts {res['trainable_params_m']} M trainable parameters, "
+             f"train_phases {stage1_trainable}")
+    if not 0 < res["peak_hbm_gb"] < res["hbm_limit_gb"] or not np.isfinite(res["loss"]):
+        fail(f"bench_train_stages' {name}: peak memory or loss out of range: {res}")
+    print(f"train_stages result={json.dumps(res)} wall_s={stages_s!r} (tools/bench_train_stages, "
+          f"child process, median of {bench_train_stages.STEPS} steps closed by "
+          f"torch.cuda.synchronize)")
+
+    t0 = time.perf_counter()
+    spec = bench_train_stages.STAGES[name]
+    model = ASRModel(bench_train_stages.stage_config(spec["overrides"]), seed=SEED)
+    train_step, n_trainable = bench_train_stages.stage_step(model)
+    batch = bench_train_stages.synthetic_batch(model, spec["batch"])
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    warm_loss, _ = train_step(batch, gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reset_counts()
+    (loss, metrics), kernels, trace_mb, traced_s = traced_kernels(lambda: train_step(batch, gen))
+    counts = read_counts()
+    n_enc, n_dec = model.config.encoder.num_layers, model.config.decoder.num_layers
+    want = {wrapper: 0 for wrapper in counts}
+    want.update({"encoder_attention": n_enc, "prefill_attention": n_dec,
+                 "prefill_attention_bwd_dkv": n_dec, "prefill_attention_bwd_dq": n_dec})
+    if counts != want:
+        fail(f"the traced stage-1 step launched {counts}, expected {want}")
+    if n_trainable != stage1_trainable or not all(
+            np.isfinite(float(x)) for x in (warm_loss, loss, metrics["grad_norm"])):
+        fail(f"the traced stage-1 step: {n_trainable} trainable, loss {float(loss)!r}, "
+             f"grad norm {float(metrics['grad_norm'])!r}")
+    found = check_trace("training step", kernels, TRAIN_TRACE, counts)
+    print(f"trace train_step stage=1 batch={batch['input_ids'].shape[0]} "
+          f"t={batch['input_ids'].shape[1]} (utils/profiling.trace, CPU + CUDA) "
+          f"build_and_warm_s={build_s!r} wall_s={traced_s!r} trace_mb={trace_mb!r} "
+          f"kernel_events={len(kernels)} distinct_kernels={len(set(kernels))} "
+          f"port_kernel_events={json.dumps(found)} "
+          f"wrapper_launches={json.dumps({k: counts[TRACE_KERNELS[k][0]] for k in TRAIN_TRACE})} "
+          f"loss={float(loss)!r}")
+    del model, train_step, batch
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    transform, collator = bench_host_pipeline.build_chain("cuda")
+    rows = bench_host_pipeline.build_rows(HOST_ROWS)
+    print(f"host_pipeline rows={HOST_ROWS} collator device: {collator.processor.device}")
+    host = bench_host_pipeline.measure(
+        rows, transform, collator, TRAIN_BATCH, 0, res["samples_per_s"],
+        f"{name} on cuda (train_stages above)", log=lambda line: print(f"host_pipeline {line}"))
+    rates = [host["augment"], host["collate"]] + [
+        v["samples_per_s"] for v in host["pipeline"].values()]
+    if sorted(host["pipeline"]) != [0, 4, 8] or not all(np.isfinite(r) and r > 0 for r in rates):
+        fail(f"bench_host_pipeline: {host}")
+    print(f"train_measurement host_s={time.perf_counter() - t0!r} "
+          f"phase_s={time.perf_counter() - t_phase!r}")
+    return {"stage1": res, "trace": found, "host": host}
 
 
 def parallel_phase(wrappers: dict, reset_counts, read_counts) -> dict:
@@ -4874,7 +4969,7 @@ def tools_phase() -> None:
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for where, device in (("card", "cuda"), ("cpu", "cpu")):
-            net = tv.init_vadnet(SEED).to(device)
+            net = tv.init_vadnet(SEED, device)
             vad = tv.VadTrainer(net, steps=TOOLS_STEPS)
             ecapa, head = tse.init_ecapa(SEED)
             spk = tse.EmbedderTrainer(ecapa.to(device), head[:, :speakers].contiguous().to(device),
@@ -4936,15 +5031,65 @@ def tools_phase() -> None:
 
 
 #: the port's kernel names in a profiler trace (demangled, or mangled where
-#: the trace keeps the symbol): #1 the bidirectional Hopper forward at D = 64,
-#: #2 the causal one at D = 128, #4 the decode kernel with the append
+#: the trace keeps the symbol), each with the wrapper that counts its
+#: launches: #1 the bidirectional Hopper forward at D = 64, #2 the causal one
+#: at D = 128 (serving) and with saved statistics (training), #4 the decode
+#: kernel with the append, #2b and #2c the Hopper backward at D = 128
 TRACE_KERNELS = {
-    "encoder_attention": re.compile(
-        r"attention_fwd_sm90(?:<64, ?\d+, ?(?:false|0), ?(?:false|0)>|ILi64ELi\d+ELb0ELb0E)"),
-    "prefill_attention": re.compile(
-        r"attention_fwd_sm90(?:<128, ?\d+, ?(?:true|1), ?(?:false|0)>|ILi128ELi\d+ELb1ELb0E)"),
-    "decode_attention_update": re.compile(r"decode_kernel(?:<.*, ?(?:true|1)>|I.*Lb1EEv)"),
+    "encoder_attention": ("encoder_attention", re.compile(
+        r"attention_fwd_sm90(?:<64, ?\d+, ?(?:false|0), ?(?:false|0)>|ILi64ELi\d+ELb0ELb0E)")),
+    "prefill_attention": ("prefill_attention", re.compile(
+        r"attention_fwd_sm90(?:<128, ?\d+, ?(?:true|1), ?(?:false|0)>|ILi128ELi\d+ELb1ELb0E)")),
+    "prefill_attention_stats": ("prefill_attention", re.compile(
+        r"attention_fwd_sm90(?:<128, ?\d+, ?(?:true|1), ?(?:true|1)>|ILi128ELi\d+ELb1ELb1E)")),
+    "decode_attention_update": ("decode_attention_update", re.compile(
+        r"decode_kernel(?:<.*, ?(?:true|1)>|I.*Lb1EEv)")),
+    "prefill_attention_bwd_dkv": ("prefill_attention_bwd_dkv", re.compile(
+        r"attention_bwd_dkv_sm90(?:<128>|ILi128E)")),
+    "prefill_attention_bwd_dq": ("prefill_attention_bwd_dq", re.compile(
+        r"attention_bwd_dq_sm90(?:<128>|ILi128E)")),
 }
+#: the trace keys each traced call must show, as many as the wrappers count
+GENERATE_TRACE = ("encoder_attention", "prefill_attention", "decode_attention_update")
+TRAIN_TRACE = ("encoder_attention", "prefill_attention_stats", "prefill_attention_bwd_dkv",
+               "prefill_attention_bwd_dq")
+
+
+def traced_kernels(block) -> tuple:
+    """Run ``block`` inside ``utils/profiling.trace``; returns (its result,
+    the trace's CUDA kernel names, the trace file's MiB, the wall s)."""
+    from tiny_audio_tpu_torch.utils import profiling
+
+    log_dir = Path(tempfile.mkdtemp())
+    try:
+        t0 = time.perf_counter()
+        with profiling.trace(log_dir):
+            out = block()
+        wall_s = time.perf_counter() - t0
+        files = list(log_dir.glob("*.pt.trace.json"))
+        if len(files) != 1:
+            fail(f"profiling.trace wrote {[f.name for f in files]}, expected one trace file")
+        trace_mb = files[0].stat().st_size / 2**20
+        events = json.loads(files[0].read_text())["traceEvents"]
+    finally:
+        shutil.rmtree(log_dir)
+    return out, [e["name"] for e in events if e.get("cat") == "kernel"], trace_mb, wall_s
+
+
+def check_trace(label: str, kernels: list, keys: tuple, counts: dict) -> dict:
+    """The trace's events of each ``TRACE_KERNELS`` pattern; fails unless
+    each of ``keys`` shows as many as its wrapper counted (and not 0) and
+    every other pattern none."""
+    found = {key: sum(1 for k in kernels if pattern.search(k))
+             for key, (_, pattern) in TRACE_KERNELS.items()}
+    bad = [key for key, (wrapper, _) in TRACE_KERNELS.items()
+           if (found[key] != counts[wrapper] or not found[key] if key in keys else found[key])]
+    if bad:
+        names = sorted(set(kernels))
+        fail(f"the {label} trace's kernel events {found} are not the wrappers' launches "
+             f"{ {k: counts[TRACE_KERNELS[k][0]] for k in keys} } at {bad}; kernels in the "
+             f"trace: {names[:20]}")
+    return found
 
 
 def measurement_phase(model, no_int8: dict, reset_counts, read_counts) -> None:
@@ -4954,7 +5099,6 @@ def measurement_phase(model, no_int8: dict, reset_counts, read_counts) -> None:
     the trace's CUDA kernel events of #1, #2 and #4, found by the port's
     kernel names, must equal the launches their wrappers counted."""
     from tiny_audio_tpu_torch.tools import bench_stages
-    from tiny_audio_tpu_torch.utils import profiling
 
     t_phase = time.perf_counter()
     saved = model.gen_config
@@ -4978,24 +5122,9 @@ def measurement_phase(model, no_int8: dict, reset_counts, read_counts) -> None:
                               min_new_tokens=TRACE_NEW, max_new_tokens=TRACE_NEW)
 
     want_tokens = traced_generate()  # warm
-    log_dir = Path(tempfile.mkdtemp())
-    try:
-        reset_counts()
-        t0 = time.perf_counter()
-        with profiling.trace(log_dir):
-            tokens = traced_generate()
-        traced_s = time.perf_counter() - t0
-        counts = read_counts()
-        files = list(log_dir.glob("*.pt.trace.json"))
-        if len(files) != 1:
-            fail(f"profiling.trace wrote {[f.name for f in files]}, expected one trace file")
-        trace_mb = files[0].stat().st_size / 2**20
-        events = json.loads(files[0].read_text())["traceEvents"]
-    finally:
-        shutil.rmtree(log_dir)
-    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
-    found = {name: sum(1 for k in kernels if pattern.search(k))
-             for name, pattern in TRACE_KERNELS.items()}
+    reset_counts()
+    tokens, kernels, trace_mb, traced_s = traced_kernels(traced_generate)
+    counts = read_counts()
     want = {"encoder_attention": model.config.encoder.num_layers,
             "prefill_attention": model.config.decoder.num_layers,
             "decode_attention": 0,
@@ -5005,14 +5134,11 @@ def measurement_phase(model, no_int8: dict, reset_counts, read_counts) -> None:
         fail(f"the traced generate launched {counts}, expected {want}")
     if not np.array_equal(tokens, want_tokens):
         fail("the traced generate gave other tokens than the same call untraced")
-    if any(found[name] != counts[name] or not found[name] for name in TRACE_KERNELS):
-        names = sorted(set(kernels))
-        fail(f"the trace's kernel events {found} are not the wrappers' launches "
-             f"{ {n: counts[n] for n in TRACE_KERNELS} }; kernels in the trace: {names[:20]}")
+    found = check_trace("generate", kernels, GENERATE_TRACE, counts)
     print(f"trace generate batch={BATCH} new_tokens={TRACE_NEW} (utils/profiling.trace, CPU + "
           f"CUDA) wall_s={traced_s!r} trace_mb={trace_mb!r} kernel_events={len(kernels)} "
           f"distinct_kernels={len(set(kernels))} port_kernel_events={json.dumps(found)} "
-          f"wrapper_launches={json.dumps({n: counts[n] for n in TRACE_KERNELS})} "
+          f"wrapper_launches={json.dumps({n: counts[n] for n in GENERATE_TRACE})} "
           f"phase_s={time.perf_counter() - t_phase!r}")
 
 
@@ -5429,6 +5555,8 @@ def main() -> None:
 
     # ---- 10. training at the flagship width ----
     trained = train_phases(reset_counts, read_counts)
+    phase_done()
+    train_measurement_phase(trained["stage1_trainable"], reset_counts, read_counts)
     phase_done()
 
     # ---- 10b-d. the MOSA, MoE and QFormer presets; stage 3; convergence ----

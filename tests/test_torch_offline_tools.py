@@ -155,7 +155,7 @@ def vad_runs():
 
     from tiny_audio_tpu_torch.bridge import load_flax_tower, tower_flax_tree
 
-    port = train_vad.init_vadnet(0)
+    port = train_vad.init_vadnet(0, device="cpu")
     load_flax_tower(port, init)
     trainer = train_vad.VadTrainer(port)
     losses = [trainer.step(*b) for b in batches]

@@ -45,8 +45,9 @@ def mesh_devices(n: int, device: str) -> tuple[list[str], str]:
     return ["cuda:0"] * n, "gloo"
 
 
-def run(n: int, tp: int, device: str = "cpu", log=print) -> dict:
-    """One pass at ``(n / tp, tp)``; returns the step's metrics."""
+def run(n: int, tp: int, device: str = "cuda", log=print) -> dict:
+    """One pass at ``(n / tp, tp)`` on the card (``device="cpu"``: CPU ranks
+    over gloo); returns the step's metrics."""
     from tiny_audio_tpu_torch.batching import DynamicBatcher
     from tiny_audio_tpu_torch.config import tiny_test_config
     from tiny_audio_tpu_torch.handler import EndpointHandler

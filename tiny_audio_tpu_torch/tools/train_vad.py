@@ -215,12 +215,15 @@ class ExampleFactory:
 # ------------------------------------------------------------------- training
 
 
-def init_vadnet(seed: int = SEED, device="cpu"):
+def init_vadnet(seed: int = SEED, device="cuda"):
     """A ``VADNet`` with flax's initializers, drawn from ``seed``: lecun-normal
     (truncated) conv, Dense and GRU input kernels, orthogonal GRU recurrent
-    kernels, zero biases (the r and z hidden biases among them)."""
+    kernels, zero biases (the r and z hidden biases among them).  The draws
+    are made on the CPU; the net is returned on ``device`` (the card unless
+    the caller asks for ``"cpu"``)."""
     from torch import nn
 
+    from tiny_audio_tpu_torch.device import require_device
     from tiny_audio_tpu_torch.vad import VADNet
 
     g = torch.Generator().manual_seed(seed)
@@ -240,7 +243,7 @@ def init_vadnet(seed: int = SEED, device="cpu"):
                     module.weight_hh_l0[rows] = q * torch.sign(torch.diagonal(r))
                 module.bias_ih_l0.zero_()
                 module.bias_hh_l0.zero_()
-    return net.to(device)
+    return net.to(require_device(device))
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
@@ -292,10 +295,9 @@ def train(steps: int = N_STEPS, n_utts: int = N_UTTS, batch: int = BATCH, seed: 
     device = require_device(device)
     rng = np.random.default_rng(seed)
     factory = ExampleFactory(rng, n_utts, log=log)
-    net = init_vadnet(seed)
+    net = init_vadnet(seed, device)
     if init is not None:
         load_flax_tower(net, init)
-    net = net.to(device)
     log(f"[train] VADNet params: {sum(p.numel() for p in net.parameters()):,}")
     trainer = VadTrainer(net, steps)
     losses, step_ms = [], []
