@@ -29,6 +29,13 @@ flagship width (random weights from seed 0, int8 KV cache):
   128 tokens), and one warm ``generate`` traced by ``utils/profiling.trace``:
   the trace must hold the CUDA kernel events of #1, #2 and #4 under the
   port's kernel names, as many as their wrappers counted;
+- ``python -m tiny_audio_tpu_torch.bench`` in a child process at
+  ``TA_BENCH_BATCH=4`` (int8 KV): exit 0, the kernels loaded and not built
+  again, its launches of #1, #2 and #4 in the laps, the latency calls and
+  the streaming calls (#1 32 and #2 28 a call, #4 a multiple of 28), and
+  its JSON line: metric ``rtfx_e2e_30s_b4_decode128``, a value that is
+  ``4 * 30 / wall_s_per_batch`` to its rounding, ``backend == "cuda"``, a
+  first streamed token sooner than a whole utterance;
 - ``generate`` again under each int8 decode mode (``enable_wq_decode``:
   kernel #6; ``enable_w8a8_head`` and ``enable_w8a8_decode``: kernel #5);
 - the HTTP server: ``save_pretrained`` of the flagship model,
@@ -219,6 +226,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -276,6 +284,7 @@ TRAIN_BATCH = 6  # configs/training/production.yaml's per_device_batch_size
 TRAIN_CLIP_S = (10.0, 30.0)
 TRAIN_STEPS = 10  # stage 1 on one repeated batch
 TRAIN_LR = 1e-3
+BENCH_TIMEOUT_S = 240  # the bench's child at B = 4 (its phase is held under 120 s)
 HOST_ROWS = 24  # tools/bench_host_pipeline's rows in the smoke (the tool's default: 96)
 
 # H100 SXM peaks at its 700 W limit (NVIDIA's data sheet; dense rates)
@@ -5142,6 +5151,76 @@ def measurement_phase(model, no_int8: dict, reset_counts, read_counts) -> None:
           f"phase_s={time.perf_counter() - t_phase!r}")
 
 
+def bench_phase() -> dict:
+    """``python -m tiny_audio_tpu_torch.bench`` in a child process at
+    ``TA_BENCH_BATCH=BATCH`` and the other defaults (int8 KV, bf16 decode):
+    it must exit 0 within ``BENCH_TIMEOUT_S``, load the kernel library this
+    run built (not build it), launch #1 ``n_enc`` and #2 ``n_dec`` times a
+    call and #4 a multiple of ``n_dec`` (up to 127 steps) in its laps and
+    latency calls, #1 and #2 alone in its streaming calls (the first token
+    is the prefill's), no int8 product, and print the JAX bench's line with
+    a value consistent with its wall, on the card, with the first token
+    sooner than a whole 10 s utterance.  Returns the line and the counts."""
+    from tiny_audio_tpu_torch import bench, kernels
+    from tiny_audio_tpu_torch.config import ASRConfig
+
+    t0 = time.perf_counter()
+    root = str(Path(kernels.__file__).resolve().parents[1])
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("TA_BENCH_KV", "TA_WQ_DECODE", "TA_W8A8_DECODE")}
+    env["TA_BENCH_BATCH"] = str(BATCH)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    try:
+        proc = subprocess.run([sys.executable, "-m", "tiny_audio_tpu_torch.bench"], cwd=root,
+                              env=env, capture_output=True, text=True,
+                              timeout=BENCH_TIMEOUT_S, stdin=subprocess.DEVNULL)
+    except subprocess.TimeoutExpired:
+        fail(f"python -m tiny_audio_tpu_torch.bench gave no result in {BENCH_TIMEOUT_S} s")
+    phase_s = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"python -m tiny_audio_tpu_torch.bench exited {proc.returncode}:\n"
+             f"{(proc.stdout + proc.stderr)[-3000:]}")
+    kernels_line = next((ln for ln in lines if ln.startswith("kernels ")), "")
+    if not kernels_line.startswith(f"kernels loaded {kernels.build()[0].parent.name} "):
+        fail(f"the bench did not load the kernels this run built: {kernels_line!r}")
+    launches_line = next((ln for ln in lines if ln.startswith("launches ")), None)
+    if launches_line is None:
+        fail(f"the bench printed no launches line: {lines}")
+    counts = json.loads(launches_line[len("launches "):])
+    line = json.loads(lines[-1])
+    cfg = ASRConfig()
+    n_enc, n_dec, steps = cfg.encoder.num_layers, cfg.decoder.num_layers, cfg.max_new_tokens - 1
+    for part, calls in (("laps", bench.ITERS + 1), ("latency", bench.REPS + 1),
+                        ("stream", bench.REPS + 1)):
+        c = counts.get(part, {})
+        n4 = c.get("decode_attention_update", -1)
+        decode_ok = (n4 == 0 if part == "stream"
+                     else 0 < n4 <= calls * n_dec * steps and n4 % n_dec == 0)
+        if (c.get("encoder_attention"), c.get("prefill_attention")) != (
+                calls * n_enc, calls * n_dec) or not decode_ok or any(
+                c.get(name) for name in ("decode_attention", "w8a8_matmul", "wq_matmul")):
+            fail(f"the bench's {part} launched {c} in {calls} calls")
+    extra = line.get("extra", {})
+    wall = extra.get("wall_s_per_batch", 0)
+    audio_s = BATCH * CLIP_S
+    if line.get("metric") != f"rtfx_e2e_30s_b{BATCH}_decode{MAX_NEW}" or not (
+            line.get("value", 0) > 0 and wall > 5e-4
+            and audio_s / (wall + 5e-4) - 5e-3 <= line["value"] <= audio_s / (wall - 5e-4) + 5e-3):
+        fail(f"the bench's line is not the JAX bench's at B = {BATCH}: {line}")
+    if (extra.get("backend"), extra.get("kv_cache_dtype"), extra.get("wq_decode")) != (
+            "cuda", "int8", False) or not (
+            0 < extra.get("streaming_ttfb_s", 0) < extra.get("p50_utterance_latency_s", 0)):
+        fail(f"the bench's extras are out of range: {extra}")
+    print(f"bench {kernels_line}")
+    print(f"bench launches={json.dumps(counts)}")
+    print(f"bench line={json.dumps(line)}")
+    print(f"bench batch={BATCH} (python -m tiny_audio_tpu_torch.bench, child process) "
+          f"phase_s={phase_s!r}")
+    return {"line": line, "launches": counts, "phase_s": phase_s}
+
+
 def kernel_wrappers() -> dict:
     """Every kernel's wrapper by name; each counts its launches in
     ``.launches``."""
@@ -5434,6 +5513,10 @@ def main() -> None:
     measurement_phase(model, no_int8, reset_counts, read_counts)
     phase_done()
 
+    # ---- 7a'. the bench in a child process ----
+    bench_run = bench_phase()
+    phase_done()
+
     # ---- 7b. sampling, beams and n-gram bans at the flagship ----
     decoding_modes_phase(model, pipe, audio, no_int8, reset_counts, read_counts)
     phase_done()
@@ -5603,6 +5686,10 @@ def main() -> None:
     int8_source = "tiny_audio_tpu_torch/csrc/int8_matmul.cu"
     launches = {**results["fused"]["counts"],
                 "decode_attention": results["module"]["counts"]["decode_attention"]}
+    # the bench child's launches (laps, latency and streaming calls together)
+    bench_launches = {name: sum(part[name] for part in bench_run["launches"].values())
+                      for name in ("encoder_attention", "prefill_attention",
+                                   "decode_attention_update")}
     # #5 and #6 at the head, B = 4, from a CUDA graph at a cold L2
     int8_head = {kern: {key: int8_graph[("head", BATCH)][kern][key]
                         for key in ("ms", "bound_ms", "bound_by")}
@@ -5610,13 +5697,15 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": "encoder_attention", "route": "cuda", "source": source,
          "replaces": "tiny_audio_tpu/ops/encoder_attention.py:159",
-         "launches": launches["encoder_attention"], **enc_path,
+         "launches": launches["encoder_attention"],
+         "bench_launches": bench_launches["encoder_attention"], **enc_path,
          "tp2_launches_per_rank": parallel["launches"]["encoder_attention"],
          "max_abs_err": max(enc["max_abs_err"], enc_path["max_abs_err"],
                             parallel["stats"]["encoder_attention"]["max_abs_err"])},
         {"name": "prefill_attention", "route": "cuda", "source": source,
          "replaces": "tiny_audio_tpu/ops/attention.py:65",
-         "launches": launches["prefill_attention"], **pre_path,
+         "launches": launches["prefill_attention"],
+         "bench_launches": bench_launches["prefill_attention"], **pre_path,
          "tp2_launches_per_rank": parallel["launches"]["prefill_attention"],
          "max_abs_err": max(pre["max_abs_err"], pre_shapes["prefill_attention"],
                             pre_path["max_abs_err"],
@@ -5631,7 +5720,8 @@ def main() -> None:
                             dec_path["max_abs_err"])},
         {"name": "decode_attention_update", "route": "cuda", "source": decode_source,
          "replaces": "tiny_audio_tpu/ops/decode_attention.py:428",
-         "launches": launches["decode_attention_update"], **upd_path,
+         "launches": launches["decode_attention_update"],
+         "bench_launches": bench_launches["decode_attention_update"], **upd_path,
          "ms": dec_graph[("int8", BATCH, 468)]["decode_attention_update"]["ms"],
          "per_row_ms": dec_rows["int8"]["times"]["rows"]["decode_attention_update"],
          "tp2_launches_per_rank": parallel["launches"]["decode_attention_update"],
