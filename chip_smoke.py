@@ -101,7 +101,9 @@ flagship width (random weights from seed 0, int8 KV cache):
   latency, launches of #1, #2 and #4 a final; a final for every turn, no
   second final, no partial after its final), one 8 kHz session with
   timestamps, speakers and confidence, and one session on the tiny fp32
-  towers giving the CPU's messages; then the eval harness: ``run_eval``
+  towers giving the CPU's messages (before it, on the same server, one
+  binary message of ``MAX_SIZE + 1`` bytes refused with close 1009); then
+  the eval harness: ``run_eval``
   over the tiny fp32 towers with the ``local``, ``local-streaming`` and
   ``realtime`` backends (WER equal to the CPU's), ``synthetic-diarization``
   and ``synthetic-alignment``, and ``tools/bench_quality``'s DER and
@@ -4150,9 +4152,35 @@ def realtime_phase(model, pipe, no_int8: dict, reset_counts, read_counts) -> dic
     return per_final
 
 
+def refused_realtime_session(server) -> None:
+    """One session that sends a single binary message of ``MAX_SIZE + 1``
+    bytes: the client must read the server's Begin, then close 1009 (no
+    send failure, no 1006), and the server must swallow no failure."""
+    from tiny_audio_tpu_torch.utils.websocket import MAX_SIZE, ConnectionClosed, connect
+
+    t0 = time.perf_counter()
+    msgs, closed = [], None
+    with connect(f"ws://127.0.0.1:{server.port}/ws?sample_rate=16000") as ws:
+        ws.send(b"\0" * (MAX_SIZE + 1))
+        try:
+            while True:
+                msgs.append(json.loads(ws.recv(timeout=30))["type"])
+        except ConnectionClosed as e:
+            closed = (e.code, e.reason)
+    wall = time.perf_counter() - t0
+    print(f"realtime refused message_bytes={MAX_SIZE + 1} close={json.dumps(closed)} "
+          f"messages_before={json.dumps(msgs)} swallowed_errors={len(server.errors())} "
+          f"wall_s={wall!r}")
+    if closed is None or closed[0] != 1009 or msgs != ["Begin"] or server.errors():
+        fail(f"realtime refused session: close {closed} after {msgs}, the server "
+             f"swallowed {server.errors()}")
+
+
 def tiny_realtime_session(reset_counts, read_counts) -> None:
     """One session on the tiny fp32 towers on the card and on the CPU (the
-    same weights, the neural stream VAD, finals only): the same messages."""
+    same weights, the neural stream VAD, finals only): the same messages.
+    On the card the server first refuses a message over ``MAX_SIZE``
+    (:func:`refused_realtime_session`) and then serves the session."""
     from tiny_audio_tpu_torch.config import tiny_test_config
     from tiny_audio_tpu_torch.models.asr import ASRModel
     from tiny_audio_tpu_torch.pipeline import ASRPipeline
@@ -4170,6 +4198,8 @@ def tiny_realtime_session(reset_counts, read_counts) -> None:
     for where, model in models.items():
         server = RealtimeServer(ASRPipeline(model), host="127.0.0.1", port=0,
                                 partial_every_s=None).start()
+        if where == "cuda":
+            refused_realtime_session(server)
         reset_counts()
         msgs = []
         with connect(f"ws://127.0.0.1:{server.port}/ws?sample_rate=16000") as ws:

@@ -6,7 +6,9 @@ with its code, the refusals (an unmasked client frame, a message over
 never interleaving, and ``shutdown()`` ending ``serve_forever`` with a
 session open.  Interoperation: the port's server driven by
 ``websockets.sync.client`` and by ``websocket-client``, and the port's client
-against a ``websockets.sync.server``.
+against a ``websockets.sync.server``.  Refusals while the client is still
+sending, held against ``websockets.sync.server`` (the JAX package's
+transport): the client's sends complete, it reads the close code, then EOF.
 """
 
 import base64
@@ -394,3 +396,84 @@ def test_port_client_sees_websockets_server_close_code():
             assert (e.value.code, e.value.reason) == (4001, "bye")
     finally:
         server.shutdown()
+
+
+# ------------------------------------------- refusals while the client sends
+
+PIECE = 64 * 1024  # the raw client sends in pieces of this size ...
+PIECE_GAP_S = 0.01  # ... this far apart, so the refusal lands mid-stream
+
+
+def _more_data() -> bytes:
+    """What a client sends on after the frame that is refused."""
+    return b"".join(encode_frame(ws_mod.OP_BINARY, b"m" * 60000, mask=MASK) for _ in range(8))
+
+
+def _refused_stream(case: str) -> tuple[bytes, int]:
+    """The bytes a client sends for ``case`` and the close code they earn."""
+    if case == "too_big_on_the_header":
+        return encode_frame(ws_mod.OP_BINARY, b"x" * (ws_mod.MAX_SIZE + 1), mask=MASK), 1009
+    if case == "too_big_in_fragments":  # over MAX_SIZE at the fifth of six fragments
+        part = b"x" * (ws_mod.MAX_SIZE // 4)
+        frames = [encode_frame(ws_mod.OP_BINARY if i == 0 else ws_mod.OP_CONT, part,
+                               fin=False, mask=MASK) for i in range(6)]
+        return b"".join(frames), 1009
+    if case == "unmasked":
+        return encode_frame(ws_mod.OP_BINARY, b"unmasked") + _more_data(), 1002
+    if case == "not_utf8":
+        return encode_frame(ws_mod.OP_TEXT, b"\xff\xfe", mask=MASK) + _more_data(), 1007
+    assert case == "handler_error"
+    return encode_frame(ws_mod.OP_TEXT, b"raise", mask=MASK) + _more_data(), 1011
+
+
+def _failing_handler(ws):
+    for msg in ws:
+        if msg == "raise":
+            raise RuntimeError("the handler failed")
+
+
+@pytest.fixture(params=["websockets", "port"])
+def refusing_server(request):
+    """A server running ``_failing_handler``: ``websockets.sync.server`` as
+    the JAX package serves (no keepalive ping, a short close timeout), or
+    the port's ``serve``.  Yields its port."""
+    if request.param == "websockets":
+        sync_server = pytest.importorskip("websockets.sync.server")
+        server = sync_server.serve(_failing_handler, "127.0.0.1", 0, ping_interval=None,
+                                   close_timeout=1)
+    else:
+        server = serve(_failing_handler, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    yield server.socket.getsockname()[1]
+    server.shutdown()
+    thread.join(5)
+
+
+@pytest.mark.parametrize("case", ["too_big_on_the_header", "too_big_in_fragments", "unmasked",
+                                  "not_utf8", "handler_error"])
+def test_refusal_reaches_a_client_still_sending(refusing_server, case):
+    stream, code = _refused_stream(case)
+    raw = RawClient(refusing_server)
+    try:
+        for i in range(0, len(stream), PIECE):
+            raw.send(stream[i:i + PIECE])  # an OSError here is the reset this test forbids
+            time.sleep(PIECE_GAP_S)
+        fin, op, payload, masked = raw.frame()
+        assert op == ws_mod.OP_CLOSE and not masked
+        assert struct.unpack("!H", payload[:2])[0] == code
+        raw.send(encode_frame(ws_mod.OP_CLOSE, payload[:2], mask=MASK))  # answer it
+        raw.sock.settimeout(2.0)
+        assert raw.frame() is None  # EOF within 2 s, not a reset
+    finally:
+        raw.sock.close()
+
+
+def test_port_client_sees_1009_for_a_message_too_big(echo_server):
+    url = f"ws://127.0.0.1:{_port(echo_server)}/"
+    for _ in range(20):
+        with connect(url) as ws:
+            ws.send(b"x" * (ws_mod.MAX_SIZE + 1))
+            with pytest.raises(ConnectionClosedError) as e:
+                ws.recv(timeout=5)
+            assert e.value.code == 1009, (e.value.code, e.value.reason)

@@ -27,6 +27,17 @@ is not UTF-8 refused (close 1007).  Sends take a lock per connection, so
 frames sent from several threads never interleave.  Neither side sends a
 keepalive ping of its own.  :meth:`Server.shutdown` stops the accept loop
 and closes every live connection with 1001.
+
+A refused connection (1002, 1007, 1009) fails as RFC 6455 section 7.1.7 and
+``websockets`` fail it: the close frame goes out, a server then half-closes
+its side so that the peer reads EOF right after the frame, and no further
+frame is parsed.  ``recv`` raises :class:`ConnectionClosedError` at once;
+``close()`` (which the server calls when the handler returns) discards what
+the peer still sends, up to its EOF or ``CLOSE_TIMEOUT``, and only then
+releases the socket.  A socket closed over unread bytes would answer the
+peer's next segments with a TCP reset, and a peer still sending would see
+its send fail instead of the close code.  A handler that raises closes with
+1011 the same way, through ``close()``.
 """
 
 from __future__ import annotations
@@ -301,6 +312,7 @@ class Connection:
         self._frag: list = []
         self._frag_size = 0
         self._close_sent = False
+        self._failed = False  # refused: no frame is parsed any more
         self._closed = threading.Event()  # the close handshake ended or the TCP link did
         self.close_code: Optional[int] = None
         self.close_reason = ""
@@ -340,7 +352,7 @@ class Connection:
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._recv_lock:
             while True:
-                if self._closed.is_set():
+                if self._closed.is_set() or self._failed:
                     raise _closed(self.close_code or CLOSE_ABNORMAL, self.close_reason)
                 try:
                     message = self._on_frame(*self._next_frame(deadline))
@@ -457,7 +469,8 @@ class Connection:
 
     def close(self, code: int = CLOSE_NORMAL, reason: str = "") -> None:
         """Start the close handshake (if neither side has), wait up to
-        ``CLOSE_TIMEOUT`` for the peer's close frame, then end the TCP
+        ``CLOSE_TIMEOUT`` for the peer's close frame (once the connection
+        failed: for the peer's EOF, discarding its bytes), then end the TCP
         connection."""
         with self._state_lock:
             if self.close_code is None:
@@ -471,10 +484,18 @@ class Connection:
                 try:  # nobody else is reading: drain up to the peer's close frame
                     deadline = time.monotonic() + CLOSE_TIMEOUT
                     while not self._closed.is_set():
-                        frame = self._next_frame(deadline)
+                        if self._failed:  # parse nothing: discard up to the peer's EOF
+                            self._buf.clear()
+                            self._fill(deadline)
+                            continue
+                        try:
+                            frame = self._next_frame(deadline)
+                        except ProtocolError as e:
+                            self._fail(e.code, e.reason)
+                            continue
                         if frame[1] == OP_CLOSE:
                             self._closed.set()
-                except (ConnectionClosed, ProtocolError, TimeoutError):
+                except (ConnectionClosed, TimeoutError):
                     pass
                 finally:
                     self._recv_lock.release()
@@ -504,15 +525,24 @@ class Connection:
         self._release()
 
     def _fail(self, code: int, reason: str) -> None:
-        """A protocol fault: close with ``code`` and drop the connection."""
+        """A protocol fault: send the close frame with ``code`` and parse
+        nothing more.  A server half-closes (a client waits for the server
+        to end the TCP connection); the socket stays open until
+        :meth:`close` has discarded what the peer still sends."""
         with self._state_lock:
             if self.close_code is None:
                 self.close_code, self.close_reason = code, reason
+            self._failed = True
         try:
             self._send_frame(OP_CLOSE, close_payload(code, reason))
         except ConnectionClosed:
             pass
-        self._release()
+        if not self.client:
+            with self._send_lock:  # after any frame still being sent
+                try:
+                    self.socket.shutdown(socket.SHUT_WR)
+                except OSError:
+                    pass
 
     def _lost(self) -> None:
         with self._state_lock:
@@ -598,15 +628,15 @@ class Server:
                     ws.abort()
                     return
                 self._live.add(ws)
+            code, reason = CLOSE_NORMAL, ""
             try:
                 self.handler(ws)
             except ConnectionClosed:
                 pass
             except Exception:
                 logging.getLogger(__name__).exception("connection handler failed")
-                ws.abort(CLOSE_INTERNAL_ERROR, "handler error")
-                return
-            ws.close()
+                code, reason = CLOSE_INTERNAL_ERROR, "handler error"
+            ws.close(code, reason)
         except (InvalidHandshake, OSError):
             sock.close()
         finally:
