@@ -43,6 +43,7 @@ import torch
 from tiny_audio_tpu_torch.models.decoder import Qwen3Decoder
 from tiny_audio_tpu_torch.models.layers import draw_for_rows
 from tiny_audio_tpu_torch.ops.fused_decode import fused_decode_step
+from tiny_audio_tpu_torch.utils.profiling import span, sync
 
 
 @dataclass(frozen=True)
@@ -257,54 +258,62 @@ def generate_tokens(
     s = _cache_len(t, max_new)
     cache = decoder.init_cache(b, s)
 
-    # ---- prefill (fills the cache in place) ----
+    # ---- prefill (fills the cache in place) and the first pick ----
     # No key-padding mask: the pad rows lie after the real ones, so the
     # causal mask already hides them from every real row.
-    positions = torch.arange(t, device=device).expand(b, t)
-    logits = decoder(
-        inputs_embeds, positions, cache=cache, cache_index=0,
-        last_logit_index=prompt_len - 1,
-    )
-    last_logits = logits[:, 0].to(torch.float32)
+    with span("prefill", rows=b):
+        positions = torch.arange(t, device=device).expand(b, t)
+        logits = decoder(
+            inputs_embeds, positions, cache=cache, cache_index=0,
+            last_logit_index=prompt_len - 1,
+        )
+        last_logits = logits[:, 0].to(torch.float32)
 
-    seen = _prompt_seen(gen, input_ids, prompt_len, decoder.cfg.vocab_size)
-    ring = _token_ring(gen, input_ids)
-    eos_ids = torch.tensor(gen.eos_token_ids, dtype=torch.long, device=device)
+        seen = _prompt_seen(gen, input_ids, prompt_len, decoder.cfg.vocab_size)
+        ring = _token_ring(gen, input_ids)
+        with sync("eos_ids"):  # a copy from pageable host memory waits for the stream
+            eos_ids = torch.tensor(gen.eos_token_ids, dtype=torch.long, device=device)
 
-    def is_eos(tok):
-        return torch.isin(tok.long(), eos_ids)
+        def is_eos(tok):
+            return torch.isin(tok.long(), eos_ids)
 
-    tok = _pick(last_logits, gen, seen, 0, eos_ids, ring, prompt_len, generator)
-    finished = is_eos(tok)
-    tokens = torch.full((b, max_new), gen.pad_token_id, dtype=torch.int32, device=device)
-    tokens[:, 0] = tok
-    lengths = torch.ones((b,), dtype=torch.int32, device=device)  # incl. the EOS
-    _mark_seen(seen, tok)
-    if ring is not None:
-        ring[:, prompt_len] = tok
-    logp_sum = None
-    if gen.return_scores:
-        logp0 = torch.log_softmax(last_logits, dim=-1)
-        logp_sum = logp0.gather(1, tok.long()[:, None])[:, 0]
-
-    kv_index = torch.arange(s, device=device)
-    step = 1
-    while step < max_new and not bool(finished.all()):
-        pos = prompt_len + step - 1  # position of the token being fed
-        logits_f32 = _step_logits(decoder, tok, pos, cache, kv_index, fused_decode)
-        tok = _pick(logits_f32, gen, seen, step, eos_ids, ring, prompt_len + step, generator)
-        tok = torch.where(finished, gen.pad_token_id, tok)  # finished rows emit pad
-        tokens[:, step] = tok
-        if gen.return_scores:
-            logp = torch.log_softmax(logits_f32, dim=-1)
-            logp_tok = logp.gather(1, tok.long()[:, None])[:, 0]
-            logp_sum = logp_sum + torch.where(finished, 0.0, logp_tok)
-        lengths = torch.where(finished, lengths, step + 1)
-        finished = finished | is_eos(tok)
+        tok = _pick(last_logits, gen, seen, 0, eos_ids, ring, prompt_len, generator)
+        finished = is_eos(tok)
+        tokens = torch.full((b, max_new), gen.pad_token_id, dtype=torch.int32, device=device)
+        tokens[:, 0] = tok
+        lengths = torch.ones((b,), dtype=torch.int32, device=device)  # incl. the EOS
         _mark_seen(seen, tok)
         if ring is not None:
-            ring[:, prompt_len + step] = tok
-        step += 1
+            ring[:, prompt_len] = tok
+        logp_sum = None
+        if gen.return_scores:
+            logp0 = torch.log_softmax(last_logits, dim=-1)
+            logp_sum = logp0.gather(1, tok.long()[:, None])[:, 0]
+        done = max_new <= 1 or _all_finished(finished)
+
+    # each step ends with the read that decides whether the next one runs
+    # (none after the last): the reads and tokens of a `while not all
+    # finished` loop, each read inside the step whose work it waits for
+    kv_index = torch.arange(s, device=device)
+    step = 1
+    while not done:
+        with span("decode_step"):
+            pos = prompt_len + step - 1  # position of the token being fed
+            logits_f32 = _step_logits(decoder, tok, pos, cache, kv_index, fused_decode)
+            tok = _pick(logits_f32, gen, seen, step, eos_ids, ring, prompt_len + step, generator)
+            tok = torch.where(finished, gen.pad_token_id, tok)  # finished rows emit pad
+            tokens[:, step] = tok
+            if gen.return_scores:
+                logp = torch.log_softmax(logits_f32, dim=-1)
+                logp_tok = logp.gather(1, tok.long()[:, None])[:, 0]
+                logp_sum = logp_sum + torch.where(finished, 0.0, logp_tok)
+            lengths = torch.where(finished, lengths, step + 1)
+            finished = finished | is_eos(tok)
+            _mark_seen(seen, tok)
+            if ring is not None:
+                ring[:, prompt_len + step] = tok
+            step += 1
+            done = step >= max_new or _all_finished(finished)
 
     # rows still unfinished ran the full budget (loop-tracked: correct even
     # when pad_token_id is itself an EOS id, as with the byte tokenizer)
@@ -313,6 +322,12 @@ def generate_tokens(
         scores = logp_sum / torch.clamp(lengths, min=1).to(torch.float32)
         return tokens, lengths, scores
     return tokens, lengths
+
+
+def _all_finished(finished: torch.Tensor) -> bool:
+    """The decode loop's per-step host read: has every row ended?"""
+    with sync("finished"):
+        return bool(finished.all())
 
 
 def _module_step(decoder: Qwen3Decoder, tok: torch.Tensor, pos: int, cache: dict,

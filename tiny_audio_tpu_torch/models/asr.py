@@ -44,6 +44,7 @@ from tiny_audio_tpu_torch.config import ASRConfig, compute_encoder_output_length
 from tiny_audio_tpu_torch.device import require_device
 from tiny_audio_tpu_torch.tokenization import AUDIO_TOKEN, ByteTokenizer, HFTokenizerAdapter
 from tiny_audio_tpu_torch.utils import msgpack_io
+from tiny_audio_tpu_torch.utils.profiling import span, sync
 from tiny_audio_tpu_torch.generation import (
     GenerationConfig,
     generate_beams,
@@ -350,15 +351,17 @@ class ASRModel(nn.Module):
         projector's 0-d fp32 aux loss).  Train-mode draws come from
         ``generator``."""
         dev = self.device
-        with torch.no_grad():
-            hidden = self.encoder(torch.as_tensor(input_features, device=dev),
-                                  frame_mask=torch.as_tensor(audio_attention_mask, device=dev))
-        p = float(self.config.audio_token_dropout)
-        if train and p > 0.0:
-            keep = draw_for_rows(hidden.shape[:-1], lambda shape: torch.bernoulli(
-                torch.full(shape, 1.0 - p, device=dev), generator=generator))
-            hidden = hidden * keep[..., None].to(hidden.dtype)
-        return self.projector(hidden, train=train, generator=generator)
+        with span("encode"):
+            with torch.no_grad():
+                hidden = self.encoder(torch.as_tensor(input_features, device=dev),
+                                      frame_mask=torch.as_tensor(audio_attention_mask,
+                                                                 device=dev))
+            p = float(self.config.audio_token_dropout)
+            if train and p > 0.0:
+                keep = draw_for_rows(hidden.shape[:-1], lambda shape: torch.bernoulli(
+                    torch.full(shape, 1.0 - p, device=dev), generator=generator))
+                hidden = hidden * keep[..., None].to(hidden.dtype)
+            return self.projector(hidden, train=train, generator=generator)
 
     def _splice_embeds(self, input_features, audio_attention_mask,
                        input_ids: torch.Tensor) -> torch.Tensor:
@@ -405,7 +408,14 @@ class ASRModel(nn.Module):
 
     def _loss(self, batch: dict, train: bool, generator, dp) -> tuple:
         dev = self.device
-        as_long = lambda x: torch.as_tensor(x, device=dev).long()  # noqa: E731
+
+        def as_long(x):
+            if isinstance(x, torch.Tensor) and x.device.type == dev.type:
+                # no host read: a card's tensor moves to the model's card, if another
+                return torch.as_tensor(x, device=dev).long()
+            with sync("batch"):  # a copy from pageable host memory waits for the stream
+                return torch.as_tensor(x, device=dev).long()
+
         input_ids, labels, attn = (as_long(batch[key]) for key in
                                    ("input_ids", "labels", "attention_mask"))
         audio_embeds, aux = self._encode_audio(batch["input_features"],
@@ -418,22 +428,23 @@ class ASRModel(nn.Module):
         positions = torch.clamp(torch.cumsum(attn, dim=1) - 1, min=0)
         logits = self.decoder(inputs_embeds, positions, padding_mask=attn, vocab_parallel=True)
 
-        # shift: predict token t+1 from position t
-        shift_labels = labels[:, 1:]
-        valid = shift_labels != -100
-        safe_labels = torch.where(valid, shift_labels, 0)
-        tp = self.decoder.tp
-        if tp is None or tp.size == 1:
-            logprobs = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-            token_ll = torch.gather(logprobs, -1, safe_labels[..., None])[..., 0]
-        else:
-            token_ll = self._vocab_parallel_ll(logits[:, :-1].float(), safe_labels)
-        n_valid = valid.sum()
-        if dp is None:
-            ce = -(token_ll * valid).sum() / torch.clamp(n_valid, min=1)
-        else:
-            n_valid = dp.all_reduce(n_valid)
-            ce = tp_reduce(-(token_ll * valid).sum() / torch.clamp(n_valid, min=1), dp)
+        with span("ce_loss"):
+            # shift: predict token t+1 from position t
+            shift_labels = labels[:, 1:]
+            valid = shift_labels != -100
+            safe_labels = torch.where(valid, shift_labels, 0)
+            tp = self.decoder.tp
+            if tp is None or tp.size == 1:
+                logprobs = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+                token_ll = torch.gather(logprobs, -1, safe_labels[..., None])[..., 0]
+            else:
+                token_ll = self._vocab_parallel_ll(logits[:, :-1].float(), safe_labels)
+            n_valid = valid.sum()
+            if dp is None:
+                ce = -(token_ll * valid).sum() / torch.clamp(n_valid, min=1)
+            else:
+                n_valid = dp.all_reduce(n_valid)
+                ce = tp_reduce(-(token_ll * valid).sum() / torch.clamp(n_valid, min=1), dp)
         return ce + aux, {"ce_loss": ce, "aux_loss": aux, "num_label_tokens": n_valid}
 
     def _vocab_parallel_ll(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -541,16 +552,18 @@ class ASRModel(nn.Module):
         input_features = torch.as_tensor(input_features, device=self.device)
         audio_attention_mask = torch.as_tensor(audio_attention_mask, device=self.device)
         n_rows = input_features.shape[0]
-        real_mel = (
-            int(mel_length) if mel_length is not None
-            else int(audio_attention_mask.sum(dim=-1).max())
-        )
-        (input_features, audio_attention_mask), rows = self._dp_split(
-            input_features, audio_attention_mask)
-        with batch_rows(rows):
-            return self._generate(input_features, audio_attention_mask, real_mel, n_rows,
-                                  user_prompt, system_prompt, fused_decode, generator,
-                                  overrides)
+        with span("generate", rows=n_rows):
+            if mel_length is not None:
+                real_mel = int(mel_length)
+            else:
+                with sync("mel_length"):
+                    real_mel = int(audio_attention_mask.sum(dim=-1).max())
+            (input_features, audio_attention_mask), rows = self._dp_split(
+                input_features, audio_attention_mask)
+            with batch_rows(rows):
+                return self._generate(input_features, audio_attention_mask, real_mel, n_rows,
+                                      user_prompt, system_prompt, fused_decode, generator,
+                                      overrides)
 
     def _prompt(self, input_features, audio_attention_mask, ids: list, n_audio: int,
                 pad_token_id: int, exact: bool = False):
@@ -564,7 +577,8 @@ class ASRModel(nn.Module):
         t_pad = t_real if exact else self._bucket_prompt_len(t_real, n_audio)
         ids_np = np.full((b, t_pad), pad_token_id, np.int64)
         ids_np[:, :t_real] = ids
-        input_ids = torch.from_numpy(ids_np).to(self.device)
+        with sync("prompt_ids"):  # a copy from pageable host memory waits for the stream
+            input_ids = torch.from_numpy(ids_np).to(self.device)
         prompt_mask = torch.arange(t_pad, device=self.device)[None, :] < t_real
 
         audio_embeds, _ = self._encode_audio(input_features, audio_attention_mask)
@@ -611,6 +625,11 @@ class ASRModel(nn.Module):
 
         inputs_embeds, input_ids, t_real = self._prompt(
             input_features, audio_attention_mask, ids, n_audio, gen.pad_token_id, exact=beams)
+
+        def fetch(t: torch.Tensor) -> np.ndarray:
+            with sync("fetch"):
+                return self._dp_gather(t, n_rows).cpu().numpy()
+
         if beams:
             wq, self.wq = self.wq, None  # beams keep full precision
             try:
@@ -618,14 +637,13 @@ class ASRModel(nn.Module):
                                            fused_decode=fused_decode)
             finally:
                 self.wq = wq
-            return self._dp_gather(tokens, n_rows).cpu().numpy()
+            return fetch(tokens)
         out = generate_tokens(self.decoder, inputs_embeds, input_ids, gen, prompt_len=t_real,
                               fused_decode=fused_decode, generator=generator)
         if gen.return_scores:
             tokens, _, scores = out
-            return (self._dp_gather(tokens, n_rows).cpu().numpy(),
-                    self._dp_gather(scores, n_rows).cpu().numpy())
-        return self._dp_gather(out[0], n_rows).cpu().numpy()
+            return fetch(tokens), fetch(scores)
+        return fetch(out[0])
 
     @mesh_stream
     @torch.inference_mode()

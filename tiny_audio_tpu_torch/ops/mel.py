@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tiny_audio_tpu_torch.utils.profiling import span
+
 SAMPLE_RATE = 16000
 N_FFT = 400
 HOP_LENGTH = 160
@@ -148,7 +150,9 @@ def log_mel_spectrogram(audio: torch.Tensor, num_mel_bins: int = 128) -> torch.T
         ``audio``'s device.
     """
     n_frames = audio.shape[1] // HOP_LENGTH
-    return normalize_log_spec(log_spec_from_padded(pad_audio(audio), n_frames, num_mel_bins))
+    with span("mel"):
+        return normalize_log_spec(log_spec_from_padded(pad_audio(audio), n_frames,
+                                                       num_mel_bins))
 
 
 def log_spec_from_padded(padded: torch.Tensor, n_frames: int, num_mel_bins: int) -> torch.Tensor:

@@ -19,6 +19,7 @@ import numpy as np
 
 from tiny_audio_tpu_torch.processing import ASRProcessor
 from tiny_audio_tpu_torch.utils.audio_io import read_wav, resample
+from tiny_audio_tpu_torch.utils.profiling import span
 
 _THINK_RE = re.compile(r"<think>.*?</think>\s*", flags=re.DOTALL)
 _MIN_REPEATS = 3
@@ -282,8 +283,9 @@ class ASRPipeline:
 
     def postprocess_tokens(self, tokens: Union[np.ndarray, list]) -> str:
         """EOS filter -> decode -> think-strip -> repetition truncation."""
-        eos = set(self.tokenizer.eos_token_ids) | {self.tokenizer.pad_token_id}
-        ids = [int(t) for t in np.asarray(tokens).reshape(-1) if int(t) not in eos]
-        text = self.tokenizer.decode(ids, skip_special_tokens=True).strip()
-        text = _strip_think(text)
-        return truncate_repetitions(text)
+        with span("postprocess"):
+            eos = set(self.tokenizer.eos_token_ids) | {self.tokenizer.pad_token_id}
+            ids = [int(t) for t in np.asarray(tokens).reshape(-1) if int(t) not in eos]
+            text = self.tokenizer.decode(ids, skip_special_tokens=True).strip()
+            text = _strip_think(text)
+            return truncate_repetitions(text)

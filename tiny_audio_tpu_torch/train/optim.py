@@ -38,6 +38,7 @@ import torch
 from tiny_audio_tpu_torch.models.asr import is_frozen
 from tiny_audio_tpu_torch.parallel.launch import message_class
 from tiny_audio_tpu_torch.parallel.mesh import grad_reduction, kv_replicas, slice_named, split_plans
+from tiny_audio_tpu_torch.utils.profiling import span, sync
 
 MAX_CONSECUTIVE_ERRORS = 100  # optax.apply_if_finite's budget in the JAX package
 GROUPS = ("other_decay", "other_nodecay", "decoder_decay", "decoder_nodecay")
@@ -228,10 +229,12 @@ class GroupedAdamW:
         parameter, reduced on a mesh).  Returns False when a non-finite
         gradient skipped it."""
         grads = {n: grads[n] for n in self.params}
-        if self.mesh_grads is None:
-            finite = bool(torch.stack([torch.isfinite(g).all() for g in grads.values()]).all())
-        else:
-            finite = self.mesh_grads.finite(grads)
+        with sync("finite"):
+            if self.mesh_grads is None:
+                finite = bool(torch.stack([torch.isfinite(g).all()
+                                           for g in grads.values()]).all())
+            else:
+                finite = self.mesh_grads.finite(grads)
         st = self.state
         st["notfinite_count"] = 0 if finite else st["notfinite_count"] + 1
         if not finite:
@@ -240,7 +243,9 @@ class GroupedAdamW:
                 return False
         opt = self.opt
         norm = self.grad_norm(grads)
-        if not bool(norm < opt.max_grad_norm):
+        with sync("clip"):
+            clip = not bool(norm < opt.max_grad_norm)
+        if clip:
             grads = {n: g / norm.to(g.dtype) * opt.max_grad_norm for n, g in grads.items()}
         b1, b2 = opt.adam_beta1, opt.adam_beta2
         lrs = {g: self.schedules[g](c) for g, c in st["count"].items()}
@@ -290,15 +295,18 @@ def build_optimizer(config, opt: OptimizerConfig, model: torch.nn.Module):
 def _loss_and_grads(model, optimizer: GroupedAdamW, batch: dict, generator):
     """Loss, metrics and the trainable parameters' gradients of one batch
     (frozen parameters take no gradient at all: ``requires_grad`` is off)."""
-    for p in optimizer.params.values():
-        p.grad = None
-    loss, metrics = model.compute_loss(batch, train=True, generator=generator)
-    loss.backward()
-    grads = {}
-    for name, p in optimizer.params.items():
-        grads[name] = p.grad if p.grad is not None else torch.zeros_like(p)
-        p.grad = None
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+    with span("micro_step"):
+        for p in optimizer.params.values():
+            p.grad = None
+        with span("forward"):
+            loss, metrics = model.compute_loss(batch, train=True, generator=generator)
+        with span("backward"):
+            loss.backward()
+        grads = {}
+        for name, p in optimizer.params.items():
+            grads[name] = p.grad if p.grad is not None else torch.zeros_like(p)
+            p.grad = None
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def make_train_step(model, optimizer: GroupedAdamW):
@@ -309,9 +317,10 @@ def make_train_step(model, optimizer: GroupedAdamW):
 
     def train_step(batch: dict, generator=None):
         loss, metrics, grads = _loss_and_grads(model, optimizer, batch, generator)
-        grads = optimizer.reduce(grads)
-        metrics["grad_norm"] = optimizer.grad_norm(grads)
-        optimizer.step(grads)
+        with span("update"):
+            grads = optimizer.reduce(grads)
+            metrics["grad_norm"] = optimizer.grad_norm(grads)
+            optimizer.step(grads)
         return loss, metrics
 
     return train_step
@@ -340,12 +349,13 @@ def make_accum_steps(model, optimizer: GroupedAdamW, accum_steps: int):
 
     def update_step(accum: dict, batch: dict, generator=None):
         loss, metrics = accumulate_step(accum, batch, generator)
-        mean = optimizer.reduce(
-            {n: (a * inv).to(optimizer.params[n].dtype) for n, a in accum.items()})
-        metrics["grad_norm"] = optimizer.grad_norm(mean)
-        optimizer.step(mean)
-        for a in accum.values():
-            a.zero_()
+        with span("update"):
+            mean = optimizer.reduce(
+                {n: (a * inv).to(optimizer.params[n].dtype) for n, a in accum.items()})
+            metrics["grad_norm"] = optimizer.grad_norm(mean)
+            optimizer.step(mean)
+            for a in accum.values():
+                a.zero_()
         return loss, metrics
 
     return accumulate_step, update_step
